@@ -5,19 +5,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
 
 1. prints the card's name and power limit;
-2. builds every kernel under ``src/repro_torch/kernels/csrc`` with nvcc;
-3. holds the plan kernel bit-exact against its plain PyTorch version on the
-   card (``api.run(impl="kernel")`` against ``impl="ref"``), both families,
-   over B in {64, 1024} and S in {7, 520, 8192} with random ``n_windows``,
-   ``w_start`` and ``init``;
-4. drives the dedup main path (``MinHashDeduper.add_batch``) over a 100,000
+2. builds every kernel under ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all started together;
+3. holds every kernel bit-exact against its plain PyTorch version on the
+   card: the plan kernel (``api.run(impl="kernel")`` against
+   ``impl="ref"``) for MinHash, HLL (b in {4, 12}, an explicit rank_bits),
+   CountMin (w in {12, 16}), Bloom (log2_m in {20, 22}), the stats plan
+   (HLL + CountMin) and a plan of all four, both families, B in {64, 1024},
+   S in {7, 520, 1024, 8192} (B=64, S=1024 is the ``DataPlane`` launch),
+   random ``n_windows``, ``w_start`` and ``init``; and ``ops.cyclic`` /
+   ``ops.general`` at n in {1, 8, 25, 32}, L in {16, 32}, among other shapes
+   at (1024, 64), the heavy-hitter query's, and (1024, 8192), the Fig. 1
+   pair's;
+4. drives the dedup path (``MinHashDeduper.add_batch``) over a 100,000
    document corpus with planted near-duplicates (CYCLIC) and over 20,000 of
    them (GENERAL), at the reference's published widths (n=8, L=32, k=64,
    16 bands): the kernel's launch count must rise, recall and precision
    against the planted truth must exceed 0.9, and 2,000 documents re-signed
    through the plain version on the card must give the same signatures;
-5. times add_batch end to end, the kernel per launch at the main path's
-   shape beside the plain version, and reckons the kernel's bound.
+5. drives the data-plane path at the defaults of ``StatsConfig`` and
+   ``DecontamConfig`` (n=8, L=32, HLL b=12, CountMin 4 x 2^16, Bloom 2^22
+   bits with k=4): ``NgramStats.update_stream_many`` over the deduplicated
+   corpus packed with EOS, in (8, 1024, 512) blocks, for CYCLIC and GENERAL,
+   with heavy-hitter queries through ``ops.cyclic`` / ``ops.general``, whose
+   counts must equal a plain-version twin's on the same state;
+   ``Decontaminator.flag`` over the packed stream in 512 x 1024 batches with
+   rows of a 500-document eval set planted; ``DataPlane.next_batch`` for 100
+   steps. Every kernel's launch count must rise. Then: the HLL estimate over
+   a 2 M-token prefix is within 0.1 of the exact distinct 8-gram count and
+   its registers and table equal a plain-version run on the card; every
+   planted row flags, other rows flag below 0.01, and the counts equal the
+   plain version's;
+6. times both paths end to end with the card's idle share, every kernel per
+   launch at its main path's shape beside its plain version, and reckons
+   each kernel's bound.
 
 It prints one JSON line describing each kernel and, last, the device line.
 Any failure raises and exits non-zero; without a CUDA card it exits 2.
@@ -38,12 +59,19 @@ SRC = ROOT / "src"
 # 132 x 128 x 2 x 1.98e9), and 3.35 TB/s of HBM3. Each SM issues integer
 # instructions to two pipes of 64 lanes a clock: the INT32 (ALU) pipe, which
 # runs logic, shifts and min/max, and the FMA pipe, which also runs IMAD.
+# Loads and atomics issue to the SM's 32 load/store units (4 partitions x 8
+# in the white paper's SM diagram): 32 lanes a clock.
 LANES_PER_S = 132 * 64 * 1.98e9     # one pipe, one instruction a lane-clock
+LSU_LANES_PER_S = 132 * 32 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
 K, N, L, BANDS = 64, 8, 32, 16
-STREAM_ROWS = 1024          # rows per launch on the dedup path
+STREAM_ROWS = 1024          # rows per launch on the dedup and stats paths
 CHUNK_S = 512               # the deduper's default stream_chunk_s
+BLOCK_T = 8                 # chunks per stats block
+DECON_ROWS, SEQ = 512, 1024  # decontam batch
+EVAL_DOCS, PLANTED = 500, 8  # eval set; planted rows per decontam batch
+PREFIX_COLS = 2048          # HLL accuracy prefix: 1024 rows x 2048 tokens
 
 
 def card_line() -> str:
@@ -90,81 +118,192 @@ def device_ms(torch, fn, iters: int):
     return sum(r[0] for r in rows) / 1e3 / iters, issue * 1e3 / iters
 
 
-def window_ops(plan) -> tuple:
-    """Fewest integer instructions the plan's function needs per valid
-    window, as (ALU-pipe, FMA-pipe) counts. The hash is counted in its
-    rolling form, one step per window: CYCLIC h' = rotl(h, 1) ^ rotl(out, n)
-    ^ in is two rotations (one funnel shift each at L = 32; two shifts below
-    it, with the OR and the mask folded into the XORs) and the XORs (one
-    three-input LOP3 at L = 32, two below); GENERAL h' = x*h ^ c*out ^ in
-    with c = x^n mod p is one shift-reduce step for x*h and one per further
-    bit of c (shift, sign spread, LOP3 at L = 32; two more below), one XOR
-    per set bit of c and one LOP3 to join the three. Then one AND for the
-    discard mask, and per signature lane one IMAD (a*h + b, FMA pipe) and
-    one IMNMX (the min, ALU pipe)."""
+def in_turns(torch, kern, plain, k_iters=200, p_iters=10):
+    """plain, kernel, kernel, plain: compare within one call, in turns.
+    Returns (kernel ms, plain ms, kernel host ms, the four readings)."""
+    (p1, _), (k1, kh), (k2, _), (p2, _) = (
+        device_ms(torch, plain, p_iters), device_ms(torch, kern, k_iters),
+        device_ms(torch, kern, k_iters), device_ms(torch, plain, p_iters))
+    return min(k1, k2), min(p1, p2), kh, (k1, k2, p1, p2)
+
+
+def hash_ops(hs) -> int:
+    """Fewest ALU-pipe instructions for one window hash in its rolling form,
+    one step per window: CYCLIC h' = rotl(h, 1) ^ rotl(out, n) ^ in is two
+    rotations (one funnel shift each at L = 32; two shifts below it, with
+    the OR and the mask folded into the XORs) and the XORs (one three-input
+    LOP3 at L = 32, two below); GENERAL h' = x*h ^ c*out ^ in with c = x^n
+    mod p is one shift-reduce step for x*h and one per further bit of c
+    (shift, sign spread, LOP3 at L = 32; two more below), one XOR per set
+    bit of c and one LOP3 to join the three."""
     from repro_torch.core.gf2 import x_pow_mod_host
-    hs = plan.hash
     full = hs.L == 32
     if hs.family == "cyclic":
         rots = sum(1 for r in (1 % hs.L, hs.n % hs.L) if r)
-        hash_ops = rots * (1 if full else 2) + (1 if full else 2)
-    else:
-        c = x_pow_mod_host(hs.n, hs.p, hs.L)
-        step = 3 if full else 5
-        hash_ops = step * c.bit_length() + bin(c).count("1") + 1
-    k = sum(spec.k for _, spec in plan.sketches)
-    return hash_ops + 1 + k, k
+        return rots * (1 if full else 2) + (1 if full else 2)
+    c = x_pow_mod_host(hs.n, hs.p, hs.L)
+    step = 3 if full else 5
+    return step * c.bit_length() + bin(c).count("1") + 1
 
 
-def ops_bound_ms(plan, windows: int) -> float:
-    """Least ms for ``windows`` valid windows by integer issue: the ALU
-    pipe's own instructions at one pipe's rate, or all of them spread over
-    both pipes, whichever is longer."""
-    alu, fma = window_ops(plan)
-    return windows * max(alu, (alu + fma) / 2) / LANES_PER_S * 1e3
+def window_ops(plan, probes: float = 0.0) -> tuple:
+    """Fewest instructions the plan's function needs per valid window, as
+    (ALU-pipe, FMA-pipe, load/store) counts: the hash (and the second
+    stream's for a Bloom plan) and one AND for the discard mask, then per
+    sketch
+      MinHash   per lane one IMAD (a*h + b, FMA) and one IMNMX (ALU);
+      HLL       AND for the index, shift, BREV + FLO for ctz, min with
+                rank_bits, +1 (ALU), one register update (load/store);
+      CountMin  per row one IMAD (FMA), one shift for the column (ALU)
+                and one atomic add (load/store);
+      Bloom     OR for the odd stride (ALU), then per probe one IMAD
+                (h + i*stride, FMA), the mask AND, the word shift and the
+                bit test (three ALU) and one filter load; ``probes`` is the
+                mean number of probes per window this run's data needs (a
+                window stops at its first miss)."""
+    from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HLLSpec,
+                                          MinHashSpec)
+    hs = plan.hash
+    streams = 2 if plan.needs_second_stream else 1
+    alu, fma, lsu = streams * (hash_ops(hs) + 1), 0, 0.0
+    for _, spec in plan.sketches:
+        if isinstance(spec, MinHashSpec):
+            alu, fma = alu + spec.k, fma + spec.k
+        elif isinstance(spec, HLLSpec):
+            alu, lsu = alu + 6, lsu + 1
+        elif isinstance(spec, CountMinSpec):
+            alu, fma, lsu = alu + spec.depth, fma + spec.depth, lsu + spec.depth
+        elif isinstance(spec, BloomSpec):
+            alu, fma, lsu = alu + 1 + 3 * probes, fma + probes, lsu + probes
+    return alu, fma, lsu
 
 
-def device_busy(torch, fn, card: str, what: str) -> None:
+def ops_bound(plan, windows: int, probes: float = 0.0):
+    """(least ms, which count bounds it) for ``windows`` valid windows by
+    instruction issue: the ALU pipe's own instructions at one pipe's rate,
+    all integer instructions over both pipes, or the loads and atomics at
+    the load/store units' rate, whichever is longest."""
+    alu, fma, lsu = window_ops(plan, probes)
+    t = {"ALU issue": windows * alu / LANES_PER_S,
+         "ALU+FMA issue": windows * (alu + fma) / 2 / LANES_PER_S,
+         "loads/atomics": windows * lsu / LSU_LANES_PER_S}
+    which = max(t, key=t.get)
+    return t[which] * 1e3, which
+
+
+def bound(plan, windows: int, nbytes: int, probes: float = 0.0):
+    """(bound ms, "bytes" | "operations", text): the larger of the bytes
+    over HBM's rate and the operations over their issue rate."""
+    t_ops, which = ops_bound(plan, windows, probes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    alu, fma, lsu = window_ops(plan, probes)
+    text = (f"{windows} windows x ({alu:g} ALU + {fma:g} FMA + {lsu:g} "
+            f"load/store) instructions: {t_ops:.5f} ms by {which}; "
+            f"{nbytes} bytes: {t_bytes:.5f} ms")
+    return max(t_ops, t_bytes), by, text
+
+
+def device_busy(torch, fn, card: str, what: str) -> float:
     """Profile one call of ``fn``: wall time, the card's busy time and the
-    top device events by it."""
+    top device events by it. Returns the idle share."""
     _, wall, rows = profiled(torch, fn)
     busy = sum(r[0] for r in rows) / 1e6
     top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms" for t, k, c in rows[:6])
     print(f"profile[{what}]: wall {wall:.3f} s under the profiler, device "
           f"busy {busy:.4f} s = {busy / wall:.4f} of it, idle "
           f"{1 - busy / wall:.4f}; by device time: {top} [{card}]")
+    return 1 - busy / wall
 
 
-def check_kernel(torch, api, plan, gen, B, S):
-    """One kernel-vs-plain comparison on the card; returns max |diff|."""
+def rand_u32(torch, gen, shape, dev):
+    return torch.randint(0, 1 << 32, shape, generator=gen,
+                         dtype=torch.int64).to(torch.uint32).to(dev)
+
+
+def plan_operands(torch, plan, gen, B, dev, init=True) -> dict:
+    """Random operands for every sketch of ``plan`` on ``dev``; with
+    ``init``, a random carry of each sketch's state too. The Bloom filter
+    is dense (three quarters of its bits set), so probes both hit and
+    miss."""
+    from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HLLSpec,
+                                          MinHashSpec)
+    ops = {}
+    for name, spec in plan.sketches:
+        if isinstance(spec, MinHashSpec):
+            o = {"a": rand_u32(torch, gen, (spec.k,), dev),
+                 "b": rand_u32(torch, gen, (spec.k,), dev)}
+            carry = rand_u32(torch, gen, (B, spec.k), dev)
+        elif isinstance(spec, HLLSpec):
+            o = {}
+            carry = torch.randint(0, 6, (1 << spec.b,), generator=gen,
+                                  dtype=torch.int32).to(dev)
+        elif isinstance(spec, CountMinSpec):
+            o = {"a": rand_u32(torch, gen, (spec.depth,), dev),
+                 "b": rand_u32(torch, gen, (spec.depth,), dev)}
+            carry = torch.randint(0, 100, (spec.depth, spec.width),
+                                  generator=gen, dtype=torch.int32).to(dev)
+        else:
+            w = (spec.n_words,)
+            o = {"bits": (rand_u32(torch, gen, w, dev).view(torch.int32)
+                          | rand_u32(torch, gen, w, dev).view(torch.int32)
+                          ).view(torch.uint32)}
+            carry = torch.randint(0, 1000, (B,), generator=gen,
+                                  dtype=torch.int32).to(dev)
+        if init:
+            o["init"] = carry
+        ops[name] = o
+    return ops
+
+
+def check_plan(torch, api, plan, gen, B, S) -> int:
+    """One kernel-vs-plain comparison of a plan on the card, with random
+    n_windows, w_start and init; returns max |diff| over its outputs."""
     dev = torch.device("cuda")
     W = max(0, S - plan.hash.n + 1)
-    x = torch.randint(0, 1 << 32, (B, S), generator=gen, dtype=torch.int64)
+    x = rand_u32(torch, gen, (B, S), dev)
+    xb = rand_u32(torch, gen, (B, S), dev) if plan.needs_second_stream else None
     nw = torch.randint(0, W + 2, (B,), generator=gen, dtype=torch.int32)
     ws = torch.randint(0, plan.hash.n + 1, (B,), generator=gen,
                        dtype=torch.int32)
-    a = torch.randint(0, 1 << 32, (K,), generator=gen, dtype=torch.int64) | 1
-    b = torch.randint(0, 1 << 32, (K,), generator=gen, dtype=torch.int64)
-    init = torch.randint(0, 1 << 32, (B, K), generator=gen,
-                         dtype=torch.int64)
-    u32 = lambda t: t.to(torch.uint32).to(dev)
-    args = dict(n_windows=nw.to(dev), w_start=ws.to(dev),
-                operands={"sig": {"a": u32(a), "b": u32(b),
-                                  "init": u32(init)}})
-    got = api.run(plan, u32(x), impl="kernel", **args)["sig"]
-    want = api.run(plan, u32(x), impl="ref", **args)["sig"]
+    args = dict(h1v_b=xb, n_windows=nw.to(dev), w_start=ws.to(dev),
+                operands=plan_operands(torch, plan, gen, B, dev))
+    got = api.run(plan, x, impl="kernel", **args)
+    want = api.run(plan, x, impl="ref", **args)
+    torch.cuda.synchronize()
+    err = 0
+    for name in got:
+        diff = (got[name].to(torch.int64) - want[name].to(torch.int64)).abs()
+        err = max(err, int(diff.max()) if diff.numel() else 0)
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(
+                f"kernel != plain version: {plan.hash.family} {plan.names} "
+                f"sketch {name!r} B={B} S={S}, max |diff| {err}")
+    return err
+
+
+def check_rolling(torch, ops, family, n, Lw, B, S, gen) -> int:
+    """ops.cyclic / ops.general kernel against plain on the card."""
+    from repro_torch.core import gf2
+    x = rand_u32(torch, gen, (B, S), torch.device("cuda"))
+    if family == "cyclic":
+        got = ops.cyclic(x, n=n, L=Lw, impl="kernel")
+        want = ops.cyclic(x, n=n, L=Lw, impl="ref")
+    else:
+        p = gf2.find_irreducible_host(Lw)
+        got = ops.general(x, n=n, p=p, L=Lw, impl="kernel")
+        want = ops.general(x, n=n, p=p, L=Lw, impl="ref")
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
-        raise AssertionError(
-            f"kernel != plain version: {plan.hash.family} B={B} S={S}, "
-            f"max |diff| {err}")
+        raise AssertionError(f"{family}_rolling != plain version: n={n} "
+                             f"L={Lw} B={B} S={S}, max |diff| {err}")
     return err
 
 
 def dedup_run(torch, corpus_docs, truth, family, sketch_fused, dedup, card):
-    """The main path: add_batch over the corpus with the launch count read
-    around it; returns (deduper, launches, seconds, tokens)."""
+    """The dedup path: add_batch over the corpus with the launch count read
+    around it; returns (deduper, flags, launches, seconds, tokens)."""
     cfg = dedup.DedupConfig(vocab=8192, threshold=0.5, ngram_n=N, L=L,
                             n_signatures=K, lsh_bands=BANDS, family=family,
                             stream_rows=STREAM_ROWS, stream_chunk_s=CHUNK_S,
@@ -191,7 +330,57 @@ def dedup_run(torch, corpus_docs, truth, family, sketch_fused, dedup, card):
     if not (recall > 0.9 and precision > 0.9):
         raise AssertionError(f"{family}: recall {recall} / precision "
                              f"{precision} not above 0.9")
-    return dd, launches, dt, tokens
+    return dd, flags, launches, dt, tokens
+
+
+def stats_blocks(rows: np.ndarray, C=CHUNK_S, T=BLOCK_T):
+    """(B, R) token rows, one stream each -> (T, B, C) int32 chunk blocks
+    with (T, B) lengths; the last block is padded with zero-length
+    chunks."""
+    B, R = rows.shape
+    n_chunks = -(-R // C)
+    n_chunks += -n_chunks % T
+    padded = np.zeros((B, n_chunks * C), np.int32)
+    padded[:, :R] = rows
+    chunks = padded.reshape(B, n_chunks, C).transpose(1, 0, 2)
+    lens = np.clip(R - np.arange(n_chunks) * C, 0, C).astype(np.int32)
+    for t in range(0, n_chunks, T):
+        yield (np.ascontiguousarray(chunks[t : t + T]),
+               np.repeat(lens[t : t + T, None], B, axis=1))
+
+
+def stats_run(ng, rows):
+    """update_stream_many over every block of ``rows``; returns the
+    finalized state."""
+    ss = ng.init_stream(rows.shape[0])
+    for toks, lens in stats_blocks(rows):
+        ss = ng.update_stream_many(ss, toks, lengths=lens)
+    return ng.finalize_stream(ss)
+
+
+def distinct_windows(rows: np.ndarray, n: int) -> int:
+    """Exact number of distinct n-grams inside the rows (none spans two
+    rows), counted on the host."""
+    w = np.lib.stride_tricks.sliding_window_view(rows.astype(np.int16), n,
+                                                 axis=1)
+    w = np.ascontiguousarray(w.reshape(-1, n))
+    return len(np.unique(w.view(np.dtype((np.void, 2 * n)))[:, 0]))
+
+
+def probes_needed(torch, ref, plan, x, xb, bits) -> float:
+    """Mean probes per window the Bloom epilogue needs on these inputs: a
+    window stops at its first miss."""
+    hs, spec = plan.hash, plan.sketches[0][1]
+    ha = ref.window_hashes_ref(x, family=hs.family, n=hs.n, L=hs.L,
+                               p=hs.p) & hs.hash_mask
+    hb = (ref.window_hashes_ref(xb, family=hs.family, n=hs.n, L=hs.L,
+                                p=hs.p) & hs.hash_mask) | 1
+    i = torch.arange(spec.k, device=x.device)
+    p = ((ha[..., None] + i * hb[..., None]) & 0xFFFFFFFF) & (
+        (1 << spec.log2_m) - 1)
+    hit = ((ref.u32.lanes(bits)[p >> 5] >> (p & 31)) & 1).to(torch.int64)
+    lead = torch.cumprod(hit, dim=-1)[..., :-1].sum(dim=-1)
+    return float((1 + lead).to(torch.float64).mean())
 
 
 def main() -> int:
@@ -204,9 +393,21 @@ def main() -> int:
               f"root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.data import corpus, dedup
-    from repro_torch.kernels import _build, api, ref, sketch_fused
-    from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
+    from repro_torch.core import gf2
+    from repro_torch.data import corpus, decontam, dedup, pipeline, stats
+    from repro_torch.kernels import (_build, api, cyclic, general, ops, ref,
+                                     sketch_fused)
+    from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HashSpec,
+                                          HLLSpec, MinHashSpec, SketchPlan)
+
+    def reset_counts():
+        sketch_fused.LAUNCHES = cyclic.LAUNCHES = general.LAUNCHES = 0
+        for kind in sketch_fused.EPILOGUE_LAUNCHES:
+            sketch_fused.EPILOGUE_LAUNCHES[kind] = 0
+
+    def read_counts() -> dict:
+        return {**sketch_fused.EPILOGUE_LAUNCHES, "plan": sketch_fused.LAUNCHES,
+                "cyclic": cyclic.LAUNCHES, "general": general.LAUNCHES}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -223,21 +424,57 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"build[{name}]: {line.strip()}")
 
-    # -- 3. kernel against plain version ----------------------------------
-    plans = {f: SketchPlan(HashSpec(family=f, n=N, L=L),
-                           (("sig", MinHashSpec(k=K)),))
-             for f in ("cyclic", "general")}
-    gen = torch.Generator().manual_seed(0)
-    max_err = 0
-    for family, plan in plans.items():
-        for B in (64, 1024):
-            for S in (7, 520, 8192):
-                max_err = max(max_err, check_kernel(torch, api, plan, gen,
-                                                    B, S))
-                print(f"check: {family} B={B} S={S} k={K}: kernel == "
-                      f"plain version on the card")
+    # -- 3. every kernel against its plain version ----------------------------
+    def check_sets(family):
+        hs = HashSpec(family=family, n=N, L=L)
+        sets = {
+            "minhash": (("sig", MinHashSpec(k=K)),),
+            "hll b=4": (("hll", HLLSpec(b=4)),),
+            "hll b=12": (("hll", HLLSpec(b=12)),),
+            "hll b=12 rank_bits=6": (("hll", HLLSpec(b=12, rank_bits=6)),),
+            "countmin w=12": (("cms", CountMinSpec(depth=4,
+                                                   log2_width=12)),),
+            "countmin w=16": (("cms", CountMinSpec(depth=4,
+                                                   log2_width=16)),),
+            "bloom log2_m=20": (("bloom", BloomSpec(k=4, log2_m=20)),),
+            "bloom log2_m=22": (("bloom", BloomSpec(k=4, log2_m=22)),),
+            "stats (hll + countmin)": (
+                ("hll", HLLSpec(b=12)),
+                ("cms", CountMinSpec(depth=4, log2_width=16))),
+            "all four": (("sig", MinHashSpec(k=K)), ("hll", HLLSpec(b=12)),
+                         ("cms", CountMinSpec(depth=4, log2_width=16)),
+                         ("bloom", BloomSpec(k=4, log2_m=22))),
+        }
+        return {k: SketchPlan(hs, v) for k, v in sets.items()}
 
-    # -- 4. the main path ---------------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    err = {"MinHashSpec": 0, "HLLSpec": 0, "CountMinSpec": 0,
+           "BloomSpec": 0, "cyclic": 0, "general": 0}
+    t0 = time.perf_counter()
+    for family in ("cyclic", "general"):
+        for what, plan in check_sets(family).items():
+            for B in (64, 1024):
+                for S in (7, 520, 1024, 8192):
+                    e = check_plan(torch, api, plan, gen, B, S)
+                    for _, spec in plan.sketches:
+                        kind = type(spec).__name__
+                        err[kind] = max(err[kind], e)
+            print(f"check: {family} {what}: kernel == plain version on the "
+                  f"card at B in (64, 1024) x S in (7, 520, 1024, 8192)")
+    for family in ("cyclic", "general"):
+        for n in (1, 8, 25, 32):
+            for Lw in (16, 32):
+                if n > Lw:
+                    continue
+                for B, S in ((64, 8192), (1024, 520), (1024, 64),
+                             (1024, 8192), (3, n)):
+                    err[family] = max(err[family], check_rolling(
+                        torch, ops, family, n, Lw, B, S, gen))
+            print(f"check: ops.{family} n={n} L in (16, 32): kernel == "
+                  f"plain version on the card")
+    print(f"checks: {time.perf_counter() - t0:.1f} s")
+
+    # -- 4. the dedup path ----------------------------------------------------
     t0 = time.perf_counter()
     spec = corpus.CorpusSpec(n_docs=100_000, dup_rate=0.25,
                              mutate_frac=0.015, vocab=8192, seed=42)
@@ -245,8 +482,9 @@ def main() -> int:
     truth = dup_of >= 0
     print(f"corpus: {len(docs)} docs, {int(truth.sum())} planted "
           f"near-duplicates, made in {time.perf_counter() - t0:.2f} s")
-    dd, launches, dt, tokens = dedup_run(torch, docs, truth, "cyclic",
-                                         sketch_fused, dedup, card)
+    reset_counts()
+    dd, flags, launches, dt, tokens = dedup_run(torch, docs, truth, "cyclic",
+                                                sketch_fused, dedup, card)
 
     # re-sign 2,000 documents through the plain version on the card
     plain = dedup.MinHashDeduper(dedup.DedupConfig(**{**dd.cfg.__dict__,
@@ -271,8 +509,8 @@ def main() -> int:
                 "cyclic signature_many, 20000 docs")
 
     gdocs, gtruth = docs[:20_000], truth[:20_000]
-    gdd, glaunches, _, _ = dedup_run(torch, gdocs, gtruth, "general",
-                                     sketch_fused, dedup, card)
+    gdd, _, glaunches, _, _ = dedup_run(torch, gdocs, gtruth, "general",
+                                        sketch_fused, dedup, card)
     gplain = dedup.MinHashDeduper(dedup.DedupConfig(**{**gdd.cfg.__dict__,
                                                        "impl": "ref"}))
     gplain.import_params(gdd.export_state()["params"])
@@ -282,83 +520,317 @@ def main() -> int:
     print("main[general]: 2000 documents re-signed by the plain version on "
           "the card: equal")
 
-    # -- 5. the kernel at the main path's shape -----------------------------
-    # one launch of the dedup path: stream_rows rows of n-1 carried symbols
-    # plus a full chunk, every window valid, a carried signature
-    plan = plans["cyclic"]
+    # -- 5. the data-plane path ------------------------------------------------
+    # the deduplicated corpus packed with EOS, as PackedCorpus does
+    kept = np.flatnonzero(~flags)
+    packed = pipeline.pack([docs[i] for i in kept], 8192, 0)
+    doc_of = np.repeat(kept, [len(docs[i]) + 1 for i in kept])
+    per_row = len(packed) // STREAM_ROWS
+    rows = packed[: STREAM_ROWS * per_row].reshape(STREAM_ROWS, per_row)
+    n_stats = rows.size
+    # the eval set: 500 kept original documents; a row that holds any token
+    # of one of them or of its planted near-duplicates may flag rightly
+    rng = np.random.default_rng(7)
+    eval_ids = np.sort(rng.choice(kept[dup_of[kept] < 0], EVAL_DOCS,
+                                  replace=False))
+    tainted = np.isin(doc_of, np.union1d(
+        eval_ids, np.flatnonzero(np.isin(dup_of, eval_ids))))
+    eval_stream = pipeline.pack([docs[i] for i in eval_ids], 8192, 0)
+    eval_rows = eval_stream[: len(eval_stream) // SEQ * SEQ].reshape(-1, SEQ)
+    n_batches = len(packed) // (DECON_ROWS * SEQ)
+    print(f"data plane: {len(kept)} kept docs packed into {len(packed)} "
+          f"tokens; stats over {STREAM_ROWS} streams of {per_row} tokens; "
+          f"eval set {EVAL_DOCS} docs = {len(eval_rows)} rows of {SEQ}")
+
+    reset_counts()
+    ng, fin = {}, {}
+    stats_s = {}
+    for family in ("cyclic", "general"):
+        ng[family] = stats.NgramStats(stats.StatsConfig(family=family,
+                                                        device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = stats_run(ng[family], rows)
+        torch.cuda.synchronize()
+        stats_s[family] = time.perf_counter() - t0
+        fin[family] = st
+        # the first window of every stream was counted: CountMin never
+        # undercounts it; a plain-version twin with the same draws, queried
+        # on the same state, must give the same estimates
+        hh = ng[family].heavy_hitter_count(st, rows[:, :64])
+        if not (hh >= 1).all():
+            raise AssertionError(f"stats[{family}]: a counted window has "
+                                 f"estimate 0")
+        twin = stats.NgramStats(stats.StatsConfig(family=family, device="cuda",
+                                                  impl="ref"))
+        twin.rebind_params(ng[family].export_params())
+        if not np.array_equal(hh, twin.heavy_hitter_count(st, rows[:, :64])):
+            raise AssertionError(f"stats[{family}]: heavy-hitter estimates "
+                                 f"!= the plain version's")
+        print(f"stats[{family}]: update_stream_many over {n_stats} tokens "
+              f"in ({BLOCK_T}, {STREAM_ROWS}, {CHUNK_S}) blocks: "
+              f"{stats_s[family]:.3f} s = {n_stats / stats_s[family]:.0f} "
+              f"tokens/s; distinct 8-grams ~ "
+              f"{ng[family].distinct_ngrams(st):.0f}, tokens counted "
+              f"{ng[family].token_count(st)}, heavy-hitter estimates of the "
+              f"first windows: median {int(np.median(hh))}, max "
+              f"{int(hh.max())} [{card}]")
+        if ng[family].token_count(st) != n_stats:
+            raise AssertionError(f"stats[{family}]: token count "
+                                 f"{ng[family].token_count(st)} != {n_stats}")
+
+    dc = decontam.Decontaminator(decontam.DecontamConfig(device="cuda"))
+    dc.add_eval_set(eval_rows)
+    planted_rows, batches, counts = [], [], []
+    t_flag = 0.0
+    for bi in range(n_batches):
+        batch = packed[bi * DECON_ROWS * SEQ : (bi + 1) * DECON_ROWS * SEQ
+                       ].reshape(DECON_ROWS, SEQ).copy()
+        at = rng.choice(DECON_ROWS, PLANTED, replace=False)
+        batch[at] = eval_rows[rng.integers(0, len(eval_rows), PLANTED)]
+        planted = np.zeros(DECON_ROWS, bool)
+        planted[at] = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dc.contamination(batch)
+        t_flag += time.perf_counter() - t0
+        planted_rows.append(planted)
+        counts.append(got)
+        if bi < 2:
+            batches.append(batch)
+    frac = np.concatenate(counts)
+    flagged = frac > dc.cfg.max_hit_frac
+    planted = np.concatenate(planted_rows)
+    clean = ~planted & ~tainted[: n_batches * DECON_ROWS * SEQ].reshape(
+        -1, SEQ).any(axis=1)
+    false_rate = flagged[clean].mean()
+    n_dec = n_batches * DECON_ROWS * SEQ
+    print(f"decontam: {n_batches} batches of {DECON_ROWS} x {SEQ} "
+          f"({n_dec} tokens), filter fill "
+          f"{float(dc.bloom.fill_fraction(dc.bits)):.4f}: flag "
+          f"{t_flag:.3f} s = {n_dec / t_flag:.0f} tokens/s; planted rows "
+          f"flagged {int(flagged[planted].sum())}/{int(planted.sum())}; "
+          f"rows of other documents flagged {int(flagged[clean].sum())}/"
+          f"{int(clean.sum())} = {false_rate:.6f} [{card}]")
+    if not flagged[planted].all():
+        raise AssertionError("decontam: a planted eval row did not flag")
+    if not false_rate < 0.01:
+        raise AssertionError(f"decontam: false-flag rate {false_rate}")
+
+    dp = pipeline.DataPlane(pipeline.PipelineConfig(
+        seq_len=SEQ, batch_size=64, device="cuda"), decontam=dc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(100):
+        dp.next_batch(step)
+    torch.cuda.synchronize()
+    t_dp = time.perf_counter() - t0
+    tele = dp.telemetry()
+    print(f"dataplane: 100 next_batch steps of 64 x {SEQ} in {t_dp:.3f} s "
+          f"= {100 * 64 * SEQ / t_dp:.0f} tokens/s; telemetry "
+          f"{json.dumps(tele)} [{card}]")
+    if tele["tokens_seen"] != 100 * 64 * SEQ:
+        raise AssertionError(f"dataplane: tokens_seen {tele['tokens_seen']}")
+    counts_dp = read_counts()
+    print(f"launches[data plane path]: {json.dumps(counts_dp)}")
+    for kind in ("HLLSpec", "CountMinSpec", "BloomSpec", "cyclic", "general"):
+        if counts_dp[kind] < 1:
+            raise AssertionError(f"data plane path launched no {kind} kernel")
+
+    # checks of the data plane against the exact count and the plain version
+    prefix = rows[:, :PREFIX_COLS]
+    hng = stats.NgramStats(stats.StatsConfig(device="cuda"))
+    pst = stats_run(hng, prefix)
+    est = hng.distinct_ngrams(pst)
+    exact = distinct_windows(prefix, N)
+    rel = abs(est - exact) / exact
+    print(f"stats[cyclic] prefix of {prefix.size} tokens: HLL estimate "
+          f"{est:.0f} vs exact distinct 8-grams {exact}: relative error "
+          f"{rel:.4f}")
+    if not rel <= 0.1:
+        raise AssertionError(f"HLL estimate off by {rel:.4f} > 0.1")
+    png = stats.NgramStats(stats.StatsConfig(device="cuda", impl="ref"))
+    png.rebind_params(hng.export_params())
+    pref = stats_run(png, prefix)
+    for key in ("hll", "cms"):
+        if not torch.equal(pst[key], pref[key]):
+            raise AssertionError(f"stats prefix: kernel {key} != plain")
+    print("stats[cyclic] prefix: registers and table equal the plain "
+          "version's on the card")
+    pdc = decontam.Decontaminator(decontam.DecontamConfig(device="cuda",
+                                                          impl="ref"))
+    pdc.rebind_params({"pa": dc.pa, "pb": dc.pb, "bits": dc.bits})
+    for bi, batch in enumerate(batches):
+        if not np.array_equal(pdc.contamination(batch), counts[bi]):
+            raise AssertionError(f"decontam batch {bi}: kernel != plain")
+    print(f"decontam: {len(batches)} batches re-scanned by the plain version "
+          f"on the card: equal")
+
+    # -- 6. times ---------------------------------------------------------------
+    two_blocks = rows[:, : 2 * BLOCK_T * CHUNK_S]
+    idle_stats = device_busy(torch, lambda: stats_run(ng["cyclic"],
+                                                      two_blocks), card,
+                             f"stats cyclic, 2 blocks ({two_blocks.size} "
+                             f"tokens)")
+    some = [np.concatenate([b for b in batches])]
+    idle_dec = device_busy(torch, lambda: dc.contamination(some[0]), card,
+                           f"decontam flag, {some[0].size} tokens")
+
     dev = torch.device("cuda")
+    kernels = []
     B, S = STREAM_ROWS, N - 1 + CHUNK_S
-    x = torch.randint(0, 1 << 32, (B, S), generator=gen,
-                      dtype=torch.int64).to(torch.uint32).to(dev)
+    windows = B * CHUNK_S
+    x = rand_u32(torch, gen, (B, S), dev)
     nw = torch.full((B,), CHUNK_S, dtype=torch.int32, device=dev)
     ws = torch.zeros((B,), dtype=torch.int32, device=dev)
-    ops = {"sig": {"a": dd.mh_params["a"], "b": dd.mh_params["b"],
-                   "init": api.full_u32((B, K), 0xFFFFFFFF, dev)}}
-    kern = lambda: sketch_fused.sketch_plan_fused(x, None, nw, ops,
-                                                  plan=plan, w_start=ws)
-    plain_fn = lambda: ref.sketch_plan_ref(plan, x, None, nw, ops,
-                                           w_start=ws)
-    if not torch.equal(kern()["sig"], plain_fn()["sig"]):
-        raise AssertionError("kernel != plain version at the main shape")
-    # plain, kernel, kernel, plain: compare within one call, in turns
-    (p1, _), (k1, kh), (k2, _), (p2, ph) = (
-        device_ms(torch, plain_fn, 10), device_ms(torch, kern, 200),
-        device_ms(torch, kern, 200), device_ms(torch, plain_fn, 10))
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    windows = B * CHUNK_S
-    alu, fma = window_ops(plan)
-    bytes_needed = 4 * (B * S + 2 * B + 2 * K + 2 * B * K)
-    t_ops = ops_bound_ms(plan, windows)
-    t_bytes = bytes_needed / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"kernel[cyclic] B={B} S={S} k={K}: {ms:.5f} ms per launch "
-          f"({k1:.5f}, {k2:.5f}); plain version {plain_ms:.5f} ms "
-          f"({p1:.5f}, {p2:.5f}); bound {bound_ms:.5f} ms by {bound_by} "
-          f"({windows} windows x ({alu} ALU + {fma} FMA) instructions: "
-          f"{t_ops:.5f} ms; {bytes_needed} bytes: {t_bytes:.5f} ms); "
-          f"bound / time {bound_ms / ms:.3f}; the host takes {kh:.5f} ms to "
-          f"issue one launch, {ph:.5f} ms one plain call [{card}]")
-    gplan = plans["general"]
-    gk, _ = device_ms(torch, lambda: sketch_fused.sketch_plan_fused(
-        x, None, nw, ops, plan=gplan, w_start=ws), 200)
-    gb = ops_bound_ms(gplan, windows)
-    print(f"kernel[general] B={B} S={S} k={K}: {gk:.5f} ms per launch; "
-          f"bound {gb:.5f} ms by operations ({window_ops(gplan)} ALU, FMA "
-          f"instructions a window); bound / time {gb / gk:.3f} [{card}]")
+
+    def time_plan(name, plan, operands, xb=None, probes=0.0, replaces=None,
+                  launches=0, max_err=0, nbytes=0):
+        kern = lambda: sketch_fused.sketch_plan_fused(
+            x, xb, nw, operands, plan=plan, w_start=ws)
+        plain_fn = lambda: ref.sketch_plan_ref(plan, x, xb, nw, operands,
+                                               w_start=ws)
+        got, want = kern(), plain_fn()
+        for key in got:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{name}: kernel != plain at the main "
+                                     f"shape")
+        ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(torch, kern, plain_fn)
+        b_ms, by, text = bound(plan, windows, nbytes, probes)
+        print(f"kernel[{name}] {plan.hash.family} B={B} S={S}: {ms:.5f} ms "
+              f"per launch ({k1:.5f}, {k2:.5f}); plain version "
+              f"{plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} "
+              f"ms by {by} ({text}); bound / time {b_ms / ms:.3f}; the host "
+              f"takes {kh:.5f} ms to issue one launch [{card}]")
+        if replaces:
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/sketch_plan.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+        return ms
+
+    # the dedup path's launch: stream_rows rows of n-1 carried symbols plus
+    # a full chunk, every window valid, a carried signature
+    mplan = SketchPlan(HashSpec(family="cyclic", n=N, L=L),
+                       (("sig", MinHashSpec(k=K)),))
+    mops = {"sig": {"a": dd.mh_params["a"], "b": dd.mh_params["b"],
+                    "init": api.full_u32((B, K), 0xFFFFFFFF, dev)}}
+    time_plan("sketch_plan_minhash", mplan, mops,
+              replaces="src/repro/kernels/sketch_fused.py:379",
+              launches=launches, max_err=err["MinHashSpec"],
+              nbytes=4 * (B * S + 2 * B + 2 * K + 2 * B * K))
+    gk = time_plan("sketch_plan_minhash general",
+                   SketchPlan(HashSpec(family="general", n=N, L=L),
+                              mplan.sketches), mops,
+                   nbytes=4 * (B * S + 2 * B + 2 * K + 2 * B * K))
     # the deduper's default stream_rows: a launch of few rows, which the
     # launcher spreads over the card with shorter segments
     Bd = dedup.DedupConfig().stream_rows
-    opsd = {"sig": {**ops["sig"], "init": ops["sig"]["init"][:Bd]}}
+    opsd = {"sig": {**mops["sig"], "init": mops["sig"]["init"][:Bd]}}
     kd = lambda: sketch_fused.sketch_plan_fused(x[:Bd], None, nw[:Bd], opsd,
-                                                plan=plan, w_start=ws[:Bd])
-    if not torch.equal(kd()["sig"], ref.sketch_plan_ref(
-            plan, x[:Bd], None, nw[:Bd], opsd, w_start=ws[:Bd])["sig"]):
-        raise AssertionError("kernel != plain version at the default shape")
+                                                plan=mplan, w_start=ws[:Bd])
     dms, _ = device_ms(torch, kd, 200)
-    db = ops_bound_ms(plan, Bd * CHUNK_S)
-    print(f"kernel[cyclic] default stream_rows B={Bd} S={S} k={K}: "
-          f"{dms:.5f} ms per launch; bound {db:.5f} ms by operations; "
-          f"bound / time {db / dms:.3f} [{card}]")
+    db, _ = ops_bound(mplan, Bd * CHUNK_S)
+    print(f"kernel[sketch_plan_minhash] default stream_rows B={Bd} S={S}: "
+          f"{dms:.5f} ms per launch; bound {db:.5f} ms by operations; bound "
+          f"/ time {db / dms:.3f} (GENERAL at B={B}: {gk:.5f} ms) [{card}]")
+
+    # the stats path's launch, with the stats instance's own parameters and
+    # the registers and table its run over the corpus carried out: the state
+    # every launch of the path but the first starts from
+    ngc = ng["cyclic"]
+    hll_spec, cms_spec = ngc.plan.sketches[0][1], ngc.plan.sketches[1][1]
+    regs, table = fin["cyclic"]["hll"], fin["cyclic"]["cms"]
+    hs = ngc.plan.hash
+    x = ngc._lookup(rows[:, : S])
+    cms_ops = {"a": ngc._cms_params["a"], "b": ngc._cms_params["b"],
+               "init": table}
+    rb = 4 * (B * S + 2 * B)                   # symbols, n_windows, w_start
+    hll_plan = SketchPlan(hs, (("hll", hll_spec),))
+    time_plan("sketch_plan_hll", hll_plan, {"hll": {"init": regs}},
+              replaces="src/repro/kernels/sketch_fused.py:379",
+              launches=counts_dp["HLLSpec"], max_err=err["HLLSpec"],
+              nbytes=rb + 2 * 4 * regs.numel())
+    # the first launch of a stream: registers at zero, so most windows
+    # reach the atomic
+    time_plan("sketch_plan_hll from zeroed registers", hll_plan,
+              {"hll": {"init": torch.zeros_like(regs)}},
+              nbytes=rb + 2 * 4 * regs.numel())
+    time_plan("sketch_plan_countmin", SketchPlan(hs, (("cms", cms_spec),)),
+              {"cms": cms_ops},
+              replaces="src/repro/kernels/sketch_fused.py:379",
+              launches=counts_dp["CountMinSpec"], max_err=err["CountMinSpec"],
+              nbytes=rb + 2 * 4 * table.numel() + 8 * cms_spec.depth)
+    time_plan("sketch_plan_stats (hll + countmin)", ngc.plan,
+              {"hll": {"init": regs}, "cms": cms_ops},
+              nbytes=rb + 2 * 4 * (regs.numel() + table.numel()))
+    # the decontam path's launch: real packed tokens, the real filter
+    x, xb = dc._lookups(rows[:, : S])
+    probes = probes_needed(torch, ref, dc.plan, x, xb, dc.bits)
+    bl_ops = {"bloom": {"bits": dc.bits,
+                        "init": torch.zeros((B,), dtype=torch.int32,
+                                            device=dev)}}
+    time_plan("sketch_plan_bloom", dc.plan, bl_ops, xb=xb, probes=probes,
+              replaces="src/repro/kernels/sketch_fused.py:379",
+              launches=counts_dp["BloomSpec"], max_err=err["BloomSpec"],
+              nbytes=4 * (2 * B * S + 2 * B + dc.bits.numel() + 2 * B))
+    print(f"kernel[sketch_plan_bloom]: the filter's data needs {probes:.4f} "
+          f"probes a window (k={dc.cfg.k})")
+
+    # the Fig. 1 pair at (1024, 8192), n=8, L=32
+    xr = rand_u32(torch, gen, (1024, 8192), dev)
+    p32 = gf2.find_irreducible_host(32)
+    Wr = 8192 - N + 1
+    fig, fig_frac = {}, {}
+    for family, kern, plain_fn, src_line in (
+            ("cyclic", lambda: cyclic.cyclic_rolling(xr, n=N, L=L),
+             lambda: ref.cyclic_ref(xr, N, L), "src/repro/kernels/cyclic.py:87"),
+            ("general", lambda: general.general_rolling(xr, n=N, p=p32, L=L),
+             lambda: ref.general_ref(xr, N, p32, L),
+             "src/repro/kernels/general.py:67")):
+        if not torch.equal(kern().to(torch.int64), plain_fn()):
+            raise AssertionError(f"{family}_rolling: kernel != plain at "
+                                 f"(1024, 8192)")
+        ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(torch, kern, plain_fn,
+                                                      k_iters=100, p_iters=5)
+        fig[family] = ms
+        alu = hash_ops(HashSpec(family=family, n=N, L=L))
+        t_ops = 1024 * Wr * alu / LANES_PER_S * 1e3
+        t_bytes = 4 * 1024 * (8192 + Wr) / HBM_BYTES_PER_S * 1e3
+        b_ms, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                         else "bytes")
+        fig_frac[family] = b_ms / ms
+        print(f"kernel[{family}_rolling] (1024, 8192) n={N} L={L}: {ms:.5f} "
+              f"ms per launch ({k1:.5f}, {k2:.5f}); plain version "
+              f"{plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} ms "
+              f"by {by} ({alu} ALU instructions a window: {t_ops:.5f} ms; "
+              f"bytes {t_bytes:.5f} ms); bound / time {b_ms / ms:.3f} "
+              f"[{card}]")
+        kernels.append({
+            "name": f"{family}_rolling", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rolling.cu",
+            "replaces": src_line, "launches": counts_dp[family],
+            "max_abs_err": err[family], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    print(f"fig1: GENERAL / CYCLIC time ratio "
+          f"{fig['general'] / fig['cyclic']:.3f} at (1024, 8192), n={N}, "
+          f"L={L}, of these kernels, which run at {fig_frac['cyclic']:.3f} "
+          f"(CYCLIC) and {fig_frac['general']:.3f} (GENERAL) of their bounds: "
+          f"a reading of these kernels, not yet of the families "
+          f"(the paper's claim: about 2) [{card}]")
+    print(f"end to end: dedup add_batch {tokens / dt:.0f} tokens/s; stats "
+          f"cyclic {n_stats / stats_s['cyclic']:.0f} tokens/s, general "
+          f"{n_stats / stats_s['general']:.0f} tokens/s (idle share "
+          f"{idle_stats:.4f}); decontam {n_dec / t_flag:.0f} tokens/s (idle "
+          f"share {idle_dec:.4f}) [{card}]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; total {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{
-        "name": "sketch_plan_minhash",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/sketch_plan.cu",
-        "replaces": "src/repro/kernels/sketch_fused.py:379",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
     print(json.dumps({"kernels": kernels}))
-    print(f"launches: main path (cyclic add_batch) {launches}, general "
-          f"add_batch {glaunches}")
+    print(f"launches: dedup path (cyclic add_batch) {launches}, general "
+          f"add_batch {glaunches}; data plane path {json.dumps(counts_dp)}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,19 @@
 """Carry sampled parameters from the JAX package into the port.
 
-The h1 symbol table and the MinHash remix lanes decide every bit of a
-signature. The port draws its own from ``torch.Generator``s, which do not
-give JAX's threefry bits; parity with the reference therefore carries the
-reference's draw across, as a checkpoint would. :func:`params_from_jax`
-takes the reference deduper's ``export_state()["params"]`` — host numpy
-arrays — and returns the port's tensors, which
-:meth:`repro_torch.data.dedup.MinHashDeduper.import_params` accepts.
+The h1 symbol tables and the sketch parameters (MinHash remix lanes,
+CountMin row constants, the Bloom filter) decide every bit of a result.
+The port draws its own from ``torch.Generator``s, which do not give JAX's
+threefry bits; parity with the reference therefore carries the reference's
+draw across, as a checkpoint would. Each function takes host numpy arrays
+that the reference exports and returns the port's tensors:
+
+* :func:`params_from_jax` — the deduper's ``export_state()["params"]``,
+  for :meth:`repro_torch.data.dedup.MinHashDeduper.import_params`;
+* :func:`stats_params_from_jax` — ``NgramStats.export_params()``, for
+  :meth:`repro_torch.data.stats.NgramStats.rebind_params`;
+* :func:`decontam_params_from_jax` — the ``params`` of
+  ``Decontaminator.export_stream``, for
+  :meth:`repro_torch.data.decontam.Decontaminator.rebind_params`.
 """
 from __future__ import annotations
 
@@ -37,3 +44,41 @@ def params_from_jax(tree: Dict, device="cuda") -> Dict[str, Dict[str, torch.Tens
     if out["mh"]["a"].shape != out["mh"]["b"].shape:
         raise ValueError("MinHash lanes a and b differ in length")
     return out
+
+
+def _tensor(arr, dtype, ndim: int, what: str, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype != dtype or arr.ndim != ndim:
+        raise ValueError(f"{what} must be a {ndim}-D {np.dtype(dtype)} "
+                         f"array, got {arr.dtype} {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def stats_params_from_jax(tree: Dict, device="cuda") -> Dict:
+    """The reference's ``NgramStats.export_params()`` — ``{"fam": {"h1"},
+    "cms": {"a", "b", "table"}}`` numpy arrays — -> the same tree of
+    tensors on ``device``, which
+    :meth:`repro_torch.data.stats.NgramStats.rebind_params` accepts."""
+    cms = tree["cms"]
+    if set(cms) != {"a", "b", "table"}:
+        raise ValueError(f"params['cms'] must hold a, b and table, got "
+                         f"{sorted(cms)}")
+    return {"fam": {"h1": _tensor(tree["fam"]["h1"], np.uint32, 1,
+                                  "params['fam']['h1']", device)},
+            "cms": {"a": _tensor(cms["a"], np.uint32, 1, "cms a", device),
+                    "b": _tensor(cms["b"], np.uint32, 1, "cms b", device),
+                    "table": _tensor(cms["table"], np.int32, 2, "cms table",
+                                     device)}}
+
+
+def decontam_params_from_jax(tree: Dict, device="cuda") -> Dict:
+    """The ``params`` of the reference's ``Decontaminator.export_stream``
+    — ``{"pa": {"h1"}, "pb": {"h1"}, "bits"}`` numpy arrays — -> the same
+    tree of tensors on ``device``, which
+    :meth:`repro_torch.data.decontam.Decontaminator.rebind_params`
+    accepts."""
+    return {"pa": {"h1": _tensor(tree["pa"]["h1"], np.uint32, 1, "pa h1",
+                                 device)},
+            "pb": {"h1": _tensor(tree["pb"]["h1"], np.uint32, 1, "pb h1",
+                                 device)},
+            "bits": _tensor(tree["bits"], np.uint32, 1, "bits", device)}

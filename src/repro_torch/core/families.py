@@ -79,6 +79,12 @@ class _Family:
             acc = acc ^ self._window_terms(h1v[..., k : k + W], k)
         return acc.to(torch.uint32)
 
+    def hash_windows_batched(self, params: Params, tokens) -> torch.Tensor:
+        """tokens (..., S) -> (..., S-n+1) uint32 window hashes. The direct
+        form already runs over leading dims, which the JAX package reaches
+        with one ``vmap`` per dim."""
+        return self.hash_windows_direct(params, tokens)
+
 
 @dataclasses.dataclass(frozen=True)
 class General(_Family):

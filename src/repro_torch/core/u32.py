@@ -64,3 +64,14 @@ def mulmod32(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     lo = (a & 0xFFFF) * h
     hi = (((a >> 16) * h) & 0xFFFF) << 16
     return (lo + hi) & MASK32
+
+
+def ctz(v: torch.Tensor) -> torch.Tensor:
+    """Trailing zeros of int64 lanes in ``[0, 2^32)``, with ctz(0) = 32.
+    PyTorch has no popcount on the CPU, so the lowest set bit is isolated
+    (``v & -v``) and its position read as the float64 exponent of that
+    power of two (2^k = 0.5 * 2^(k+1)), which is exact on every backend;
+    ``log2`` is not on CUDA."""
+    iso = v & -v
+    tz = torch.frexp(iso.to(torch.float64)).exponent.to(torch.int64) - 1
+    return torch.where(iso == 0, 32, tz)

@@ -1,0 +1,233 @@
+"""Streaming corpus telemetry — the paper's §2 application.
+
+Per training batch, on the card: rolling hashes -> HyperLogLog
+distinct-n-gram registers + CountMin heavy-hitter counts. The state is a
+small dict (registers, table, token count) that lives beside the train
+state.
+
+Both sketches ride the plan engine in ONE pass: a two-sketch (HLL +
+CountMin) :class:`SketchPlan` is built once and executed per batch with
+:func:`repro_torch.kernels.api.run` — on CUDA one launch of the plan kernel
+does the rolling hash, the Theorem-1 discard, the register maxima and the
+CountMin counts, with the running state carried in as each sketch's
+``init``. :meth:`NgramStats.heavy_hitter_count` queries through the plain
+window-hash kernels (``ops.cyclic`` / ``ops.general``) with the same hash
+spec, so query columns cannot drift from update columns.
+
+The token counter accumulates as a uint32 (lo, hi) pair on the host, exact
+past 2^32 tokens.
+
+Not ported yet: multi-device updates (``data_shards``, ``mesh``),
+``export_stream`` and ``import_stream`` (they wait for
+``stream.export_state``), and the families outside the fused engine
+(``make_family`` raises for them) (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import CountMinSketch, HyperLogLog, make_family, u32
+from repro_torch.kernels import api, ops, stream
+from repro_torch.kernels.plan import CountMinSpec, HashSpec, HLLSpec, SketchPlan
+
+
+@dataclasses.dataclass
+class StatsConfig:
+    ngram_n: int = 8
+    L: int = 32
+    hll_b: int = 12
+    cms_depth: int = 4
+    cms_log2_width: int = 16
+    vocab: int = 1 << 17
+    seed: int = 11
+    family: str = "cyclic"       # rolling family: cyclic | general
+    impl: str = "auto"           # kernel dispatch: auto | kernel | ref
+    # multi-device updates are not ported: None or 1
+    data_shards: Optional[int] = None
+    device: str = "cuda"
+
+
+def _hash_spec(family: str, n: int, L: int) -> HashSpec:
+    if family == "cyclic":
+        return HashSpec(family="cyclic", n=n, L=L, discard=True)
+    return HashSpec(family="general", n=n, L=L)
+
+
+def device_tokens(tokens, device) -> torch.Tensor:
+    """Token ids (tensor or array, any integer type below 2^31) -> an
+    integer tensor on ``device``; a host array goes over as int32 through
+    pinned memory."""
+    if isinstance(tokens, torch.Tensor):
+        t = tokens.view(torch.int32) if tokens.dtype == torch.uint32 else tokens
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(tokens).astype(np.int32, copy=False)))
+    return stream._to_device(t, device)
+
+
+def lookup(fam, params, tokens, device) -> torch.Tensor:
+    """Token ids -> h1 values (uint32, masked to L bits) on ``device``."""
+    return fam._lookup(params, device_tokens(tokens, device))
+
+
+def _add_tokens(tokens_state: np.ndarray, added: int) -> np.ndarray:
+    """(lo, hi) uint32 pair + a batch's token count, with carry."""
+    total = NgramStats.token_count({"tokens": tokens_state}) + int(added)
+    return np.array([total & 0xFFFFFFFF, (total >> 32) & 0xFFFFFFFF],
+                    np.uint32)
+
+
+class NgramStats:
+    def __init__(self, cfg: StatsConfig = None, mesh=None):
+        self.cfg = cfg = cfg or StatsConfig()
+        if mesh is not None or cfg.data_shards not in (None, 1):
+            raise NotImplementedError(
+                "multi-device stats (mesh / data_shards) is not ported to "
+                "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
+        self.device = torch.device(cfg.device)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)
+        self.fp = self.fam.init(gen, cfg.vocab, self.device)
+        self.hll = HyperLogLog(b=cfg.hll_b, hash_bits=self.fam.out_bits)
+        self.cms = CountMinSketch(depth=cfg.cms_depth,
+                                  log2_width=cfg.cms_log2_width)
+        self._cms_params = self.cms.init(gen, self.device)
+        # the fused HLL + CountMin plan, built once: one plan execution per
+        # batch is the whole sketch data plane
+        self.plan = SketchPlan(
+            _hash_spec(cfg.family, cfg.ngram_n, cfg.L),
+            (("hll", HLLSpec(b=cfg.hll_b)),
+             ("cms", CountMinSpec(depth=cfg.cms_depth,
+                                  log2_width=cfg.cms_log2_width))))
+        # Theorem-1 consistency: the plan's post-discard width is the
+        # hash_bits the HLL's rank extraction assumes
+        assert self.plan.hash.out_bits == self.hll.hash_bits, (
+            self.plan.hash.out_bits, self.hll.hash_bits)
+
+    def _lookup(self, tokens) -> torch.Tensor:
+        return lookup(self.fam, self.fp, tokens, self.device)
+
+    def _cms_ops(self) -> Dict:
+        return {"a": self._cms_params["a"], "b": self._cms_params["b"]}
+
+    def init_state(self) -> Dict:
+        return {"hll": self.hll.init(self.device),
+                "cms": self._cms_params["table"].clone(),
+                "tokens": np.zeros((2,), np.uint32)}
+
+    @staticmethod
+    def token_count(state: Dict) -> int:
+        """Total tokens seen, as an exact Python int (safe past 2^32)."""
+        t = np.asarray(state["tokens"], np.uint32)
+        return (int(t[1]) << 32) | int(t[0])
+
+    def update(self, state: Dict, tokens) -> Dict:
+        """Fold a (B, S) token batch into the state: ONE plan execution
+        (one kernel launch on CUDA) with the registers and table carried
+        in."""
+        h1v = self._lookup(tokens)
+        out = api.run(self.plan, h1v,
+                      operands={"hll": {"init": state["hll"]},
+                                "cms": {**self._cms_ops(),
+                                        "init": state["cms"]}},
+                      impl=self.cfg.impl)
+        return {"hll": out["hll"], "cms": out["cms"],
+                "tokens": _add_tokens(state["tokens"], h1v.numel())}
+
+    # -- streaming (unbounded token streams, fixed chunk shape) ------------
+
+    def init_stream(self, batch: int, state: Optional[Dict] = None) -> Dict:
+        """Open ``batch`` parallel token streams, continuing from ``state``
+        (default: a fresh :meth:`init_state`). The rolling-hash tail and
+        the sketch states carry across chunks, so an n-gram spanning two
+        chunks of a stream is still counted."""
+        state = state or self.init_state()
+        sstate = stream.init_state(
+            self.plan, batch, carry={"hll": state["hll"],
+                                     "cms": state["cms"]},
+            device=self.device)
+        return {"stream": sstate, "tokens": state["tokens"],
+                "batch": int(batch)}
+
+    @staticmethod
+    def _added(tokens, lengths) -> int:
+        return (int(np.prod(tuple(tokens.shape))) if lengths is None
+                else int(np.sum(np.asarray(
+                    lengths.cpu() if isinstance(lengths, torch.Tensor)
+                    else lengths, np.int64))))
+
+    def update_stream(self, sstate: Dict, tokens, lengths=None) -> Dict:
+        """Fold one (B, C) token chunk into the stream (rows advance
+        independently; ``lengths`` marks the real symbols per row)."""
+        st = stream.update(self.plan, sstate["stream"], self._lookup(tokens),
+                           lengths=lengths, operands={"cms": self._cms_ops()},
+                           impl=self.cfg.impl)
+        return {**sstate, "stream": st,
+                "tokens": _add_tokens(sstate["tokens"],
+                                      self._added(tokens, lengths))}
+
+    def update_stream_many(self, sstate: Dict, tokens, lengths=None) -> Dict:
+        """Fold a (T, B, C) block of T chunks into the stream: T plan
+        launches on CUDA, bit-identical to T :meth:`update_stream` calls."""
+        st = stream.update_many(self.plan, sstate["stream"],
+                                self._lookup(tokens), lengths=lengths,
+                                operands={"cms": self._cms_ops()},
+                                impl=self.cfg.impl)
+        return {**sstate, "stream": st,
+                "tokens": _add_tokens(sstate["tokens"],
+                                      self._added(tokens, lengths))}
+
+    def finalize_stream(self, sstate: Dict) -> Dict:
+        """Close the stream into an ordinary stats state (the carried
+        registers and table ARE the running state)."""
+        out = stream.finalize(self.plan, sstate["stream"])
+        return {"hll": out["hll"], "cms": out["cms"],
+                "tokens": sstate["tokens"]}
+
+    # -- parameters ---------------------------------------------------------
+
+    def export_params(self) -> Dict:
+        """The sampled draw every estimate depends on (h1 table, CountMin
+        row constants and initial table) as host numpy arrays;
+        :meth:`rebind_params` is its inverse."""
+        host = lambda tree: {k: v.cpu().numpy() for k, v in tree.items()}
+        return {"fam": host(self.fp), "cms": host(self._cms_params)}
+
+    def rebind_params(self, params: Dict) -> None:
+        """Adopt another draw (before any state import): ``{"fam": {"h1"},
+        "cms": {"a", "b", "table"}}`` as tensors
+        (:func:`repro_torch.convert.stats_params_from_jax`) or arrays."""
+        self.fp = {k: api.as_u32(v, self.device).contiguous()
+                   for k, v in params["fam"].items()}
+        cms = params["cms"]
+        self._cms_params = {
+            "a": api.as_u32(cms["a"], self.device).contiguous(),
+            "b": api.as_u32(cms["b"], self.device).contiguous(),
+            "table": api.as_i32(cms["table"], self.device).contiguous()}
+
+    # -- queries ------------------------------------------------------------
+
+    def distinct_ngrams(self, state: Dict) -> float:
+        return float(self.hll.estimate(state["hll"]))
+
+    def query_hashes(self, tokens) -> torch.Tensor:
+        """(..., S) tokens -> (..., S-n+1) masked window hashes, the ones
+        the fused update feeds to CountMin, through the plain window-hash
+        kernels."""
+        h1v = self._lookup(tokens)
+        hs = self.plan.hash
+        if hs.family == "cyclic":
+            h = ops.cyclic(h1v, n=hs.n, L=hs.L, impl=self.cfg.impl)
+        else:
+            h = ops.general(h1v, n=hs.n, p=hs.p, L=hs.L, impl=self.cfg.impl)
+        return (u32.lanes(h) & hs.hash_mask).to(torch.uint32)
+
+    def heavy_hitter_count(self, state: Dict, tokens) -> np.ndarray:
+        """Estimated frequency of the first window of each given sequence."""
+        h = self.query_hashes(tokens)
+        return self.cms.query({**self._cms_params, "table": state["cms"]},
+                              h[..., 0]).cpu().numpy()

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -64,10 +65,16 @@ def _compile(name: str) -> Path:
 
 
 def build(names: Iterable[str]) -> None:
-    """Compile and load each named kernel that is not loaded yet."""
-    for name in names:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(_compile(name)))
+    """Compile and load each named kernel that is not loaded yet: one nvcc
+    per source, all started together, so a cold build takes about as long
+    as its slowest source however many sources the port grows."""
+    todo = [name for name in dict.fromkeys(names) if name not in _libs]
+    if not todo:
+        return
+    with ThreadPoolExecutor(len(todo)) as pool:
+        paths = list(pool.map(_compile, todo))
+    for name, path in zip(todo, paths):
+        _libs[name] = ctypes.CDLL(str(path))
 
 
 def sources() -> list:

@@ -19,13 +19,15 @@ Hash values travel as uint32 tensors and counts as int32.
 Example::
 
     from repro_torch.kernels import api
-    from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
+    from repro_torch.kernels.plan import HashSpec, HLLSpec, MinHashSpec, SketchPlan
 
     plan = SketchPlan(hash=HashSpec(family="cyclic", n=8, L=32),
-                      sketches={"sig": MinHashSpec(k=64)})
+                      sketches={"sig": MinHashSpec(k=64),
+                                "hll": HLLSpec(b=12)})
     out = api.run(plan, h1v, n_windows=nw,
                   operands={"sig": {"a": a, "b": b}})
     out["sig"]                                  # (..., 64) uint32
+    out["hll"]                                  # (4096,) int32
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_fused as _sf
-from repro_torch.kernels.plan import SketchPlan
+from repro_torch.kernels.plan import BloomSpec, MinHashSpec, SketchPlan
 
 _IMPLS = ("auto", "kernel", "ref")
 
@@ -182,14 +184,23 @@ def norm_w_start(w_start, B: int, W: int, device):
     return ws.clamp(0, W).contiguous()
 
 
+def as_state(x, dtype_name: str, device) -> torch.Tensor:
+    """A sketch state (tensor or array) -> its ``state_struct`` dtype on
+    ``device``: uint32 through :func:`as_u32`, int32 through
+    :func:`as_i32`."""
+    if dtype_name == "uint32":
+        return as_u32(x, device)
+    if isinstance(x, torch.Tensor) and x.dtype == torch.uint32:
+        return x.view(torch.int32).to(device)
+    return as_i32(x, device)
+
+
 def _check_operands(plan: SketchPlan, operands, batch: Optional[int],
                     device) -> Dict[str, dict]:
-    """Every MinHash sketch gets exactly its remix lanes ``a``/``b`` (k,),
-    plus an optional ``init`` carry-in of its running minima (checked
-    against the spec's ``state_struct`` when the flattened batch size is
-    known). Operands arrive on ``device`` as uint32, as the kernel takes
-    them."""
-    _ref.require_minhash(plan)
+    """Every sketch gets exactly the operand tensors its spec declares
+    (uint32 on ``device``, as the kernel takes them), plus an optional
+    ``init`` carry-in of its running state in the spec's ``state_struct``
+    dtype (its shape checked when the flattened batch size is known)."""
     operands = dict(operands or {})
     unknown = set(operands) - set(plan.names)
     if unknown:
@@ -201,15 +212,18 @@ def _check_operands(plan: SketchPlan, operands, batch: Optional[int],
             raise ValueError(
                 f"sketch {name!r} ({type(spec).__name__}) needs operands "
                 f"{list(want)}, got {sorted(raw)}")
-        got = {k: as_u32(v, device).contiguous() for k, v in raw.items()}
-        for op in ("a", "b"):
-            if tuple(got[op].shape) != (spec.k,):
+        got = {k: as_u32(v, device).contiguous() for k, v in raw.items()
+               if k != "init"}
+        for op, shape in _sf.operand_shapes(spec).items():
+            if tuple(got[op].shape) != shape:
                 raise ValueError(
                     f"sketch {name!r}: operand {op!r} shape "
-                    f"{tuple(got[op].shape)} != (k={spec.k},)")
-        if "init" in got and batch is not None:
-            shape = spec.state_struct(batch)[0]
-            if tuple(got["init"].shape) != shape:
+                    f"{tuple(got[op].shape)} != {shape}")
+        if "init" in raw:
+            shape, dtype_name, _ = spec.state_struct(batch or 0)
+            got["init"] = as_state(raw["init"], dtype_name,
+                                   device).contiguous()
+            if batch is not None and tuple(got["init"].shape) != shape:
                 raise ValueError(
                     f"sketch {name!r}: init carry shape "
                     f"{tuple(got['init'].shape)} != state shape {shape} "
@@ -218,13 +232,39 @@ def _check_operands(plan: SketchPlan, operands, batch: Optional[int],
     return operands
 
 
+def needs_second_stream(plan: SketchPlan, given, name: str) -> bool:
+    """Whether the plan takes a second hash stream (it holds a Bloom
+    sketch); raises when the caller's ``given`` argument ``name`` is
+    missing although needed, or present although not."""
+    if plan.needs_second_stream and given is None:
+        raise ValueError(f"plan contains a BloomSpec: the double-hashing "
+                         f"probe stride needs a second stream {name}")
+    if not plan.needs_second_stream and given is not None:
+        raise ValueError(f"{name} given but no sketch in the plan consumes "
+                         f"a second hash stream")
+    return plan.needs_second_stream
+
+
+def second_stream(plan: SketchPlan, h1v_b, shape, device):
+    """``h1v_b`` as (B, S) uint32 on ``device`` when the plan holds a Bloom
+    sketch, else None. ``shape`` is the (B, S0) of the flattened first
+    stream."""
+    if not needs_second_stream(plan, h1v_b, "h1v_b"):
+        return None
+    xb, _ = flatten(as_u32(h1v_b, device))
+    if tuple(xb.shape) != tuple(shape):
+        raise ValueError(f"h1v_b shape {tuple(xb.shape)} != h1v shape "
+                         f"{tuple(shape)}")
+    return xb.contiguous()
+
+
 def validate(plan: SketchPlan, h1v, h1v_b, n_windows, operands, impl: str,
              w_start=None, device=None):
     """The front half of :func:`run`: validate + normalize everything.
 
-    Returns ``(x (B, S), nw (B,), ws (B,) | None, operands, lead,
-    ref_path)`` ready for :func:`execute`. No ported sketch consumes a
-    second hash stream, so ``h1v_b`` must be None.
+    Returns ``(x (B, S), xb (B, S) | None, nw (B,), ws (B,) | None,
+    operands, lead, ref_path)`` ready for :func:`execute`. ``h1v_b`` is
+    required exactly when the plan holds a Bloom sketch.
 
     ``S < n`` inputs are legal here (every row simply has zero valid
     windows): the rows are zero-padded to ``S = n`` and the window clamp
@@ -238,15 +278,15 @@ def validate(plan: SketchPlan, h1v, h1v_b, n_windows, operands, impl: str,
     S0 = h1v.shape[-1]
     x, lead, ref_path = prepare(h1v, n=n, impl=impl, allow_short=True,
                                 device=dev)
-    B = x.shape[0]
+    B, S = x.shape
     operands = _check_operands(plan, operands, B, dev)
-    if h1v_b is not None:
-        raise ValueError("h1v_b given but no sketch in the plan consumes a "
-                         "second hash stream")
+    xb = second_stream(plan, h1v_b, (B, S0), dev)
+    if xb is not None and S0 < S:
+        xb = _pad_cols(xb, S)
     W = max(0, S0 - n + 1)          # windows of the *caller's* rows
     nw = norm_windows(n_windows, B, W, dev)
     ws = norm_w_start(w_start, B, W, dev)
-    return x, nw, ws, operands, lead, ref_path
+    return x, xb, nw, ws, operands, lead, ref_path
 
 
 def execute(plan: SketchPlan, x, xb, nw, operands, ref_path: bool,
@@ -262,9 +302,18 @@ def execute(plan: SketchPlan, x, xb, nw, operands, ref_path: bool,
 
 def shape_outputs(plan: SketchPlan, out: Dict[str, torch.Tensor],
                   lead) -> Dict[str, torch.Tensor]:
-    """Restore the caller's leading dims on the per-row signatures."""
-    return {name: out[name].reshape(lead + (spec.k,))
-            for name, spec in plan.sketches}
+    """Restore the caller's leading dims on per-row outputs: MinHash
+    (..., k), Bloom (...,). HLL registers (2^b,) and the CountMin table
+    (depth, 2^w) are corpus-level and pass through."""
+    results = {}
+    for name, spec in plan.sketches:
+        o = out[name]
+        if isinstance(spec, MinHashSpec):
+            o = o.reshape(lead + (spec.k,))
+        elif isinstance(spec, BloomSpec):
+            o = o.reshape(lead)
+        results[name] = o
+    return results
 
 
 def run(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None, operands=None,
@@ -277,13 +326,16 @@ def run(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None, operands=None,
       h1v: (..., S) h1-mapped token values below 2^32 (uint32 tensor, or
         any integer tensor or array); leading dims are flattened to a batch
         and restored on return.
-      h1v_b: second independent family draw; only a Bloom sketch consumes
-        it, and that epilogue is not ported, so it must be None.
+      h1v_b: second independent family draw, required iff the plan
+        contains a :class:`BloomSpec` (double-hashing probe stride).
       n_windows: optional (...,) per-row valid-window counts for padded
         batches; ``None`` means every window of every row is valid.
       operands: ``{sketch_name: {operand_name: values}}`` — MinHash remix
-        lanes ``a``/``b`` (k,), plus an optional ``init`` carry of the
-        sketch's running state (see the spec's ``state_struct``).
+        lanes ``a``/``b`` (k,), the packed Bloom filter ``bits``
+        (2^log2_m/32,), the CountMin row remix constants ``a``/``b``
+        (depth,); plus an optional ``init`` carry of each sketch's running
+        state (see the spec's ``state_struct``), folded in with the
+        sketch's own merge operator.
       impl: ``"auto"`` (the kernel on CUDA, the plain version on CPU),
         ``"kernel"`` (the kernel; raises on CPU) or ``"ref"``.
       w_start: optional (...,) per-row *first* valid window index (window j
@@ -291,9 +343,12 @@ def run(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None, operands=None,
       device: where the computation runs (default: ``h1v``'s device for a
         tensor, else ``cuda``).
 
-    Returns ``{sketch_name: result}`` — MinHash (..., k) uint32.
+    Returns ``{sketch_name: result}`` — MinHash (..., k) uint32, HLL (2^b,)
+    int32 (reduced over the whole batch), Bloom (...,) int32 hit counts,
+    CountMin (depth, 2^log2_width) int32 counts (additive: fold into a
+    running table with ``+``, or pass it as ``init``).
     """
-    x, nw, ws, operands, lead, ref_path = validate(
+    x, xb, nw, ws, operands, lead, ref_path = validate(
         plan, h1v, h1v_b, n_windows, operands, impl, w_start, device)
-    out = execute(plan, x, None, nw, operands, ref_path, w_start=ws)
+    out = execute(plan, x, xb, nw, operands, ref_path, w_start=ws)
     return shape_outputs(plan, out, lead)

@@ -1,0 +1,169 @@
+// The plain window-hash kernels CYCLIC and GENERAL, hand-written for Hopper
+// (sm_90a): the paper's Fig. 1 pair.
+//
+// Replaces the JAX package's Pallas kernels
+// repro/kernels/cyclic.py::cyclic_rolling (_cyclic_kernel) and
+// repro/kernels/general.py::general_rolling (_general_kernel, _mul_const).
+// Each maps (B, S) uint32 symbols to (B, S-n+1) uint32 window hashes, with
+// every symbol first masked to its L low bits and no discard:
+//
+//   CYCLIC   H_j = XOR_t rotl_L(x[j+t], n-1-t)
+//   GENERAL  H_j = XOR_t x[j+t] * x^(n-1-t) mod p   (carry-less, degree L)
+//
+// Design: hash the way the paper does. A block covers kThreads * kRun
+// consecutive windows of one row and stages their symbols (plus the n-1
+// halo) in shared memory with coalesced loads. Thread t owns the run of
+// kRun windows starting at t * kRun: it hashes the first directly (n
+// terms), then rolls through the rest with the recursive update
+//
+//   CYCLIC   h' = rotl(h, 1) ^ rotl(x_out, n mod L) ^ x_in  (Algorithm 4)
+//   GENERAL  h' = x * h ^ (x^n mod p) * x_out ^ x_in        (Algorithm 3)
+//
+// which gives the direct form's bits. kRun is odd, so the 32 threads of a
+// warp, reading shared memory kRun words apart, hit 32 distinct banks. The
+// hashes go back through shared memory and leave with coalesced stores;
+// the ragged tail of a row is masked.
+//
+// What bounds it: 4 bytes read and 4 written per window, against three
+// integer instructions a window for CYCLIC at L = 32 (two funnel shifts
+// and a three-input XOR) and one shift-reduce step per bit of x^n mod p
+// for GENERAL (29 instructions at n = 8). At n = 8, L = 32 both are bound
+// by bytes on an H100, GENERAL with its integer work at about 0.7 of its
+// byte time. This first version does no more than the rolling recurrence
+// and coalesced staging about either bound.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRun = 17;                     // windows a thread rolls over
+constexpr int kBlockWin = kThreads * kRun;   // windows a block covers
+constexpr int kMaxN = 32;                    // n <= L <= 32
+
+struct RollParams {
+  int n;
+  int L;
+  uint32_t lmask;        // the L low bits
+  uint32_t p_low;        // GENERAL: modulus without its top bit
+  uint32_t c_out;        // GENERAL: x^n mod p
+  uint32_t xpow[kMaxN];  // GENERAL: xpow[t] = x^(n-1-t) mod p
+};
+
+__device__ __forceinline__ uint32_t rotl_l(uint32_t v, int r, int L,
+                                           uint32_t m) {
+  if (r == 0) return v;  // a shift by L would be undefined
+  return ((v << r) | (v >> (L - r))) & m;
+}
+
+__device__ __forceinline__ uint32_t xtimes(uint32_t v, const RollParams& rp) {
+  const uint32_t msb = (v >> (rp.L - 1)) & 1u;
+  return ((v << 1) & rp.lmask) ^ (msb * rp.p_low);
+}
+
+__device__ __forceinline__ uint32_t mul_const(uint32_t v, uint32_t c,
+                                              const RollParams& rp) {
+  uint32_t acc = 0;
+  while (c) {
+    if (c & 1u) acc ^= v;
+    c >>= 1;
+    if (c) v = xtimes(v, rp);
+  }
+  return acc;
+}
+
+// kFamily: 0 = CYCLIC, 1 = GENERAL
+template <int kFamily>
+__global__ void __launch_bounds__(kThreads)
+rolling_kernel(const uint32_t* __restrict__ x, int S, int W,
+               uint32_t* __restrict__ out, RollParams rp) {
+  __shared__ uint32_t xs[kBlockWin + kMaxN - 1];
+  __shared__ uint32_t hs[kBlockWin];
+
+  const int row = blockIdx.x;
+  const int w0 = blockIdx.y * kBlockWin;
+  const int nwin = min(kBlockWin, W - w0);
+  const int n = rp.n;
+  const uint32_t* xr = x + static_cast<size_t>(row) * S + w0;
+  for (int i = threadIdx.x; i < nwin + n - 1; i += kThreads)
+    xs[i] = xr[i] & rp.lmask;
+  __syncthreads();
+
+  const int j0 = threadIdx.x * kRun;
+  if (j0 < nwin) {
+    uint32_t h = 0;
+    for (int t = 0; t < n; ++t)
+      h ^= kFamily == 0 ? rotl_l(xs[j0 + t], n - 1 - t, rp.L, rp.lmask)
+                        : mul_const(xs[j0 + t], rp.xpow[t], rp);
+    hs[j0] = h;
+    const int j1 = min(j0 + kRun, nwin);
+    const int r_out = n % rp.L, r_one = 1 % rp.L;
+    for (int j = j0 + 1; j < j1; ++j) {
+      const uint32_t x_out = xs[j - 1], x_in = xs[j + n - 1];
+      if (kFamily == 0)
+        h = rotl_l(h, r_one, rp.L, rp.lmask) ^
+            rotl_l(x_out, r_out, rp.L, rp.lmask) ^ x_in;
+      else
+        h = xtimes(h, rp) ^ mul_const(x_out, rp.c_out, rp) ^ x_in;
+      hs[j] = h;
+    }
+  }
+  __syncthreads();
+  uint32_t* orow = out + static_cast<size_t>(row) * W + w0;
+  for (int i = threadIdx.x; i < nwin; i += kThreads) orow[i] = hs[i];
+}
+
+int launch(int family, const void* x, int B, int S, int n, int L,
+           const RollParams& rp, void* out, void* stream) {
+  if (B < 0 || n < 1 || n > kMaxN || L < n || L > 32 || S < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int W = S - n + 1;
+  const long long segs = (W + kBlockWin - 1LL) / kBlockWin;
+  if (segs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(B, static_cast<unsigned int>(segs));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* xp = static_cast<const uint32_t*>(x);
+  uint32_t* op = static_cast<uint32_t*>(out);
+  if (family == 0)
+    rolling_kernel<0><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp);
+  else
+    rolling_kernel<1><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+RollParams params(int n, int L) {
+  RollParams rp{};
+  rp.n = n;
+  rp.L = L;
+  rp.lmask = L == 32 ? 0xFFFFFFFFu : ((1u << L) - 1u);
+  return rp;
+}
+
+}  // namespace
+
+// Plain C interfaces, bound with ctypes. Device pointers: x (B, S) uint32,
+// out (B, S-n+1) uint32. Run on `stream` and do not synchronise. Return
+// cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for arguments out of range.
+extern "C" int cyclic_rolling(const void* x, int B, int S, int n, int L,
+                              void* out, void* stream) {
+  if (L < 1 || L > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(0, x, B, S, n, L, params(n, L), out, stream);
+}
+
+// xpow is a HOST array of n values x^(n-1-t) mod p; c_out = x^n mod p;
+// p_low is the modulus without its top bit.
+extern "C" int general_rolling(const void* x, int B, int S, int n, int L,
+                               unsigned int p_low, unsigned int c_out,
+                               const unsigned int* xpow, void* out,
+                               void* stream) {
+  if (L < 1 || L > 32 || n < 1 || n > kMaxN || xpow == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RollParams rp = params(n, L);
+  rp.p_low = p_low;
+  rp.c_out = c_out;
+  for (int t = 0; t < n; ++t) rp.xpow[t] = xpow[t];
+  return launch(1, x, B, S, n, L, rp, out, stream);
+}

@@ -1,19 +1,22 @@
-"""Plain PyTorch versions of the plan kernel (independent of repro_torch.core).
+"""Plain PyTorch versions of every CUDA kernel (independent of
+repro_torch.core's families and sketches).
 
 These are deliberately naive re-implementations of the defining formulas,
 on ``int64`` lanes holding uint32 values (:mod:`repro_torch.core.u32`). The
-CUDA kernel in ``csrc/sketch_plan.cu`` is held bit-exact against
-:func:`sketch_plan_ref` on the card, and the whole module against the JAX
-package's ``repro/kernels/ref.py`` by the CPU tests. Window-hash helpers
-return int64 lanes; :func:`sketch_plan_ref` returns uint32 tensors, as the
-kernel does.
+CUDA kernels are held bit-exact against them on the card:
+``csrc/sketch_plan.cu`` against :func:`sketch_plan_ref`, ``csrc/rolling.cu``
+against :func:`cyclic_ref` and :func:`general_ref`; the CPU tests hold the
+module against the JAX package's ``repro/kernels/ref.py``. Window-hash
+helpers return int64 lanes; :func:`sketch_plan_ref` returns the kernel's
+dtypes.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import u32
-from repro_torch.kernels.plan import MinHashSpec
+from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HLLSpec,
+                                      MinHashSpec)
 
 _SENTINEL = u32.MASK32
 
@@ -99,35 +102,94 @@ def minhash_reduce(h, valid, a, b, k_chunk: int = 16,
     return out if init is None else torch.minimum(out, u32.lanes(init))
 
 
-def require_minhash(plan) -> None:
-    """Only the MinHash epilogue is ported; HLL, CountMin and Bloom raise
-    until theirs are (ROADMAP.md, Queue 2 item 1)."""
-    for name, spec in plan.sketches:
-        if not isinstance(spec, MinHashSpec):
-            raise NotImplementedError(
-                f"sketch {name!r}: the {type(spec).__name__} epilogue is not "
-                f"ported to repro_torch yet (ROADMAP.md, Queue 2 item 1)")
+def hll_reduce(h, valid, b: int, rank_bits: int, init=None) -> torch.Tensor:
+    """(B, W) masked hashes -> (2^b,) int32 registers over the valid
+    windows: index ``h & (2^b - 1)``, rank ``min(ctz(h >> b), rank_bits) +
+    1`` (ctz(0) = 32), an invalid window ranks 0. ``init`` optionally
+    carries a register file in (merged by max)."""
+    h, valid = h.reshape(-1), valid.reshape(-1)
+    m = 1 << b
+    rank = u32.ctz(h >> b).clamp(max=rank_bits) + 1
+    rank = torch.where(valid, rank, 0)
+    out = (torch.zeros((m,), dtype=torch.int64, device=h.device)
+           if init is None else init.to(torch.int64).clone())
+    out.scatter_reduce_(0, h & (m - 1), rank, "amax")
+    return out.to(torch.int32)
+
+
+def cms_reduce(h, valid, a, b, log2_width: int, init=None) -> torch.Tensor:
+    """(B, W) masked hashes -> (depth, 2^log2_width) int32 counts: row d's
+    column is the top ``log2_width`` bits of ``a[d] * h + b[d] mod 2^32``,
+    and each valid window adds one. ``init`` optionally carries a running
+    table in (counts merge by ``+``). The same table at every width: the
+    JAX package's in-kernel/scatter split (``CountMinSpec.use_in_kernel``)
+    is a TPU tiling choice that changes no count."""
+    hf = h.reshape(-1)
+    vf = valid.reshape(-1).to(torch.int32)
+    a, b = u32.lanes(a), u32.lanes(b)
+    depth, width = a.shape[0], 1 << log2_width
+    mixed = (u32.mulmod32(a[:, None], hf[None, :]) + b[:, None]) & u32.MASK32
+    cols = mixed >> (32 - log2_width)
+    rows = torch.arange(depth, device=h.device)[:, None]
+    table = (torch.zeros((depth, width), dtype=torch.int32, device=h.device)
+             if init is None else init.to(torch.int32).clone())
+    table.view(-1).index_add_(0, (rows * width + cols).reshape(-1),
+                              vf.repeat(depth))
+    return table
+
+
+def bloom_reduce(ha, hb, valid, bits, k: int, log2_m: int,
+                 init=None) -> torch.Tensor:
+    """Two (B, W) masked hash draws + packed filter -> (B,) int32 counts of
+    the valid windows whose k probes ``(ha + i * (hb | 1)) mod 2^32 & (m -
+    1)`` all hit. ``init`` optionally carries running counts in (merged by
+    ``+``)."""
+    hb = hb | 1                                  # odd probe stride
+    i = torch.arange(k, dtype=torch.int64, device=ha.device)
+    # the sum wraps in 32 bits before the mask, which matters at log2_m = 32
+    probes = ((ha[..., None] + i * hb[..., None]) & u32.MASK32) & (
+        (1 << log2_m) - 1)
+    words = u32.lanes(bits)
+    hit = (((words[probes >> 5] >> (probes & 31)) & 1) == 1).all(dim=-1)
+    out = (hit & valid).sum(dim=-1).to(torch.int32)
+    return out if init is None else out + init.to(torch.int32)
 
 
 def sketch_plan_ref(plan, h1v, h1v_b, n_windows, operands,
                     w_start=None) -> dict:
-    """Plain executor for a SketchPlan: ONE rolling-hash evaluation feeds
-    every requested sketch epilogue. Mirrors the CUDA kernel
+    """Plain executor for a SketchPlan: ONE rolling-hash evaluation (per
+    stream) feeds every requested sketch epilogue. Mirrors the CUDA kernel
     (``sketch_fused.sketch_plan_fused``) bit for bit. A sketch's optional
     ``init`` operand carries its running state in, folded with the sketch's
-    merge operator, so a chunked run that threads the carry equals one shot.
-    MinHash sketches only (:func:`require_minhash`), so ``h1v_b`` must be
-    None."""
-    require_minhash(plan)
-    if h1v_b is not None:
-        raise ValueError("h1v_b given but no sketch in the plan consumes a "
-                         "second hash stream")
+    merge operator (min / max / + / +), so a chunked run that threads the
+    carry equals one shot. ``h1v_b`` is the second family draw that Bloom
+    sketches take their probe stride from (None for plans without one).
+
+    Returns MinHash (B, k) uint32, HLL (2^b,) int32, CountMin (depth,
+    2^log2_width) int32 and Bloom (B,) int32."""
     hs = plan.hash
     h, valid = _masked_windows(h1v, hs.n, hs.L, hs.hash_mask, n_windows,
                                family=hs.family, p=hs.p, w_start=w_start)
+    hb = None
+    if plan.needs_second_stream:
+        hb = window_hashes_ref(h1v_b, family=hs.family, n=hs.n, L=hs.L,
+                               p=hs.p) & hs.hash_mask
     out = {}
-    for name, _ in plan.sketches:
+    for name, spec in plan.sketches:
         ops_nm = operands.get(name, {})
-        out[name] = minhash_reduce(h, valid, ops_nm["a"], ops_nm["b"],
-                                   init=ops_nm.get("init")).to(torch.uint32)
+        init = ops_nm.get("init")
+        if isinstance(spec, MinHashSpec):
+            out[name] = minhash_reduce(h, valid, ops_nm["a"], ops_nm["b"],
+                                       init=init).to(torch.uint32)
+        elif isinstance(spec, HLLSpec):
+            out[name] = hll_reduce(h, valid, spec.b,
+                                   spec.resolve_rank_bits(hs), init=init)
+        elif isinstance(spec, CountMinSpec):
+            out[name] = cms_reduce(h, valid, ops_nm["a"], ops_nm["b"],
+                                   spec.log2_width, init=init)
+        elif isinstance(spec, BloomSpec):
+            out[name] = bloom_reduce(h, hb, valid, ops_nm["bits"], spec.k,
+                                     spec.log2_m, init=init)
+        else:  # pragma: no cover - SketchPlan validates spec types
+            raise TypeError(f"unknown sketch spec {type(spec)}")
     return out

@@ -1,16 +1,18 @@
-"""The plan kernel's wrapper: one rolling-hash pass feeding every MinHash
-sketch of a plan, on the card through ``csrc/sketch_plan.cu``.
+"""The plan kernel's wrapper: one rolling-hash pass feeding every sketch of a
+plan (MinHash, HLL, CountMin, Bloom), on the card through
+``csrc/sketch_plan.cu``.
 
 Replaces the JAX package's Pallas kernel
 ``repro/kernels/sketch_fused.py::sketch_plan_fused`` (``_plan_kernel`` with
-its ``_minhash_tile`` epilogue). The window hashes are computed once, masked
-by the Theorem-1 discard, remixed and reduced into the signatures inside the
-kernel; they never reach device memory.
+its ``_minhash_tile``, ``_hll_tile``, ``_cms_tile`` and ``_bloom_tile``
+epilogues and the CountMin scatter epilogue). The window hashes are
+computed once, masked by the Theorem-1 discard and reduced into every
+sketch inside the kernel; they never reach device memory.
 
-A plan with several MinHash sketches runs as ONE launch: their remix lanes
-are laid side by side into one signature of ``sum(k)`` lanes and the output
-is split afterwards. The HLL, CountMin and Bloom epilogues are not ported
-yet (ROADMAP.md, Queue 2 item 1).
+A plan with any mix of sketches runs as ONE launch: each sketch becomes one
+:class:`_Epilogue` of a :class:`_PlanDesc`, which mirrors the kernel's C
+structs. A plan with a Bloom sketch also hashes the second stream
+``h1v_b``, which gives the probe stride.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.sketch_plan_ref`. On a CUDA tensor it
@@ -24,22 +26,41 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.plan import SketchPlan
+from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HLLSpec,
+                                      MinHashSpec, SketchPlan)
 
 # kernel launches made by this wrapper (one per sketch_plan_fused call on
 # CUDA tensors); the smoke run resets it and reads it to show the main path
 # went through the kernel
 LAUNCHES = 0
+# launches that ran each epilogue, by spec type name (a launch of a mixed
+# plan counts under every kind it holds)
+EPILOGUE_LAUNCHES = {t.__name__: 0 for t in
+                     (MinHashSpec, HLLSpec, CountMinSpec, BloomSpec)}
 
 _FAMILY_CODE = {"cyclic": 0, "general": 1}
+_KIND = {MinHashSpec: 0, HLLSpec: 1, CountMinSpec: 2, BloomSpec: 3}
+_MAX_SKETCHES = 8
+
+
+class _Epilogue(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("p0", ctypes.c_int),
+                ("p1", ctypes.c_int), ("unused", ctypes.c_int),
+                ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("init", ctypes.c_void_p), ("out", ctypes.c_void_p)]
+
+
+class _PlanDesc(ctypes.Structure):
+    _fields_ = [("n_sketches", ctypes.c_int), ("unused", ctypes.c_int),
+                ("sk", _Epilogue * _MAX_SKETCHES)]
 
 
 def _bind(lib: ctypes.CDLL):
-    fn = lib.sketch_plan_minhash
+    fn = lib.sketch_plan
     if fn.argtypes is None:
         vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        fn.argtypes = [vp, i, i, vp, vp, vp, vp, i, vp, vp, i, i, i, u, u,
-                       ctypes.POINTER(ctypes.c_uint), vp]
+        fn.argtypes = [vp, vp, i, i, vp, vp, ctypes.POINTER(_PlanDesc), i, i,
+                       i, u, u, ctypes.POINTER(ctypes.c_uint), vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -55,14 +76,60 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def operand_shapes(spec) -> dict:
+    """The shape of every uint32 runtime operand a sketch spec declares."""
+    if isinstance(spec, MinHashSpec):
+        return {"a": (spec.k,), "b": (spec.k,)}
+    if isinstance(spec, CountMinSpec):
+        return {"a": (spec.depth,), "b": (spec.depth,)}
+    if isinstance(spec, BloomSpec):
+        return {"bits": (spec.n_words,)}
+    return {}
+
+
+def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev):
+    """-> (the C descriptor, its output tensor) for one sketch, with its
+    operands checked against what the kernel reads."""
+    u32, i32 = torch.uint32, torch.int32
+    shape, dtype_name, _ = spec.state_struct(B)
+    dtype = u32 if dtype_name == "uint32" else i32
+    if isinstance(spec, MinHashSpec):
+        p0, p1 = spec.k, 0
+    elif isinstance(spec, HLLSpec):
+        if spec.b > 31:
+            raise ValueError(f"sketch {name!r}: HLL b={spec.b} > 31")
+        p0, p1 = spec.b, spec.resolve_rank_bits(plan.hash)
+    elif isinstance(spec, CountMinSpec):
+        p0, p1 = spec.depth, spec.log2_width
+    else:
+        p0, p1 = spec.k, spec.log2_m
+    for op, op_shape in operand_shapes(spec).items():
+        _check(ops[op], f"sketch {name!r} operand {op!r}", u32, op_shape, dev)
+    init = ops.get("init")
+    if init is not None:
+        _check(init, f"sketch {name!r} init", dtype, shape, dev)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    ep = _Epilogue(kind=_KIND[type(spec)], p0=p0, p1=p1,
+                   a=_ptr(ops.get("a", ops.get("bits"))), b=_ptr(ops.get("b")),
+                   init=_ptr(init), out=out.data_ptr())
+    return ep, out
+
+
 def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
                       operands, *, plan: SketchPlan, w_start=None) -> dict:
     """Execute every sketch in ``plan`` in ONE rolling-hash pass.
 
-    h1v (B, S) uint32, n_windows (B,) int32 (at most S-n+1), w_start (B,)
-    int32 or None, operands ``{name: {"a": (k,), "b": (k,)[, "init":
-    (B, k)]}}`` uint32 -> ``{name: (B, k) uint32 signatures}``. A sketch's
-    ``init`` seeds its running minima; without it they start at 0xFFFFFFFF.
+    h1v and h1v_b (B, S) uint32 (h1v_b only for a plan with a Bloom
+    sketch), n_windows (B,) int32 (at most S-n+1), w_start (B,) int32 or
+    None, operands ``{name: {...}}`` as ``api.run`` checks them, each
+    sketch's optional ``init`` in the shape and type of its output ->
+    ``{name: MinHash (B, k) uint32 | HLL (2^b,) int32 | CountMin (depth,
+    2^w) int32 | Bloom (B,) int32}``. Without ``init`` a sketch starts at
+    its identity.
     """
     global LAUNCHES
     if h1v.device.type == "cpu":
@@ -71,10 +138,6 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     if not h1v.is_cuda:
         raise ValueError(f"sketch_plan_fused runs on CUDA or CPU tensors, "
                          f"got {h1v.device}")
-    _ref.require_minhash(plan)
-    if h1v_b is not None:
-        raise ValueError("h1v_b given but no sketch in the plan consumes a "
-                         "second hash stream")
     dev = h1v.device
     if h1v.dim() != 2:
         raise ValueError(f"h1v must be (B, S), got shape {tuple(h1v.shape)}")
@@ -83,63 +146,42 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     if S < hs.n:
         raise ValueError(f"sequence length {S} < window n={hs.n}")
     _check(h1v, "h1v", torch.uint32, (B, S), dev)
+    if plan.needs_second_stream:
+        if h1v_b is None:
+            raise ValueError("plan contains a BloomSpec: the probe stride "
+                             "needs a second stream h1v_b")
+        _check(h1v_b, "h1v_b", torch.uint32, (B, S), dev)
+    elif h1v_b is not None:
+        raise ValueError("h1v_b given but no sketch in the plan consumes a "
+                         "second hash stream")
     _check(n_windows, "n_windows", torch.int32, (B,), dev)
     if w_start is not None:
         _check(w_start, "w_start", torch.int32, (B,), dev)
+    if len(plan.sketches) > _MAX_SKETCHES:
+        raise ValueError(f"the plan kernel takes at most {_MAX_SKETCHES} "
+                         f"sketches, got {len(plan.sketches)}")
 
-    a_all, b_all, inits, ks = [], [], [], []
-    for name, spec in plan.sketches:
-        ops = operands.get(name, {})
-        for op in ("a", "b"):
-            _check(ops[op], f"sketch {name!r} operand {op!r}", torch.uint32,
-                   (spec.k,), dev)
-        a_all.append(ops["a"])
-        b_all.append(ops["b"])
-        init = ops.get("init")
-        if init is not None:
-            _check(init, f"sketch {name!r} init", torch.uint32, (B, spec.k),
-                   dev)
-        inits.append(init)
-        ks.append(spec.k)
-    K = sum(ks)
-    if len(ks) == 1:
-        a, b, init = a_all[0], b_all[0], inits[0]
-    else:
-        # uint32 has no cat on every backend: lay the lanes out through the
-        # int32 view (same bits)
-        a = torch.cat([t.view(torch.int32) for t in a_all]).view(torch.uint32)
-        b = torch.cat([t.view(torch.int32) for t in b_all]).view(torch.uint32)
-        init = None
-        if any(t is not None for t in inits):
-            init = torch.cat(
-                [torch.full((B, k), -1, dtype=torch.int32, device=dev)
-                 if t is None else t.view(torch.int32)
-                 for t, k in zip(inits, ks)], dim=1).view(torch.uint32)
-
-    out = torch.empty((B, K), dtype=torch.uint32, device=dev)
-    if B > 0:
-        fn = _bind(_build.load("sketch_plan"))
-        xpow = None
-        if hs.family == "general":
-            pows = _ref._xpows_host(hs.n, hs.p, hs.L)
-            xpow = (ctypes.c_uint * hs.n)(
-                *[pows[hs.n - 1 - t] for t in range(hs.n)])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(h1v.data_ptr(), B, S, n_windows.data_ptr(),
-                     None if w_start is None else w_start.data_ptr(),
-                     a.data_ptr(), b.data_ptr(), K,
-                     None if init is None else init.data_ptr(),
-                     out.data_ptr(), _FAMILY_CODE[hs.family], hs.n, hs.L,
-                     hs.hash_mask, hs.p & ((1 << hs.L) - 1), xpow, stream)
-        if err != 0:
-            raise RuntimeError(f"sketch_plan_minhash launch failed: CUDA "
-                               f"error {err}")
-        LAUNCHES += 1
-    if len(ks) == 1:
-        return {plan.sketches[0][0]: out}
-    results, s = {}, 0
-    for (name, _), k in zip(plan.sketches, ks):
-        results[name] = out[:, s : s + k].contiguous()
-        s += k
+    desc = _PlanDesc(n_sketches=len(plan.sketches))
+    results = {}
+    for e, (name, spec) in enumerate(plan.sketches):
+        desc.sk[e], results[name] = _epilogue(name, spec,
+                                              operands.get(name, {}), plan,
+                                              B, dev)
+    fn = _bind(_build.load("sketch_plan"))
+    xpow = None
+    if hs.family == "general":
+        pows = _ref._xpows_host(hs.n, hs.p, hs.L)
+        xpow = (ctypes.c_uint * hs.n)(
+            *[pows[hs.n - 1 - t] for t in range(hs.n)])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(h1v.data_ptr(), _ptr(h1v_b), B, S, n_windows.data_ptr(),
+                 _ptr(w_start), ctypes.byref(desc), _FAMILY_CODE[hs.family],
+                 hs.n, hs.L, hs.hash_mask, hs.p & ((1 << hs.L) - 1), xpow,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"sketch_plan launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    for kind in {type(spec).__name__ for _, spec in plan.sketches}:
+        EPILOGUE_LAUNCHES[kind] += 1
     return results

@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.data.decontam import DecontamConfig
 from repro_torch.data.dedup import DedupConfig
+from repro_torch.data.pipeline import PipelineConfig
+from repro_torch.data.stats import StatsConfig
 from repro_torch.kernels import _build, api, sketch_fused, stream
 from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
 
@@ -59,7 +62,9 @@ def test_port_imports_with_jax_unavailable():
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "import repro_torch.data.dedup, repro_torch.convert\n"
-            "import repro_torch.kernels.stream\n"
+            "import repro_torch.kernels.stream, repro_torch.kernels.ops\n"
+            "import repro_torch.data.stats, repro_torch.data.decontam\n"
+            "import repro_torch.data.pipeline\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=120,
@@ -106,7 +111,8 @@ def test_wrapper_has_no_fallback_off_cpu():
 
 
 def test_entry_points_default_to_the_card():
-    assert DedupConfig().device == "cuda"
+    for cfg in (DedupConfig, StatsConfig, DecontamConfig, PipelineConfig):
+        assert cfg().device == "cuda", cfg
     assert api.resolve_device(np.zeros(3)) == torch.device("cuda")
     assert api.resolve_device(torch.zeros(3)) == torch.device("cpu")
-    assert "sketch_plan" in _build.sources()
+    assert {"sketch_plan", "rolling"} <= set(_build.sources())

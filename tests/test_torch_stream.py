@@ -182,7 +182,13 @@ def test_update_validation():
                           device="cpu")
     with pytest.raises(ValueError, match="impl='kernel'"):
         stream.update(tp, state, _x((2, 16)), operands=ops, impl="kernel")
-    hll = tplan.SketchPlan(tplan.HashSpec(family="cyclic", n=8),
-                           (("card", tplan.HLLSpec(b=8)),))
-    with pytest.raises(NotImplementedError, match="HLLSpec epilogue"):
-        stream.init_state(hll, 2, device="cpu")
+    with pytest.raises(ValueError, match="chunk_b given but no sketch"):
+        stream.update(tp, state, _x((2, 16)), chunk_b=_x((2, 16)),
+                      operands=ops)
+    bloom = tplan.SketchPlan(tplan.HashSpec(family="cyclic", n=8),
+                             (("bl", tplan.BloomSpec(k=2, log2_m=8)),))
+    bstate = stream.init_state(bloom, 2, device="cpu")
+    assert bstate["sketch"]["bl"].dtype == torch.int32
+    with pytest.raises(ValueError, match="needs a second stream chunk_b"):
+        stream.update(bloom, bstate, _x((2, 16)),
+                      operands={"bl": {"bits": np.zeros(8, np.uint32)}})
