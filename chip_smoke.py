@@ -36,13 +36,35 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    its registers and table equal a plain-version run on the card; every
    planted row flags, other rows flag below 0.01, and the counts equal the
    plain version's;
-6. times both paths end to end with the card's idle share, every kernel per
+6. holds the decode kernel (``api.decode(impl="kernel")``) bit-equal to
+   its plain version on the card — masked logits, banned words and canary
+   words — at B in {1, 16, 256} x V in {152064, 151936, 1000} x n in {2, 4,
+   8, 33} x L in {32, 20} x log2_m in {14, 20, 24} (the session filter in
+   shared memory, and in global memory) x canary off or at canary_log2_m
+   in {20, 24} x ready all set or mixed;
+7. drives the serve path (``ServeEngine.generate``) on qwen1.5-0.5b at its
+   published widths with random weights, 16 prompts of 128 tokens, 64 new
+   tokens, ``no_repeat_ngram=4`` with the shared canary filter (2^20 bits,
+   k=4), 4 prompts ending in the first 3 tokens of a canary 4-gram. Gates:
+   (a) every step of a greedy call, the kernel's outputs equal the plain
+   version's on the same inputs; (b) ``impl="kernel"`` and ``impl="ref"``
+   give the same greedy tokens and telemetry counts; (c) the fused and the
+   legacy plane give the same greedy tokens; (d) no generated token
+   completes a 4-gram already in its row; (e) every planted row registers
+   a canary hit; (f) every token of a sampled call (temperature 0.8, top-k
+   50) lies within its row's top 50 and was not banned; (g) the decode
+   kernel launched once per decode step;
+8. times every path end to end with the card's idle share, every kernel per
    launch at its main path's shape beside its plain version, and reckons
-   each kernel's bound.
+   each kernel's bound; for the serve path also tokens/s and the split of
+   a decode step between ``lm.decode_step`` and ``SessionPool.step``.
 
-It prints one JSON line describing each kernel and, last, the device line.
+Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
+and cuDNN). It prints one JSON line describing each kernel and, last, the
+device line.
 Any failure raises and exits non-zero; without a CUDA card it exits 2.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -86,27 +108,32 @@ def profiled(torch, fn, iters: int = 1):
     """Run ``fn`` ``iters`` times under torch.profiler after a warm-up.
     Returns (host seconds to issue the calls, wall seconds until the card
     finished, [(device us, name, count)] of every kernel, copy and fill
-    the calls put on the card, largest first)."""
+    the calls put on the card, largest first). A trace that comes back
+    with no device event at all (CUPTI dropped it: one of some forty
+    traces in a run did so on the card) is taken again, twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        issue = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's event repeats its kernels' time
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    if not rows:
-        raise RuntimeError("torch.profiler saw no device time")
-    return issue, wall, rows
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            issue = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side events only: a CPU op's event repeats its kernels' time
+        rows = sorted(((e.self_device_time_total, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if rows:
+            return issue, wall, rows
+        print(f"profile: trace {attempt + 1} saw no device time; taking it "
+              f"again")
+    raise RuntimeError("torch.profiler saw no device time in 3 traces")
 
 
 def device_ms(torch, fn, iters: int):
@@ -205,14 +232,17 @@ def bound(plan, windows: int, nbytes: int, probes: float = 0.0):
 
 
 def device_busy(torch, fn, card: str, what: str) -> float:
-    """Profile one call of ``fn``: wall time, the card's busy time and the
-    top device events by it. Returns the idle share."""
+    """Profile one call of ``fn``: wall time, the card's busy time, the
+    number of device events and the top ones by time. Returns the idle
+    share."""
     _, wall, rows = profiled(torch, fn)
     busy = sum(r[0] for r in rows) / 1e6
+    events = sum(r[2] for r in rows)
     top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms" for t, k, c in rows[:6])
     print(f"profile[{what}]: wall {wall:.3f} s under the profiler, device "
           f"busy {busy:.4f} s = {busy / wall:.4f} of it, idle "
-          f"{1 - busy / wall:.4f}; by device time: {top} [{card}]")
+          f"{1 - busy / wall:.4f}; {events} device events; by device time: "
+          f"{top} [{card}]")
     return 1 - busy / wall
 
 
@@ -383,6 +413,429 @@ def probes_needed(torch, ref, plan, x, xb, bits) -> float:
     return float((1 + lead).to(torch.float64).mean())
 
 
+# -- the decode plane and the serve path --------------------------------------
+
+SERVE_ARCH, SERVE_B, SERVE_P, SERVE_NEW, SERVE_N = "qwen1.5-0.5b", 16, 128, 64, 4
+CANARY_GRAMS, PLANTED_ROWS = 1000, 4
+
+
+def rand_words(torch, gen, shape, dev, dense=True):
+    """Random uint32 filter words on the card; ``dense`` ORs two draws (three
+    quarters of the bits set), so probes both hit and miss."""
+    draw = lambda: torch.randint(0, 1 << 32, shape, generator=gen,
+                                 dtype=torch.int64, device=dev)
+    w = draw() | draw() if dense else draw()
+    return w.to(torch.uint32)
+
+
+def same_bits(torch, got, want) -> bool:
+    """Bit equality (float32 compared as its int32 patterns)."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+def check_decode_grid(torch, api, DecodeSpec) -> int:
+    """The decode kernel against its plain version over the listed grid;
+    returns the max |logit difference| (0 when every bit agrees)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    err, n_checks = 0.0, 0
+    for B in (1, 16, 256):
+        for V in (152064, 151936, 1000):
+            logits = torch.randn((B, V), generator=gen, device=dev)
+            prefix = rand_words(torch, gen, (B,), dev, dense=False)
+            h1 = rand_words(torch, gen, (V,), dev, dense=False)
+            mixed = torch.rand((B,), generator=gen, device=dev) < 0.5
+            mixed[0] = True
+            for log2_m in (14, 20, 24):
+                bloom = rand_words(torch, gen, (B, 1 << (log2_m - 5)), dev)
+                for canary in (0, 20, 24):
+                    cb = (rand_words(torch, gen, (1 << (canary - 5),), dev)
+                          if canary else None)
+                    for n in (2, 4, 8, 33):
+                        for Lw in (32, 20):
+                            spec = DecodeSpec(n=n, L=Lw, log2_m=log2_m, k=2,
+                                              canary_log2_m=canary)
+                            for ready in (torch.ones_like(mixed), mixed):
+                                args = (spec, logits, prefix, ready, bloom,
+                                        h1)
+                                got = api.decode(*args, canary_bits=cb,
+                                                 impl="kernel")
+                                want = api.decode(*args, canary_bits=cb,
+                                                  impl="ref")
+                                torch.cuda.synchronize()
+                                for key in want:
+                                    if not same_bits(torch, got[key],
+                                                     want[key]):
+                                        raise AssertionError(
+                                            f"decode kernel != plain version:"
+                                            f" {key} at B={B} V={V} n={n} "
+                                            f"L={Lw} log2_m={log2_m} canary="
+                                            f"{canary} ready={'all' if ready.all() else 'mixed'}")
+                                err = max(err, float((got["logits"]
+                                                      - want["logits"]).abs()
+                                                     .max()))
+                                n_checks += 1
+        print(f"check: decode kernel == plain version on the card at B={B}, "
+              f"V in (152064, 151936, 1000), every n, L, log2_m, canary and "
+              f"ready case ({n_checks} checks so far)")
+    return err
+
+
+def decode_ops(pb: float, pc: float) -> tuple:
+    """Fewest instructions for one candidate of a ready row, as (ALU, FMA,
+    load/store): the candidate hash (one LOP3: rotated prefix ^ h1, the
+    discard mask), the odd stride (IMAD on the FMA pipe, an OR), the
+    logit select; per probe one IMAD (h + i * stride), the mask AND, the
+    word shift and the bit test (three ALU) and one filter load, for the
+    ``pb`` no-repeat and ``pc`` canary probes this run's data needs per
+    candidate (a probe loop stops at its first miss; the canary loop
+    recomputes the stride); plus the logit load and store and the h1
+    load."""
+    alu = 1 + 1 + 1 + 3 * pb + (1 + 3 * pc if pc else 0)
+    fma = 1 + pb + (1 + pc if pc else 0)
+    lsu = 3 + pb + pc
+    return alu, fma, lsu
+
+
+def probes_until_miss(torch, ref, u32, spec, prefix, ready, bloom, h1,
+                      canary_bits):
+    """Mean probes per candidate that the no-repeat and the canary loops
+    need on these inputs (a loop stops at its first unset bit; rows that
+    are not ready probe nothing)."""
+    cand = (u32.rotl_const(u32.lanes(prefix), 1, spec.L)[:, None]
+            ^ u32.lanes(h1)[None, :]) & spec.hash_mask
+    stride = u32.mulmod32(cand, ref.BLOOM_STRIDE) | 1
+    rdy = ready.to(torch.bool)[:, None]
+
+    def mean(words, k, log2_m):
+        i = torch.arange(k, device=cand.device)
+        p = ((cand[..., None] + i * stride[..., None]) & u32.MASK32) & (
+            (1 << log2_m) - 1)
+        w = u32.lanes(words)
+        got = (torch.gather(w, 1, (p >> 5).reshape(w.shape[0], -1))
+               .reshape(p.shape) if w.dim() == 2 else w[p >> 5])
+        hit = ((got >> (p & 31)) & 1).to(torch.int64)
+        lead = torch.cumprod(hit, dim=-1)[..., :-1].sum(dim=-1) + 1
+        return float((lead * rdy).to(torch.float64).mean())
+
+    pb = mean(bloom, spec.k, spec.log2_m)
+    pc = (mean(canary_bits, spec.canary_k, spec.canary_log2_m)
+          if canary_bits is not None else 0.0)
+    return pb, pc
+
+
+def decode_bound(spec, B, V, pb, pc):
+    """(bound ms, "bytes" | "operations", text) of one decode launch: the
+    logits read and written once, h1, the filters and the canary filter
+    read once, the packed masks written once, prefix and ready read once;
+    against the instructions :func:`decode_ops` counts at their issue
+    rates."""
+    W = -(-V // 32)
+    nbytes = 4 * (2 * B * V + V + B * spec.n_words + spec.canary_words
+                  + B * W * (2 if spec.has_canary else 1) + 2 * B)
+    alu, fma, lsu = decode_ops(pb, pc)
+    cands = B * V
+    t = {"ALU issue": cands * alu / LANES_PER_S,
+         "ALU+FMA issue": cands * (alu + fma) / 2 / LANES_PER_S,
+         "loads/stores": cands * lsu / LSU_LANES_PER_S}
+    which = max(t, key=t.get)
+    t_ops, t_bytes = t[which] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    text = (f"{cands} candidates x ({alu:g} ALU + {fma:g} FMA + {lsu:g} "
+            f"load/store) at {pb:.4f} + {pc:.4f} probes: {t_ops:.5f} ms by "
+            f"{which}; {nbytes} bytes: {t_bytes:.5f} ms")
+    return max(t_ops, t_bytes), by, text
+
+
+def canary_filter(torch, u32, ref, sketches, spec, h1, grams):
+    """The shared canary filter of a set of n-grams (G, n): each gram's
+    CYCLIC hash from scratch, masked by the discard, its canary_k probes
+    set with an exact scatter-OR (independent of the pool's insert)."""
+    h = torch.zeros(grams.shape[0], dtype=torch.int64, device=h1.device)
+    lanes = u32.lanes(h1)
+    for j in range(grams.shape[1]):
+        h = u32.rotl_const(h, 1, spec.L) ^ lanes[grams[:, j]]
+    h = h & spec.hash_mask
+    stride = u32.mulmod32(h, ref.BLOOM_STRIDE) | 1
+    i = torch.arange(spec.canary_k, device=h.device)
+    p = (((h[:, None] + i * stride[:, None]) & u32.MASK32)
+         & ((1 << spec.canary_log2_m) - 1)).reshape(-1)
+    bits = torch.zeros(spec.canary_words, dtype=torch.int32,
+                       device=h.device).view(torch.uint32)
+    bits = sketches._scatter_or(bits, p >> 5, p & 31)
+    if not ref.bloom_probe_hits(h, bits, spec.canary_k,
+                                spec.canary_log2_m).all():
+        raise AssertionError("canary filter misses an inserted gram")
+    return bits
+
+
+class DecodeSpy:
+    """Wraps ``api.decode`` while a ``generate`` runs: keeps every step's
+    outputs on the host side of the check and, with ``compare``, holds the
+    kernel's outputs against the plain version's on the same inputs."""
+
+    def __init__(self, torch, api, compare: bool):
+        self.torch, self.api, self.compare = torch, api, compare
+        self.real = api.decode
+        self.steps = []
+
+    def __call__(self, spec, logits, prefix, ready, bloom, h1, *,
+                 canary_bits=None, impl="auto", **kw):
+        out = self.real(spec, logits, prefix, ready, bloom, h1,
+                        canary_bits=canary_bits, impl=impl, **kw)
+        if self.compare:
+            want = self.real(spec, logits, prefix, ready, bloom, h1,
+                             canary_bits=canary_bits, impl="ref", **kw)
+            for key in want:
+                if not same_bits(self.torch, out[key], want[key]):
+                    raise AssertionError(
+                        f"gate (a): decode step {len(self.steps)}: kernel "
+                        f"{key} != plain version's")
+        self.steps.append({k: v.clone() for k, v in out.items()})
+        return out
+
+    def __enter__(self):
+        self.api.decode = self
+        return self
+
+    def __exit__(self, *exc):
+        self.api.decode = self.real
+
+
+def repeated_completions(prompts, toks, n) -> int:
+    """Generated tokens that complete an n-gram already in their row."""
+    bad = 0
+    for row in np.concatenate([prompts, toks], axis=1).tolist():
+        seen = set()
+        P = prompts.shape[1]
+        for j in range(n - 1, len(row)):
+            g = tuple(row[j - n + 1 : j + 1])
+            if j >= P and g in seen:
+                bad += 1
+            seen.add(g)
+    return bad
+
+
+def serve_phase(torch, card, reset_counts, read_counts, err_grid):
+    """The serve path on qwen1.5-0.5b at full width; returns the decode
+    kernel's entry of the kernels line and its numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import sketches, u32
+    from repro_torch.kernels import api, decode, ref
+    from repro_torch.nn import lm
+    from repro_torch.serve import sessions
+    from repro_torch.serve.engine import (NoRepeatNgram, SamplerConfig,
+                                          ServeEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serve: {cfg.name} at its published widths ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV, head_dim {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} padded to {lm.padded_vocab(cfg)}, "
+          f"{cfg.param_dtype} parameters, {cfg.activation_dtype} "
+          f"activations), {n_params} random parameters from seed 0 in "
+          f"{time.perf_counter() - t0:.2f} s; TF32 off (cuBLAS and cuDNN)")
+    scfg = SamplerConfig(temperature=0.0, no_repeat_ngram=SERVE_N,
+                         bloom_log2_m=14, bloom_k=2, hash_bits=32,
+                         canary_log2_m=20, canary_k=4, seed=0)
+    nrn = NoRepeatNgram(cfg, scfg, dev)         # the engines' own h1 draw
+    spec = dataclasses.replace(
+        nrn.spec, canary_log2_m=scfg.canary_log2_m, canary_k=scfg.canary_k)
+    rng = np.random.default_rng(11)
+    grams = rng.integers(0, cfg.vocab, size=(CANARY_GRAMS, SERVE_N))
+    cbits = canary_filter(torch, u32, ref, sketches, spec, nrn.h1,
+                          torch.from_numpy(grams).to(dev))
+    prompts = rng.integers(0, cfg.vocab, size=(SERVE_B, SERVE_P))
+    planted = rng.choice(SERVE_B, PLANTED_ROWS, replace=False)
+    for j, r in enumerate(planted):
+        prompts[r, -(SERVE_N - 1):] = grams[j, : SERVE_N - 1]
+    prompts = prompts.astype(np.int32)
+
+    def engine(impl="kernel", **kw):
+        s = dataclasses.replace(scfg, **kw)
+        return ServeEngine(cfg, params, s, impl=impl,
+                           canary_bits=cbits if s.ngram_plane != "legacy"
+                           else None)
+
+    # the main path: a greedy generate, every step checked (gate a)
+    eng = engine()
+    eng.generate(prompts[:2, :8], 2)            # first call: cuBLAS set-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with DecodeSpy(torch, api, compare=True) as spy:
+        toks, stats = eng.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"launches[serve path]: {json.dumps(counts)}")
+    if counts["decode"] != SERVE_NEW or len(spy.steps) != SERVE_NEW:
+        raise AssertionError(f"gate (g): {counts['decode']} decode launches "
+                             f"for {SERVE_NEW} fused steps")
+    tele = stats["telemetry"]
+    print(f"gate (a): every one of {len(spy.steps)} decode steps of the "
+          f"greedy call: kernel == plain version (logits, banned and canary "
+          f"words); gate (g): {counts['decode']} decode launches for "
+          f"{SERVE_NEW} steps; telemetry {json.dumps(tele)}")
+    # (b) the plain version on the card gives the same run
+    rtoks, rstats = engine(impl="ref").generate(prompts, SERVE_NEW)
+    strip = lambda t: {k: v for k, v in t.items() if k != "dispatches"}
+    if not (np.array_equal(toks, rtoks)
+            and strip(tele) == strip(rstats["telemetry"])):
+        raise AssertionError("gate (b): impl='kernel' and impl='ref' differ")
+    # (c) the legacy plane
+    ltoks, lstats = engine(ngram_plane="legacy").generate(prompts, SERVE_NEW)
+    if not np.array_equal(toks, ltoks):
+        raise AssertionError("gate (c): fused and legacy planes differ")
+    # (d) no repeated 4-gram completed by a generated token
+    bad = repeated_completions(prompts, toks, SERVE_N)
+    if bad:
+        raise AssertionError(f"gate (d): {bad} generated tokens complete a "
+                             f"repeated {SERVE_N}-gram")
+    # (e) every planted row hits the canary at its first step
+    c0 = spy.steps[0]["canary"].to(torch.int64).cpu().numpy()
+    hits = [bool((c0[r, grams[j, -1] // 32] >> (grams[j, -1] % 32)) & 1)
+            for j, r in enumerate(planted)]
+    if not all(hits) or tele["canary_hits"] < PLANTED_ROWS:
+        raise AssertionError(f"gate (e): planted rows' canary hits {hits}, "
+                             f"total {tele['canary_hits']}")
+    print(f"gates (b)-(e): ref == kernel (tokens, telemetry); legacy plane "
+          f"== fused (tokens; legacy banned {lstats['banned_candidates']}); "
+          f"no generated token completes a repeated {SERVE_N}-gram; planted "
+          f"rows {sorted(planted.tolist())} hit the canary at step 0, "
+          f"{tele['canary_hits']} canary hits in all")
+    # (f) a sampled call
+    seng = engine(temperature=0.8, top_k=50)
+    reset_counts()
+    with DecodeSpy(torch, api, compare=False) as sspy:
+        stoks, sstats = seng.generate(prompts, SERVE_NEW)
+    slaunches = read_counts()["decode"]
+    rows = torch.arange(SERVE_B, device=dev)
+    for step, out in enumerate(sspy.steps):
+        t = torch.from_numpy(stoks[:, step]).to(dev, torch.int64)
+        kth = torch.topk(out["logits"], 50, dim=-1).values[:, -1]
+        words = out["banned"].to(torch.int64)[rows, t // 32]
+        if not ((out["logits"][rows, t] >= kth).all()
+                and ((words >> (t % 32)) & 1 == 0).all()
+                and (t < cfg.vocab).all()):
+            raise AssertionError(f"gate (f): a sampled token at step {step} "
+                                 f"is outside its top 50 or banned")
+    if slaunches != SERVE_NEW:
+        raise AssertionError(f"gate (g): sampled call {slaunches} launches")
+    print(f"gate (f): {stoks.size} sampled tokens (temperature 0.8, top-k "
+          f"50) all within their row's top 50 and unbanned; "
+          f"{slaunches} launches; banned "
+          f"{sstats['banned_candidates']}, canary hits "
+          f"{sstats['telemetry']['canary_hits']}")
+
+    # -- times --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    # a decode step split: the model's step and the pool's step; the
+    # profiler runs 8 steps twice (a warm-up, then the traced run)
+    warm, split_steps, prof_steps = 4, 24, 8
+    logits, caches = lm.prefill(params, cfg, prompts, SERVE_P + warm
+                                + split_steps + 2 * prof_steps)
+    pool = sessions.SessionPool(eng.decode_spec, SERVE_B, eng.nrn.h1,
+                                canary_bits=eng.canary_bits, device=dev)
+    pool.admit(SERVE_B)
+    pool.prime(prompts)
+    t_lm = t_pool = 0.0
+    state = {"logits": logits, "caches": caches}
+
+    def one_step(timed=None):
+        nonlocal t_lm, t_pool
+        lg = lm.mask_pad_logits(cfg, state["logits"].float())
+        if timed:
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+        tok = pool.step(lg, temperature=0.0)
+        if timed:
+            torch.cuda.synchronize()
+            b = time.perf_counter()
+        state["logits"], state["caches"] = lm.decode_step(
+            params, cfg, tok[:, None], state["caches"])
+        if timed:
+            torch.cuda.synchronize()
+            t_pool += b - a
+            t_lm += time.perf_counter() - b
+
+    for _ in range(warm):
+        one_step()
+    for _ in range(split_steps):
+        one_step(timed=True)
+    idle = device_busy(torch, lambda: [one_step() for _ in range(prof_steps)],
+                       card, f"serve decode, {prof_steps} steps (pool.step + "
+                       f"lm.decode_step)")
+    print(f"serve: generate of {SERVE_B} x {SERVE_NEW} tokens after "
+          f"{SERVE_B} x {SERVE_P}-token prompts in {t_gen:.4f} s = "
+          f"{SERVE_B * SERVE_NEW / t_gen:.1f} generated tokens/s; a decode "
+          f"step (mean of {split_steps}, host clock with a synchronise "
+          f"around each part): lm.decode_step {t_lm / split_steps * 1e3:.4f}"
+          f" ms, SessionPool.step {t_pool / split_steps * 1e3:.4f} ms; card "
+          f"idle {idle:.4f} over {prof_steps} steps [{card}]")
+
+    # the kernel at the main path's shape, with the pool's real state
+    st = pool.state
+    ready = (st["count"] >= spec.n - 1) & (st["active"] != 0)
+    lg = lm.mask_pad_logits(cfg, state["logits"].float())
+    out = {}
+    for B in (SERVE_B, 256):
+        if B == SERVE_B:
+            args = (lg, st["prefix"], ready, st["bloom"], pool.h1)
+        else:        # more sessions: rows of the same state, repeated
+
+            def rep(t):
+                v = t.view(torch.int32) if t.dtype == torch.uint32 else t
+                v = v.repeat((B // SERVE_B,) + (1,) * (t.dim() - 1))
+                return v.view(t.dtype) if t.dtype == torch.uint32 else v
+            args = (rep(lg), rep(st["prefix"]), rep(ready), rep(st["bloom"]),
+                    pool.h1)
+        args = tuple(a.contiguous() for a in args)
+        kern = lambda: decode.decode_masks_fused(*args, spec=spec,
+                                                 canary_bits=cbits)
+        plain_fn = lambda: ref.decode_masks_ref(
+            *args, n=spec.n, L=spec.L, hash_mask=spec.hash_mask,
+            log2_m=spec.log2_m, k=spec.k, canary_bits=cbits,
+            canary_log2_m=spec.canary_log2_m, canary_k=spec.canary_k)
+        got, want = kern(), plain_fn()
+        for key in want:
+            if not same_bits(torch, got[key], want[key]):
+                raise AssertionError(f"decode at ({B}, {lg.shape[1]}): "
+                                     f"kernel {key} != plain")
+        ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(
+            torch, kern, plain_fn, k_iters=200, p_iters=5)
+        pb, pc = probes_until_miss(torch, ref, u32, spec, *args[1:],
+                                   canary_bits=cbits)
+        b_ms, by, text = decode_bound(spec, B, lg.shape[1], pb, pc)
+        print(f"kernel[decode_masks] ({B}, {lg.shape[1]}) n={spec.n} "
+              f"log2_m={spec.log2_m} k={spec.k} canary 2^"
+              f"{spec.canary_log2_m} k={spec.canary_k}: {ms:.5f} ms per "
+              f"launch ({k1:.5f}, {k2:.5f}); plain version {plain_ms:.5f} ms "
+              f"({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} ms by {by} ({text}); "
+              f"bound / time {b_ms / ms:.3f}; the host takes {kh:.5f} ms to "
+              f"issue one launch [{card}]")
+        out[B] = (ms, plain_ms, b_ms, by)
+    ms, plain_ms, b_ms, by = out[SERVE_B]
+    entry = {"name": "decode_masks", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/decode.cu",
+             "replaces": "src/repro/kernels/decode.py:117",
+             "launches": counts["decode"], "max_abs_err": err_grid,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": by, "library_ms": None}
+    return entry, SERVE_B * SERVE_NEW / t_gen
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -395,19 +848,22 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.core import gf2
     from repro_torch.data import corpus, decontam, dedup, pipeline, stats
-    from repro_torch.kernels import (_build, api, cyclic, general, ops, ref,
-                                     sketch_fused)
-    from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HashSpec,
-                                          HLLSpec, MinHashSpec, SketchPlan)
+    from repro_torch.kernels import (_build, api, cyclic, decode, general,
+                                     ops, ref, sketch_fused)
+    from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, DecodeSpec,
+                                          HashSpec, HLLSpec, MinHashSpec,
+                                          SketchPlan)
 
     def reset_counts():
         sketch_fused.LAUNCHES = cyclic.LAUNCHES = general.LAUNCHES = 0
+        decode.LAUNCHES = 0
         for kind in sketch_fused.EPILOGUE_LAUNCHES:
             sketch_fused.EPILOGUE_LAUNCHES[kind] = 0
 
     def read_counts() -> dict:
         return {**sketch_fused.EPILOGUE_LAUNCHES, "plan": sketch_fused.LAUNCHES,
-                "cyclic": cyclic.LAUNCHES, "general": general.LAUNCHES}
+                "cyclic": cyclic.LAUNCHES, "general": general.LAUNCHES,
+                "decode": decode.LAUNCHES}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -424,7 +880,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"build[{name}]: {line.strip()}")
 
-    # -- 3. every kernel against its plain version ----------------------------
+    # -- 3. and 6. every kernel against its plain version -----------------------
     def check_sets(family):
         hs = HashSpec(family=family, n=N, L=L)
         sets = {
@@ -472,6 +928,7 @@ def main() -> int:
                         torch, ops, family, n, Lw, B, S, gen))
             print(f"check: ops.{family} n={n} L in (16, 32): kernel == "
                   f"plain version on the card")
+    err_decode = check_decode_grid(torch, api, DecodeSpec)
     print(f"checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the dedup path ----------------------------------------------------
@@ -666,7 +1123,7 @@ def main() -> int:
     print(f"decontam: {len(batches)} batches re-scanned by the plain version "
           f"on the card: equal")
 
-    # -- 6. times ---------------------------------------------------------------
+    # -- 8. times of the dedup and data-plane paths ---------------------------------
     two_blocks = rows[:, : 2 * BLOCK_T * CHUNK_S]
     idle_stats = device_busy(torch, lambda: stats_run(ng["cyclic"],
                                                       two_blocks), card,
@@ -825,6 +1282,13 @@ def main() -> int:
           f"{n_stats / stats_s['general']:.0f} tokens/s (idle share "
           f"{idle_stats:.4f}); decontam {n_dec / t_flag:.0f} tokens/s (idle "
           f"share {idle_dec:.4f}) [{card}]")
+    # -- 7. the serve path, with its times ---------------------------------------
+    t0 = time.perf_counter()
+    entry, serve_tps = serve_phase(torch, card, reset_counts, read_counts,
+                                   err_decode)
+    kernels.append(entry)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s; generated "
+          f"{serve_tps:.1f} tokens/s [{card}]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; total {time.perf_counter() - t_start:.1f} s")
 

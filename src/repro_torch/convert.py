@@ -13,7 +13,14 @@ that the reference exports and returns the port's tensors:
   :meth:`repro_torch.data.stats.NgramStats.rebind_params`;
 * :func:`decontam_params_from_jax` — the ``params`` of
   ``Decontaminator.export_stream``, for
-  :meth:`repro_torch.data.decontam.Decontaminator.rebind_params`.
+  :meth:`repro_torch.data.decontam.Decontaminator.rebind_params`;
+* :func:`lm_params_from_jax` — the value tree of ``lm.init``, for the
+  ``load_state_dict`` of :class:`repro_torch.nn.lm.LM`;
+* :func:`session_state_from_jax` / :func:`session_state_to_jax` — a
+  ``SessionPool.export_state()`` tree, into the port's
+  :meth:`repro_torch.serve.sessions.SessionPool.import_state` and back;
+* :func:`norepeat_params_from_jax` — ``NoRepeatNgram.params``, for
+  :meth:`repro_torch.serve.engine.NoRepeatNgram.rebind_params`.
 """
 from __future__ import annotations
 
@@ -82,3 +89,81 @@ def decontam_params_from_jax(tree: Dict, device="cuda") -> Dict:
             "pb": {"h1": _tensor(tree["pb"]["h1"], np.uint32, 1, "pb h1",
                                  device)},
             "bits": _tensor(tree["bits"], np.uint32, 1, "bits", device)}
+
+
+def lm_params_from_jax(values: Dict, device="cuda") -> Dict[str, torch.Tensor]:
+    """The value tree of the reference's ``lm.init`` (leaves as arrays) ->
+    a state dict for :class:`repro_torch.nn.lm.LM`. Nested keys join with
+    dots; each ``blocks`` leaf is stacked over the repeats on its leading
+    axis and splits into one entry a layer (``blocks.<r>.u0.attn.wq.w``).
+    Einsum layouts stay as they are: ``(d, h, q)`` and ``(h, q, d)``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                walk(sub, path + (str(key),))
+            return
+        arr = np.asarray(tree)
+        if path[0] == "blocks":
+            for r in range(arr.shape[0]):
+                out[".".join(("blocks", str(r)) + path[1:])] = (
+                    torch.from_numpy(np.array(arr[r])).to(device))
+        else:
+            out[".".join(path)] = torch.from_numpy(np.array(arr)).to(device)
+
+    walk(values, ())
+    return out
+
+
+_CARRY = {"prefix": np.uint32, "ring": np.uint32, "pos": np.int32,
+          "bloom": np.uint32, "count": np.int32, "active": np.int32,
+          "steps": np.uint32, "banned_lo": np.uint32, "banned_hi": np.uint32,
+          "canary_lo": np.uint32, "canary_hi": np.uint32}
+
+
+def _session_tree(tree: Dict, leaf) -> Dict:
+    carry = tree["carry"]
+    if set(carry) != set(_CARRY):
+        raise ValueError(f"carry must hold exactly {sorted(_CARRY)}, got "
+                         f"{sorted(carry)}")
+    params = tree["params"]
+    if not {"h1"} <= set(params) <= {"h1", "canary_bits"}:
+        raise ValueError(f"params must hold h1 (and canary_bits), got "
+                         f"{sorted(params)}")
+    return {"params": {k: leaf(v, np.uint32, 1, f"params[{k!r}]")
+                       for k, v in params.items()},
+            "carry": {k: leaf(v, _CARRY[k], np.ndim(v), f"carry[{k!r}]")
+                      for k, v in carry.items()},
+            "free": np.asarray(tree["free"], np.int64).copy(),
+            "t": np.int64(tree["t"])}
+
+
+def session_state_from_jax(tree: Dict, device="cuda") -> Dict:
+    """The reference's ``SessionPool.export_state()`` tree (``params``,
+    ``carry``, ``free``, ``t``; host arrays) -> the same tree with tensors
+    on ``device``, which the port's ``SessionPool.import_state`` takes."""
+    leaf = lambda v, dt, nd, what: _tensor(v, dt, nd, what, device)
+    return _session_tree(tree, leaf)
+
+
+def session_state_to_jax(tree: Dict) -> Dict:
+    """The port's ``SessionPool.export_state()`` tree -> host numpy arrays
+    in the reference's dtypes, which its ``SessionPool.import_state``
+    takes."""
+    def leaf(v, dt, nd, what):
+        arr = (v.cpu().numpy() if isinstance(v, torch.Tensor)
+               else np.asarray(v))
+        if arr.dtype != dt or arr.ndim != nd:
+            raise ValueError(f"{what} must be a {nd}-D {np.dtype(dt)} "
+                             f"array, got {arr.dtype} {arr.shape}")
+        return arr.copy()
+    return _session_tree(tree, leaf)
+
+
+def norepeat_params_from_jax(params: Dict, device="cuda") -> Dict:
+    """The reference's ``NoRepeatNgram.params`` — ``{"h1": (padded
+    vocab,)}`` uint32 — -> the same with a tensor on ``device``, for
+    :meth:`repro_torch.serve.engine.NoRepeatNgram.rebind_params`."""
+    return {"h1": _tensor(params["h1"], np.uint32, 1, "params['h1']",
+                          device)}

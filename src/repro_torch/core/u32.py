@@ -30,6 +30,14 @@ def lanes(x) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
+def keep_low(t: torch.Tensor, L: int) -> torch.Tensor:
+    """A uint32 tensor's values masked to their L low bits, as a uint32
+    tensor (through the int32 view, which every backend implements)."""
+    if L >= 32:
+        return t
+    return (t.view(torch.int32) & mask(L)).view(torch.uint32)
+
+
 def rotl_const(v: torch.Tensor, r: int, L: int) -> torch.Tensor:
     """Rotate-left within the L low bits by a host constant ``r``."""
     r %= L

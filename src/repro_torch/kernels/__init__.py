@@ -5,6 +5,8 @@
                    dispatches (kernel on CUDA, plain version on CPU) and
                    runs every sketch in ONE rolling-hash pass
 - stream.py        chunked streaming executor with a carried state
+- decode.py        the decode plane's wrapper (launch count in LAUNCHES):
+                   no-repeat and canary probes, logit masking
 - sketch_fused.py  the plan kernel's wrapper (launch count in LAUNCHES):
                    MinHash, HLL, CountMin and Bloom epilogues, one launch
                    for any plan

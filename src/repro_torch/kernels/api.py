@@ -36,9 +36,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import u32
+from repro_torch.kernels import decode as _dk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch_fused as _sf
-from repro_torch.kernels.plan import BloomSpec, MinHashSpec, SketchPlan
+from repro_torch.kernels.plan import (BloomSpec, DecodeSpec, MinHashSpec,
+                                      SketchPlan)
 
 _IMPLS = ("auto", "kernel", "ref")
 
@@ -352,3 +355,77 @@ def run(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None, operands=None,
         plan, h1v, h1v_b, n_windows, operands, impl, w_start, device)
     out = execute(plan, x, xb, nw, operands, ref_path, w_start=ws)
     return shape_outputs(plan, out, lead)
+
+
+def decode(spec: DecodeSpec, logits, prefix, ready, bloom, h1, *,
+           canary_bits=None, impl: str = "auto",
+           device=None) -> Dict[str, torch.Tensor]:
+    """Decode-time n-gram plane: hash every candidate continuation, probe
+    the per-session no-repeat filter (and the optional shared decontam
+    canary), and mask the logits — ONE launch of the decode kernel on a
+    CUDA device, its plain version on the CPU.
+
+    Args:
+      spec: :class:`~repro_torch.kernels.plan.DecodeSpec`.
+      logits: (B, V) float logits for this decode step (cast to float32).
+      prefix: (B,) uint32 rolling prefix hashes (last n-1 tokens).
+      ready: (B,) bool/int — the session has >= n-1 symbols of history (a
+        not-ready session bans nothing and registers no canary hits).
+      bloom: (B, 2^log2_m/32) uint32 packed per-session filters.
+      h1: (V,) uint32 symbol hashes (masked to L bits here).
+      canary_bits: (2^canary_log2_m/32,) uint32 shared filter, required iff
+        ``spec.has_canary``.
+      impl: ``"auto"`` (the kernel on CUDA, the plain version on the CPU),
+        ``"kernel"`` or ``"ref"`` — the contract of :func:`run`.
+      device: where arrays go (default: the logits tensor's device, else
+        ``cuda``).
+
+    Returns ``{"logits": (B, V) float32 banned-masked logits, "banned":
+    (B, ceil(V/32)) uint32 packed mask[, "canary": packed hit mask]}``.
+    """
+    if not isinstance(spec, DecodeSpec):
+        raise TypeError(f"spec must be a DecodeSpec, got {type(spec)}")
+    dev = resolve_device(logits, device)
+    ref_path = use_ref(impl, dev)
+    logits = torch.as_tensor(logits, device=dev).to(torch.float32)
+    if logits.dim() != 2:
+        raise ValueError(f"logits must be (B, V), got shape "
+                         f"{tuple(logits.shape)}")
+    B, V = logits.shape
+    prefix = as_u32(prefix, dev)
+    ready = torch.as_tensor(ready, device=dev)
+    if ready.dtype == torch.uint32:
+        ready = ready.view(torch.int32)
+    for name, arr in (("prefix", prefix), ("ready", ready)):
+        if tuple(arr.shape) != (B,):
+            raise ValueError(f"{name} shape {tuple(arr.shape)} != batch "
+                             f"({B},)")
+    bloom = as_u32(bloom, dev)
+    if tuple(bloom.shape) != (B, spec.n_words):
+        raise ValueError(f"bloom words shape {tuple(bloom.shape)} != "
+                         f"({B}, {spec.n_words}) for log2_m={spec.log2_m}")
+    h1 = as_u32(h1, dev)
+    if tuple(h1.shape) != (V,):
+        raise ValueError(f"h1 shape {tuple(h1.shape)} != vocab ({V},)")
+    h1 = u32.keep_low(h1, spec.L)
+    if spec.has_canary:
+        if canary_bits is None:
+            raise ValueError("spec has a decontam canary filter: pass "
+                             "canary_bits (2^canary_log2_m/32,)")
+        canary_bits = as_u32(canary_bits, dev)
+        if tuple(canary_bits.shape) != (spec.canary_words,):
+            raise ValueError(f"canary_bits shape "
+                             f"{tuple(canary_bits.shape)} != "
+                             f"({spec.canary_words},) for canary_log2_m="
+                             f"{spec.canary_log2_m}")
+        canary_bits = canary_bits.contiguous()
+    elif canary_bits is not None:
+        raise ValueError("canary_bits given but spec.canary_log2_m == 0")
+    args = (logits.contiguous(), prefix.contiguous(), ready.contiguous(),
+            bloom.contiguous(), h1.contiguous())
+    if ref_path:
+        return _ref.decode_masks_ref(
+            *args, n=spec.n, L=spec.L, hash_mask=spec.hash_mask,
+            log2_m=spec.log2_m, k=spec.k, canary_bits=canary_bits,
+            canary_log2_m=spec.canary_log2_m, canary_k=spec.canary_k)
+    return _dk.decode_masks_fused(*args, spec=spec, canary_bits=canary_bits)

@@ -243,7 +243,7 @@ class CountMinSpec:
 class DecodeSpec:
     """The decode-time n-gram plane: per-session no-repeat Bloom probing
     plus an optional shared decontam-canary filter, fused into the logits
-    tile pass (``repro.kernels.api.decode`` in the JAX package; not ported yet).
+    tile pass (:func:`repro_torch.kernels.api.decode`).
 
     The recursive CYCLIC structure prices every candidate continuation at
     O(1) bitwise ops — ``h_cand = rotl(h_prefix, 1) XOR h1[v]`` for all v

@@ -5,10 +5,11 @@ These are deliberately naive re-implementations of the defining formulas,
 on ``int64`` lanes holding uint32 values (:mod:`repro_torch.core.u32`). The
 CUDA kernels are held bit-exact against them on the card:
 ``csrc/sketch_plan.cu`` against :func:`sketch_plan_ref`, ``csrc/rolling.cu``
-against :func:`cyclic_ref` and :func:`general_ref`; the CPU tests hold the
+against :func:`cyclic_ref` and :func:`general_ref`, ``csrc/decode.cu``
+against :func:`decode_masks_ref`; the CPU tests hold the
 module against the JAX package's ``repro/kernels/ref.py``. Window-hash
-helpers return int64 lanes; :func:`sketch_plan_ref` returns the kernel's
-dtypes.
+helpers return int64 lanes; :func:`sketch_plan_ref` and
+:func:`decode_masks_ref` return the kernel's dtypes.
 """
 from __future__ import annotations
 
@@ -192,4 +193,78 @@ def sketch_plan_ref(plan, h1v, h1v_b, n_windows, operands,
                                      spec.log2_m, init=init)
         else:  # pragma: no cover - SketchPlan validates spec types
             raise TypeError(f"unknown sketch spec {type(spec)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The decode-time n-gram plane (the plain version of csrc/decode.cu)
+# ---------------------------------------------------------------------------
+
+# double-hashing stride constant (golden-ratio odd multiplier), shared by the
+# plain version, the kernel and the session pool's filter inserts, so their
+# probe sequences are bit-identical
+BLOOM_STRIDE = 0x9E3779B9
+
+NEG_LOGIT = -1e30          # written as float32, exactly float32(-1e30)
+
+
+def pack_mask_u32(mask: torch.Tensor) -> torch.Tensor:
+    """(..., V) bool -> (..., ceil(V/32)) uint32, bit i of word w = column
+    32*w + i. V is padded with zero bits up to the word boundary."""
+    V = mask.shape[-1]
+    m = torch.nn.functional.pad(mask.to(torch.int64), (0, -V % 32))
+    m = m.reshape(mask.shape[:-1] + (-1, 32))
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
+        torch.arange(32, device=mask.device)
+    return (m * weights).sum(dim=-1).to(torch.uint32)
+
+
+def bloom_probe_hits(h, words, k: int, log2_m: int) -> torch.Tensor:
+    """All-k-probes-set membership of masked hashes ``h`` (..., V) against
+    packed filters ``words``: per-row filters (B, m/32) probed row-wise, or
+    one shared (m/32,) filter probed globally. Probe i is ``(h + i * ((h *
+    BLOOM_STRIDE) | 1)) & (m - 1)``, a multiply and sum mod 2^32: double
+    hashing with an odd stride derived from the already-discarded hash."""
+    h = u32.lanes(h)
+    stride = u32.mulmod32(h, BLOOM_STRIDE) | 1
+    i = torch.arange(k, dtype=torch.int64, device=h.device)
+    probes = ((h[..., None] + i * stride[..., None]) & u32.MASK32) & (
+        (1 << log2_m) - 1)
+    word, bit = probes >> 5, probes & 31
+    w = u32.lanes(words)
+    if w.dim() == 1:                          # shared filter
+        got = w[word]
+    else:                                     # per-row filters
+        got = torch.gather(w, 1, word.reshape(word.shape[0], -1))
+        got = got.reshape(word.shape)
+    return (((got >> bit) & 1) == 1).all(dim=-1)
+
+
+def decode_masks_ref(logits, prefix, ready, bloom, h1, *, n: int, L: int,
+                     hash_mask: int, log2_m: int, k: int,
+                     canary_bits=None, canary_log2_m: int = 0,
+                     canary_k: int = 4) -> dict:
+    """The decode plane: one candidate hash per (session, token), probed
+    against the session's no-repeat filter and (optionally) the shared
+    decontam canary filter.
+
+    logits (B, V) float32, prefix (B,) rolling prefix hashes, ready (B,)
+    bool or int (the session has consumed >= n-1 symbols), bloom (B,
+    2^log2_m/32) per-session filters, h1 (V,) symbol hashes masked to L bits
+    -> ``{"logits": (B, V) float32 with -1e30 where banned, "banned": (B,
+    ceil(V/32)) uint32 packed mask[, "canary": packed canary-hit mask]}``.
+    ``h_cand = rotl(prefix, 1) XOR h1[v]`` is the full-width recursive
+    hash; probes derive from ``h_cand & hash_mask`` (the Theorem-2 discard).
+    ``n`` is not read: the spec's hash_mask already reflects it.
+    """
+    cand = (u32.rotl_const(u32.lanes(prefix), 1, L)[:, None]
+            ^ u32.lanes(h1)[None, :])
+    h = cand & hash_mask
+    rdy = ready.to(torch.bool)[:, None]        # a full n-gram needs n-1 history
+    banned = bloom_probe_hits(h, bloom, k, log2_m) & rdy
+    out = {"logits": logits.to(torch.float32).masked_fill(banned, NEG_LOGIT),
+           "banned": pack_mask_u32(banned)}
+    if canary_bits is not None:
+        out["canary"] = pack_mask_u32(
+            bloom_probe_hits(h, canary_bits, canary_k, canary_log2_m) & rdy)
     return out

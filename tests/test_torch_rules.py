@@ -20,8 +20,9 @@ from repro_torch.data.decontam import DecontamConfig
 from repro_torch.data.dedup import DedupConfig
 from repro_torch.data.pipeline import PipelineConfig
 from repro_torch.data.stats import StatsConfig
-from repro_torch.kernels import _build, api, sketch_fused, stream
-from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
+from repro_torch.kernels import _build, api, decode, sketch_fused, stream
+from repro_torch.kernels.plan import (DecodeSpec, HashSpec, MinHashSpec,
+                                      SketchPlan)
 
 # the suite runs test files side by side in worker processes: keep torch's
 # CPU work to one thread so it does not crowd the others
@@ -65,6 +66,8 @@ def test_port_imports_with_jax_unavailable():
             "import repro_torch.kernels.stream, repro_torch.kernels.ops\n"
             "import repro_torch.data.stats, repro_torch.data.decontam\n"
             "import repro_torch.data.pipeline\n"
+            "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "import repro_torch.configs.registry, repro_torch.nn.lm\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=120,
@@ -82,6 +85,15 @@ def test_kernel_impl_on_cpu_raises():
     with pytest.raises(ValueError, match="impl='kernel'"):
         stream.update_many(_PLAN, state, x[None], operands=_OPS,
                            impl="kernel")
+    from repro_torch.serve.sessions import SessionPool
+    spec = DecodeSpec(n=3, log2_m=6)
+    with pytest.raises(ValueError, match="impl='kernel'"):
+        SessionPool(spec, 2, torch.zeros(40, dtype=torch.uint32),
+                    impl="kernel")
+    with pytest.raises(ValueError, match="impl='kernel'"):
+        api.decode(spec, np.zeros((2, 40), np.float32), np.zeros(2),
+                   np.ones(2, bool), np.zeros((2, 2), np.uint32),
+                   np.zeros(40, np.uint32), impl="kernel", device="cpu")
 
 
 def test_failed_build_raises_without_fallback(monkeypatch, tmp_path):
@@ -108,6 +120,11 @@ def test_wrapper_has_no_fallback_off_cpu():
         sketch_fused.sketch_plan_fused(
             x, None, torch.zeros((2,), dtype=torch.int32, device="meta"),
             {}, plan=_PLAN)
+    before = decode.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        decode.decode_masks_fused(x.view(torch.int32).float(), None, None,
+                                  None, None, spec=DecodeSpec())
+    assert decode.LAUNCHES == before
 
 
 def test_entry_points_default_to_the_card():
@@ -115,4 +132,16 @@ def test_entry_points_default_to_the_card():
         assert cfg().device == "cuda", cfg
     assert api.resolve_device(np.zeros(3)) == torch.device("cuda")
     assert api.resolve_device(torch.zeros(3)) == torch.device("cpu")
-    assert {"sketch_plan", "rolling"} <= set(_build.sources())
+    assert {"sketch_plan", "rolling", "decode"} <= set(_build.sources())
+    import inspect
+
+    from repro_torch.nn import lm
+    from repro_torch.serve import engine, sessions
+    for fn in (lm.init, lm.init_caches, engine.NoRepeatNgram.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    pool = inspect.signature(sessions.SessionPool.__init__).parameters
+    assert pool["device"].default is None      # h1's device, else cuda
+    assert api.resolve_device(np.zeros(3), pool["device"].default) == \
+        torch.device("cuda")
+    from repro_torch.launch import serve
+    assert "default=\"cuda\"" in inspect.getsource(serve.main)
