@@ -54,7 +54,27 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    a canary hit; (f) every token of a sampled call (temperature 0.8, top-k
    50) lies within its row's top 50 and was not banned; (g) the decode
    kernel launched once per decode step;
-8. times every path end to end with the card's idle share, every kernel per
+8. drives the paper's byte-level path over ``bench_corpus(4_300_000)``
+   (the King-James-sized English-byte stream) through ``ops.cyclic_fused``
+   (the h1 lookup fused into the CYCLIC kernel), ``hll_update`` and
+   ``bloom_probe``. Gates: (a) ``cyclic_fused`` kernel == plain version on
+   the corpus at n in {1, 5, 8, 15, 25} (L=32) and n in {5, 8} (L=20), at
+   (1024, 8192) random bytes (where it also equals ``ops.cyclic`` of the
+   looked-up values), at (3, 300) and on a row holding tokens -300, -1, 256
+   and 300; (b) ``hll_update`` kernel == plain at N in {1, 300, 5000,
+   4299996} x b in {4, 10, 12, 16} x rank_bits in {32-b, 32}, with 0 and
+   values below 2^b among the inputs; (c) the §2 count: the HLL (b=12,
+   rank_bits=16) of the corpus's CYCLIC n=5 hashes kept to their 28
+   pairwise bits is within 0.1 of the exact distinct 5-gram count, and its
+   registers equal the plain version's; (d) ``bloom_probe`` kernel == plain
+   at (B, S) in {(1, 4299993), (1024, 4096), (3, 300)} x (k, log2_m) in
+   {(4, 22), (2, 14), (8, 18), (4, 24)}; (e) the decontamination scan: a
+   Bloom filter (2^22 bits, k=4) of the 8-grams of the first 500,000
+   chars, from two CYCLIC n=8 draws with the Theorem-1 discard, probed at
+   every window of the corpus: every window of that segment hits, the rest
+   hit below 2 x fill^4; (f) the three wrappers' launch counts rise on the
+   path;
+9. times every path end to end with the card's idle share, every kernel per
    launch at its main path's shape beside its plain version, and reckons
    each kernel's bound; for the serve path also tokens/s and the split of
    a decode step between ``lm.decode_step`` and ``SessionPool.step``.
@@ -205,30 +225,29 @@ def window_ops(plan, probes: float = 0.0) -> tuple:
     return alu, fma, lsu
 
 
-def ops_bound(plan, windows: int, probes: float = 0.0):
-    """(least ms, which count bounds it) for ``windows`` valid windows by
-    instruction issue: the ALU pipe's own instructions at one pipe's rate,
-    all integer instructions over both pipes, or the loads and atomics at
-    the load/store units' rate, whichever is longest."""
-    alu, fma, lsu = window_ops(plan, probes)
-    t = {"ALU issue": windows * alu / LANES_PER_S,
-         "ALU+FMA issue": windows * (alu + fma) / 2 / LANES_PER_S,
-         "loads/atomics": windows * lsu / LSU_LANES_PER_S}
+def roofline(items: int, nbytes: int, alu: float, fma: float, lsu: float,
+             what: str = "windows"):
+    """(bound ms, "bytes" | "operations", text) for ``items`` elements of
+    ``alu`` ALU-pipe, ``fma`` FMA-pipe and ``lsu`` load/store instructions
+    each, moving ``nbytes``: the larger of the bytes at HBM's rate and the
+    instructions at their issue rates (the ALU pipe's own at one pipe's
+    rate, all integer instructions over both pipes, or the loads and
+    atomics at the load/store units' rate, whichever is longest)."""
+    t = {"ALU issue": items * alu / LANES_PER_S,
+         "ALU+FMA issue": items * (alu + fma) / 2 / LANES_PER_S,
+         "loads/atomics": items * lsu / LSU_LANES_PER_S}
     which = max(t, key=t.get)
-    return t[which] * 1e3, which
-
-
-def bound(plan, windows: int, nbytes: int, probes: float = 0.0):
-    """(bound ms, "bytes" | "operations", text): the larger of the bytes
-    over HBM's rate and the operations over their issue rate."""
-    t_ops, which = ops_bound(plan, windows, probes)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops, t_bytes = t[which] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
-    alu, fma, lsu = window_ops(plan, probes)
-    text = (f"{windows} windows x ({alu:g} ALU + {fma:g} FMA + {lsu:g} "
+    text = (f"{items} {what} x ({alu:g} ALU + {fma:g} FMA + {lsu:g} "
             f"load/store) instructions: {t_ops:.5f} ms by {which}; "
             f"{nbytes} bytes: {t_bytes:.5f} ms")
     return max(t_ops, t_bytes), by, text
+
+
+def bound(plan, windows: int, nbytes: int, probes: float = 0.0):
+    """The plan kernel's roofline over ``windows`` valid windows."""
+    return roofline(windows, nbytes, *window_ops(plan, probes))
 
 
 def device_busy(torch, fn, card: str, what: str) -> float:
@@ -397,20 +416,25 @@ def distinct_windows(rows: np.ndarray, n: int) -> int:
     return len(np.unique(w.view(np.dtype((np.void, 2 * n)))[:, 0]))
 
 
-def probes_needed(torch, ref, plan, x, xb, bits) -> float:
-    """Mean probes per window the Bloom epilogue needs on these inputs: a
-    window stops at its first miss."""
-    hs, spec = plan.hash, plan.sketches[0][1]
-    ha = ref.window_hashes_ref(x, family=hs.family, n=hs.n, L=hs.L,
-                               p=hs.p) & hs.hash_mask
-    hb = (ref.window_hashes_ref(xb, family=hs.family, n=hs.n, L=hs.L,
-                                p=hs.p) & hs.hash_mask) | 1
-    i = torch.arange(spec.k, device=x.device)
-    p = ((ha[..., None] + i * hb[..., None]) & 0xFFFFFFFF) & (
-        (1 << spec.log2_m) - 1)
-    hit = ((ref.u32.lanes(bits)[p >> 5] >> (p & 31)) & 1).to(torch.int64)
+def pair_probes(torch, u32, ha, hb, bits, k, log2_m) -> float:
+    """Mean probes a (ha, hb) pair needs against the filter ``bits``: probe
+    i is ``(ha + i * (hb | 1)) & (2^log2_m - 1)`` and a probe loop stops at
+    its first unset bit."""
+    stride = u32.lanes(hb) | 1
+    i = torch.arange(k, device=stride.device)
+    p = ((u32.lanes(ha)[..., None] + i * stride[..., None]) & u32.MASK32) & (
+        (1 << log2_m) - 1)
+    hit = ((u32.lanes(bits)[p >> 5] >> (p & 31)) & 1).to(torch.int64)
     lead = torch.cumprod(hit, dim=-1)[..., :-1].sum(dim=-1)
     return float((1 + lead).to(torch.float64).mean())
+
+
+def probes_needed(torch, ref, plan, x, xb, bits) -> float:
+    """Mean probes per window the Bloom epilogue needs on these inputs."""
+    hs, spec = plan.hash, plan.sketches[0][1]
+    ha, hb = (ref.window_hashes_ref(v, family=hs.family, n=hs.n, L=hs.L,
+                                    p=hs.p) & hs.hash_mask for v in (x, xb))
+    return pair_probes(torch, ref.u32, ha, hb, bits, spec.k, spec.log2_m)
 
 
 # -- the decode plane and the serve path --------------------------------------
@@ -535,18 +559,8 @@ def decode_bound(spec, B, V, pb, pc):
     W = -(-V // 32)
     nbytes = 4 * (2 * B * V + V + B * spec.n_words + spec.canary_words
                   + B * W * (2 if spec.has_canary else 1) + 2 * B)
-    alu, fma, lsu = decode_ops(pb, pc)
-    cands = B * V
-    t = {"ALU issue": cands * alu / LANES_PER_S,
-         "ALU+FMA issue": cands * (alu + fma) / 2 / LANES_PER_S,
-         "loads/stores": cands * lsu / LSU_LANES_PER_S}
-    which = max(t, key=t.get)
-    t_ops, t_bytes = t[which] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    text = (f"{cands} candidates x ({alu:g} ALU + {fma:g} FMA + {lsu:g} "
-            f"load/store) at {pb:.4f} + {pc:.4f} probes: {t_ops:.5f} ms by "
-            f"{which}; {nbytes} bytes: {t_bytes:.5f} ms")
-    return max(t_ops, t_bytes), by, text
+    return roofline(B * V, nbytes, *decode_ops(pb, pc),
+                    what=f"candidates at {pb:.4f} + {pc:.4f} probes")
 
 
 def canary_filter(torch, u32, ref, sketches, spec, h1, grams):
@@ -836,6 +850,249 @@ def serve_phase(torch, card, reset_counts, read_counts, err_grid):
     return entry, SERVE_B * SERVE_NEW / t_gen
 
 
+# -- the paper's byte-level path ------------------------------------------------
+
+BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
+COUNT_N, COUNT_B, COUNT_RANK = 5, 12, 16   # 28 pairwise bits = 12 + 16
+SCAN_N, SEG_CHARS = 8, 500_000             # decontam: 8-grams, eval segment
+
+
+def distinct_byte_grams(text: np.ndarray, n: int) -> int:
+    """Exact number of distinct byte n-grams (n <= 8), on the host."""
+    W = len(text) - n + 1
+    key = np.zeros(W, np.int64)
+    for k in range(n):
+        key = (key << 8) | text[k : k + W].astype(np.int64)
+    return len(np.unique(key))
+
+
+def bytes_phase(torch, card, reset_counts, read_counts):
+    """The paper's byte-level path over the 4.3 Mchar corpus, gates (a)-(f)
+    of the module docstring; returns the three kernels' entries of the
+    kernels line."""
+    from repro_torch.core import BloomFilter, HyperLogLog, make_family, u32
+    from repro_torch.data import corpus
+    from repro_torch.kernels import bloom, hll, ops, ref, sketch_fused
+    from repro_torch.kernels.plan import HashSpec
+
+    dev = torch.device("cuda")
+    cgen = torch.Generator(device=dev).manual_seed(14)
+    t0 = time.perf_counter()
+    text = corpus.bench_corpus(BYTES_CHARS)
+    chars = torch.from_numpy(text[None]).to(dev)            # (1, 4.3M) int32
+    fam5 = make_family("cyclic", COUNT_N)
+    fam8 = make_family("cyclic", SCAN_N)
+    table = fam5.init(torch.Generator().manual_seed(1), 256, dev)["h1"]
+    ta = fam8.init(torch.Generator().manual_seed(2), 256, dev)["h1"]
+    tb = fam8.init(torch.Generator().manual_seed(3), 256, dev)["h1"]
+
+    def rand_bytes(shape):
+        return torch.randint(0, 256, shape, generator=cgen, device=dev,
+                             dtype=torch.int32)
+
+    def rand_hashes(shape):
+        return rand_words(torch, cgen, shape, dev, dense=False)
+
+    def check_fused(toks, n, Lw, what):
+        got = ops.cyclic_fused(toks, table, n=n, L=Lw, impl="kernel")
+        want = ops.cyclic_fused(toks, table, n=n, L=Lw, impl="ref")
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"gate (a): cyclic_rolling_fused != plain "
+                                 f"version: {what} n={n} L={Lw}, max |diff| "
+                                 f"{err}")
+        return got, err
+
+    # (a) the fused lookup kernel against its plain version
+    err_a = 0
+    for n, Lw in ((1, 32), (5, 32), (8, 32), (15, 32), (25, 32), (5, 20),
+                  (8, 20)):
+        err_a = max(err_a, check_fused(chars, n, Lw, "corpus")[1])
+    rnd = rand_bytes((1024, 8192))
+    got, e = check_fused(rnd, SCAN_N, 32, "(1024, 8192)")
+    looked = table.view(torch.int32)[rnd.to(torch.int64)].view(torch.uint32)
+    if not torch.equal(got, ops.cyclic(looked, n=SCAN_N, impl="kernel")):
+        raise AssertionError("gate (a): cyclic_rolling_fused != ops.cyclic "
+                             "of the looked-up values at (1024, 8192)")
+    err_a = max(err_a, e, check_fused(rand_bytes((3, 300)), SCAN_N, 32,
+                                      "(3, 300)")[1])
+    odd = rand_bytes((1, 64))
+    odd[0, :4] = torch.tensor([-300, -1, 256, 300])
+    odd[0, 30:34] = torch.tensor([300, 256, -1, -300])
+    for n in (1, 3, 8):
+        err_a = max(err_a, check_fused(odd, n, 32, "tokens outside [0, 256)"
+                                       )[1])
+    print(f"gate (a): cyclic_rolling_fused == plain version on the card: the "
+          f"corpus (1, {BYTES_CHARS}) at n in (1, 5, 8, 15, 25) with L=32 and "
+          f"n in (5, 8) with L=20, (1024, 8192) (== ops.cyclic of the "
+          f"looked-up values too), (3, 300), and a row with tokens -300, -1, "
+          f"256, 300")
+
+    # (b) hll_update against its plain version
+    err_b = 0
+    for N in (1, 300, 5000, BYTES_CHARS - COUNT_N + 1):
+        h = rand_hashes((N,))
+        for b in (4, 10, 12, 16):
+            planted = torch.tensor([0, 1, (1 << b) - 1, 1 << b],
+                                   dtype=torch.int64)[:N]
+            hv = h.view(torch.int32).clone()
+            hv[: len(planted)] = planted.to(torch.int32)
+            hv = hv.view(torch.uint32)
+            for rb in (32 - b, 32):
+                got = hll.hll_update(hv, b=b, rank_bits=rb)
+                want = ref.hll_update_ref(hv, b=b, rank_bits=rb)
+                torch.cuda.synchronize()
+                err_b = max(err_b, int((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"gate (b): hll_update != plain "
+                                         f"version at N={N} b={b} "
+                                         f"rank_bits={rb}")
+    print("gate (b): hll_update == plain version on the card at N in (1, "
+          f"300, 5000, {BYTES_CHARS - COUNT_N + 1}) x b in (4, 10, 12, 16) x "
+          "rank_bits in (32-b, 32), with 0, 1, 2^b - 1 and 2^b planted")
+
+    # (d) bloom_probe against its plain version
+    err_d = 0
+    for B, S in ((1, BYTES_CHARS - SCAN_N + 1), (1024, 4096), (3, 300)):
+        ha, hb = rand_hashes((B, S)), rand_hashes((B, S))
+        for k, log2_m in ((4, 22), (2, 14), (8, 18), (4, 24)):
+            bits = rand_words(torch, cgen, (1 << (log2_m - 5),), dev)
+            got = bloom.bloom_probe(ha, hb, bits, k=k, log2_m=log2_m)
+            want = ref.bloom_probe_ref(ha, hb, bits, k=k, log2_m=log2_m)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gate (d): bloom_probe != plain version "
+                                     f"at ({B}, {S}) k={k} log2_m={log2_m}")
+    print(f"gate (d): bloom_probe == plain version on the card at (B, S) in "
+          f"((1, {BYTES_CHARS - SCAN_N + 1}), (1024, 4096), (3, 300)) x (k, "
+          f"log2_m) in ((4, 22), (2, 14), (8, 18), (4, 24)); checks of the "
+          f"phase {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path: the §2 count and the decontamination scan --
+    seg_w = SEG_CHARS - SCAN_N + 1
+
+    def run_path():
+        h28 = fam5.pairwise_bits(ops.cyclic_fused(chars, table, n=COUNT_N))
+        regs = hll.hll_update(h28, b=COUNT_B, rank_bits=COUNT_RANK)
+        ha = fam8.pairwise_bits(ops.cyclic_fused(chars, ta, n=SCAN_N))
+        hb = fam8.pairwise_bits(ops.cyclic_fused(chars, tb, n=SCAN_N))
+        bf = BloomFilter(log2_m=22, k=4)
+        bits = bf.add(bf.init(dev), ha[:, :seg_w], hb[:, :seg_w])
+        hits = bloom.bloom_probe(ha, hb, bits, k=bf.k, log2_m=bf.log2_m)
+        return h28, regs, ha, hb, bf, bits, hits
+
+    run_path()                                   # warm: builds nothing new
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    h28, regs, ha, hb, bf, bits, hits = run_path()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"launches[bytes path]: {json.dumps(counts)}")
+    for kind in ("lookup", "hll", "bloom"):
+        if counts[kind] < 1:
+            raise AssertionError(f"gate (f): the bytes path launched no "
+                                 f"{kind} kernel")
+    # (c) the §2 distinct count
+    est = float(HyperLogLog(b=COUNT_B, hash_bits=fam5.out_bits)
+                .estimate(regs))
+    exact = distinct_byte_grams(text, COUNT_N)
+    rel = abs(est - exact) / exact
+    print(f"gate (c): HLL (b={COUNT_B}, rank_bits={COUNT_RANK}) of the "
+          f"corpus's {fam5.out_bits}-bit CYCLIC n={COUNT_N} hashes: estimate "
+          f"{est:.0f} vs exact distinct {COUNT_N}-grams {exact}: relative "
+          f"error {rel:.4f}")
+    if not rel <= 0.1:
+        raise AssertionError(f"gate (c): HLL estimate off by {rel:.4f}")
+    if not torch.equal(regs, ref.hll_update_ref(h28, b=COUNT_B,
+                                                rank_bits=COUNT_RANK)):
+        raise AssertionError("gate (c): registers != the plain version's")
+    # (e) the decontamination scan
+    fill = float(bf.fill_fraction(bits))
+    inside = bool(hits[0, :seg_w].all())
+    outside = float(hits[0, seg_w:].to(torch.float64).mean())
+    print(f"gate (e): filter of the first {SEG_CHARS} chars' {SCAN_N}-grams "
+          f"(2^22 bits, k=4, fill {fill:.4f}); every segment window hits: "
+          f"{inside}; other windows hit {outside:.6f} (limit 2 x fill^4 = "
+          f"{2 * fill ** 4:.6f})")
+    if not inside or not outside < 2 * fill ** 4:
+        raise AssertionError("gate (e): the decontamination scan failed")
+    if not torch.equal(hits, ref.bloom_probe_ref(ha, hb, bits, k=4,
+                                                 log2_m=22)):
+        raise AssertionError("gate (e): hits != the plain version's")
+    idle = device_busy(torch, run_path, card, "bytes path: count + scan")
+    print(f"bytes path: {BYTES_CHARS} chars counted and scanned in "
+          f"{t_path:.4f} s = {BYTES_CHARS / t_path:.0f} chars/s; card idle "
+          f"{idle:.4f} [{card}]")
+
+    # -- times at the path's shapes --
+    entries = []
+
+    def timed(name, kern, plain_fn, b_ms, by, text, what, launches, err,
+              replaces, source, k_iters=200):
+        ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(
+            torch, kern, plain_fn, k_iters=k_iters, p_iters=10)
+        print(f"kernel[{name}] {what}: {ms:.5f} ms per launch ({k1:.5f}, "
+              f"{k2:.5f}); plain version {plain_ms:.5f} ms ({p1:.5f}, "
+              f"{p2:.5f}); bound {b_ms:.5f} ms by {by} ({text}); bound / time "
+              f"{b_ms / ms:.3f}; the host takes {kh:.5f} ms to issue one "
+              f"launch [{card}]")
+        if replaces:
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+
+    # the lookup kernel: 4 bytes in and 4 out a window, the table once; per
+    # window the CYCLIC roll, a clamp of the token (three ALU) and one table
+    # read from shared memory
+    for B, toks, n, replaces in ((1, chars, COUNT_N,
+                                  "src/repro/kernels/sketch_fused.py:653"),
+                                 (1024, rnd, SCAN_N, None)):
+        S = toks.shape[1]
+        W = S - n + 1
+        b_ms, by, btext = roofline(
+            B * W, 4 * B * (S + W) + 4 * 256,
+            hash_ops(HashSpec(family="cyclic", n=n, L=32)) + 3, 0, 1)
+        timed("cyclic_rolling_fused",
+              lambda: sketch_fused.cyclic_rolling_fused(toks, table, n=n),
+              lambda: ref.cyclic_fused_ref(toks, table, n), b_ms, by, btext,
+              f"({B}, {S}) n={n} L=32", counts["lookup"], err_a, replaces,
+              "rolling.cu")
+    # the HLL kernel: 4 bytes a hash, the registers zeroed and written once;
+    # per hash AND, shift, BREV + FLO, min, +1 and the compare (ALU) and one
+    # register read; an atomic for each register the data touches
+    N = h28.numel()
+    touched = int((regs > 0).sum())
+    b_ms, by, btext = roofline(N, 4 * N + 8 * regs.numel(), 7, 0,
+                               1 + touched / N, what="hashes")
+    timed("hll_update",
+          lambda: hll.hll_update(h28, b=COUNT_B, rank_bits=COUNT_RANK),
+          lambda: ref.hll_update_ref(h28, b=COUNT_B, rank_bits=COUNT_RANK),
+          b_ms, by, btext, f"N={N} b={COUNT_B} rank_bits={COUNT_RANK}",
+          counts["hll"], err_b, "src/repro/kernels/hll.py:49", "hll.cu")
+    # the Bloom kernel: 9 bytes an element and the filter once; per element
+    # the odd stride (ALU), per probe one IMAD (FMA), mask, shift and bit
+    # test (ALU) and one filter load, for the probes this data needs
+    probes = pair_probes(torch, u32, ha, hb, bits, bf.k, bf.log2_m)
+    E = ha.numel()
+    b_ms, by, btext = roofline(E, 9 * E + 4 * bits.numel(),
+                               1 + 3 * probes, probes, probes,
+                               what="elements")
+    timed("bloom_probe",
+          lambda: bloom.bloom_probe(ha, hb, bits, k=bf.k, log2_m=bf.log2_m),
+          lambda: ref.bloom_probe_ref(ha, hb, bits, k=bf.k,
+                                      log2_m=bf.log2_m),
+          b_ms, by, btext, f"(1, {E}) k={bf.k} log2_m={bf.log2_m}, "
+          f"{probes:.4f} probes an element", counts["bloom"], err_d,
+          "src/repro/kernels/bloom.py:43", "bloom.cu")
+    return entries, BYTES_CHARS / t_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -848,22 +1105,25 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.core import gf2
     from repro_torch.data import corpus, decontam, dedup, pipeline, stats
-    from repro_torch.kernels import (_build, api, cyclic, decode, general,
-                                     ops, ref, sketch_fused)
+    from repro_torch.kernels import (_build, api, bloom, cyclic, decode,
+                                     general, hll, ops, ref, sketch_fused)
     from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, DecodeSpec,
                                           HashSpec, HLLSpec, MinHashSpec,
                                           SketchPlan)
 
     def reset_counts():
         sketch_fused.LAUNCHES = cyclic.LAUNCHES = general.LAUNCHES = 0
-        decode.LAUNCHES = 0
+        decode.LAUNCHES = sketch_fused.LOOKUP_LAUNCHES = 0
+        bloom.LAUNCHES = hll.LAUNCHES = 0
         for kind in sketch_fused.EPILOGUE_LAUNCHES:
             sketch_fused.EPILOGUE_LAUNCHES[kind] = 0
 
     def read_counts() -> dict:
         return {**sketch_fused.EPILOGUE_LAUNCHES, "plan": sketch_fused.LAUNCHES,
                 "cyclic": cyclic.LAUNCHES, "general": general.LAUNCHES,
-                "decode": decode.LAUNCHES}
+                "decode": decode.LAUNCHES,
+                "lookup": sketch_fused.LOOKUP_LAUNCHES,
+                "bloom": bloom.LAUNCHES, "hll": hll.LAUNCHES}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1123,7 +1383,7 @@ def main() -> int:
     print(f"decontam: {len(batches)} batches re-scanned by the plain version "
           f"on the card: equal")
 
-    # -- 8. times of the dedup and data-plane paths ---------------------------------
+    # -- 9. times of the dedup and data-plane paths ---------------------------------
     two_blocks = rows[:, : 2 * BLOCK_T * CHUNK_S]
     idle_stats = device_busy(torch, lambda: stats_run(ng["cyclic"],
                                                       two_blocks), card,
@@ -1175,7 +1435,7 @@ def main() -> int:
     mops = {"sig": {"a": dd.mh_params["a"], "b": dd.mh_params["b"],
                     "init": api.full_u32((B, K), 0xFFFFFFFF, dev)}}
     time_plan("sketch_plan_minhash", mplan, mops,
-              replaces="src/repro/kernels/sketch_fused.py:379",
+              replaces="src/repro/kernels/sketch_fused.py:381",
               launches=launches, max_err=err["MinHashSpec"],
               nbytes=4 * (B * S + 2 * B + 2 * K + 2 * B * K))
     gk = time_plan("sketch_plan_minhash general",
@@ -1189,10 +1449,11 @@ def main() -> int:
     kd = lambda: sketch_fused.sketch_plan_fused(x[:Bd], None, nw[:Bd], opsd,
                                                 plan=mplan, w_start=ws[:Bd])
     dms, _ = device_ms(torch, kd, 200)
-    db, _ = ops_bound(mplan, Bd * CHUNK_S)
+    db, dby, _ = bound(mplan, Bd * CHUNK_S,
+                       4 * (Bd * S + 2 * Bd + 2 * K + 2 * Bd * K))
     print(f"kernel[sketch_plan_minhash] default stream_rows B={Bd} S={S}: "
-          f"{dms:.5f} ms per launch; bound {db:.5f} ms by operations; bound "
-          f"/ time {db / dms:.3f} (GENERAL at B={B}: {gk:.5f} ms) [{card}]")
+          f"{dms:.5f} ms per launch; bound {db:.5f} ms by {dby}; bound / time "
+          f"{db / dms:.3f} (GENERAL at B={B}: {gk:.5f} ms) [{card}]")
 
     # the stats path's launch, with the stats instance's own parameters and
     # the registers and table its run over the corpus carried out: the state
@@ -1207,7 +1468,7 @@ def main() -> int:
     rb = 4 * (B * S + 2 * B)                   # symbols, n_windows, w_start
     hll_plan = SketchPlan(hs, (("hll", hll_spec),))
     time_plan("sketch_plan_hll", hll_plan, {"hll": {"init": regs}},
-              replaces="src/repro/kernels/sketch_fused.py:379",
+              replaces="src/repro/kernels/sketch_fused.py:381",
               launches=counts_dp["HLLSpec"], max_err=err["HLLSpec"],
               nbytes=rb + 2 * 4 * regs.numel())
     # the first launch of a stream: registers at zero, so most windows
@@ -1217,7 +1478,7 @@ def main() -> int:
               nbytes=rb + 2 * 4 * regs.numel())
     time_plan("sketch_plan_countmin", SketchPlan(hs, (("cms", cms_spec),)),
               {"cms": cms_ops},
-              replaces="src/repro/kernels/sketch_fused.py:379",
+              replaces="src/repro/kernels/sketch_fused.py:381",
               launches=counts_dp["CountMinSpec"], max_err=err["CountMinSpec"],
               nbytes=rb + 2 * 4 * table.numel() + 8 * cms_spec.depth)
     time_plan("sketch_plan_stats (hll + countmin)", ngc.plan,
@@ -1230,7 +1491,7 @@ def main() -> int:
                         "init": torch.zeros((B,), dtype=torch.int32,
                                             device=dev)}}
     time_plan("sketch_plan_bloom", dc.plan, bl_ops, xb=xb, probes=probes,
-              replaces="src/repro/kernels/sketch_fused.py:379",
+              replaces="src/repro/kernels/sketch_fused.py:381",
               launches=counts_dp["BloomSpec"], max_err=err["BloomSpec"],
               nbytes=4 * (2 * B * S + 2 * B + dc.bits.numel() + 2 * B))
     print(f"kernel[sketch_plan_bloom]: the filter's data needs {probes:.4f} "
@@ -1253,18 +1514,14 @@ def main() -> int:
         ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(torch, kern, plain_fn,
                                                       k_iters=100, p_iters=5)
         fig[family] = ms
-        alu = hash_ops(HashSpec(family=family, n=N, L=L))
-        t_ops = 1024 * Wr * alu / LANES_PER_S * 1e3
-        t_bytes = 4 * 1024 * (8192 + Wr) / HBM_BYTES_PER_S * 1e3
-        b_ms, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                         else "bytes")
+        b_ms, by, text = roofline(
+            1024 * Wr, 4 * 1024 * (8192 + Wr),
+            hash_ops(HashSpec(family=family, n=N, L=L)), 0, 0)
         fig_frac[family] = b_ms / ms
         print(f"kernel[{family}_rolling] (1024, 8192) n={N} L={L}: {ms:.5f} "
               f"ms per launch ({k1:.5f}, {k2:.5f}); plain version "
               f"{plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} ms "
-              f"by {by} ({alu} ALU instructions a window: {t_ops:.5f} ms; "
-              f"bytes {t_bytes:.5f} ms); bound / time {b_ms / ms:.3f} "
-              f"[{card}]")
+              f"by {by} ({text}); bound / time {b_ms / ms:.3f} [{card}]")
         kernels.append({
             "name": f"{family}_rolling", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rolling.cu",
@@ -1289,6 +1546,13 @@ def main() -> int:
     kernels.append(entry)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s; generated "
           f"{serve_tps:.1f} tokens/s [{card}]")
+    # -- 8. the byte-level path, with its times -----------------------------
+    t0 = time.perf_counter()
+    byte_entries, bytes_cps = bytes_phase(torch, card, reset_counts,
+                                          read_counts)
+    kernels.extend(byte_entries)
+    print(f"bytes phase: {time.perf_counter() - t0:.1f} s; "
+          f"{bytes_cps:.0f} chars/s [{card}]")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; total {time.perf_counter() - t_start:.1f} s")
 

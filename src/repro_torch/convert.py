@@ -20,7 +20,10 @@ that the reference exports and returns the port's tensors:
   ``SessionPool.export_state()`` tree, into the port's
   :meth:`repro_torch.serve.sessions.SessionPool.import_state` and back;
 * :func:`norepeat_params_from_jax` — ``NoRepeatNgram.params``, for
-  :meth:`repro_torch.serve.engine.NoRepeatNgram.rebind_params`.
+  :meth:`repro_torch.serve.engine.NoRepeatNgram.rebind_params`;
+* :func:`family_params_from_jax` — a family's ``init`` params (``{"h1":
+  (sigma,)}``, THREEWISE's ``(n, sigma)``), for every form of
+  :mod:`repro_torch.core.families`.
 """
 from __future__ import annotations
 
@@ -167,3 +170,17 @@ def norepeat_params_from_jax(params: Dict, device="cuda") -> Dict:
     :meth:`repro_torch.serve.engine.NoRepeatNgram.rebind_params`."""
     return {"h1": _tensor(params["h1"], np.uint32, 1, "params['h1']",
                           device)}
+
+
+def family_params_from_jax(params: Dict, device="cuda") -> Dict:
+    """A family's ``{"h1": (sigma,)}`` params (THREEWISE: ``(n, sigma)``,
+    one row per position), uint32 numpy arrays -> ``{"h1": uint32
+    tensor}`` on ``device``."""
+    if set(params) != {"h1"}:
+        raise ValueError(f"family params must hold exactly ['h1'], got "
+                         f"{sorted(params)}")
+    h1 = np.asarray(params["h1"])
+    if h1.dtype != np.uint32 or h1.ndim not in (1, 2):
+        raise ValueError(f"params['h1'] must be a 1-D or 2-D uint32 array, "
+                         f"got {h1.dtype} {h1.shape}")
+    return {"h1": torch.from_numpy(h1.copy()).to(device)}

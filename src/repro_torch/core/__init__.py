@@ -1,9 +1,13 @@
-"""Paper core: the CYCLIC and GENERAL hash families, GF(2) set-up arithmetic,
-uint32 lane helpers and the sketches."""
+"""Paper core: the five hash families (THREEWISE, ID37, GENERAL,
+BUFFERED-GENERAL, CYCLIC), GF(2) arithmetic, uint32 lane helpers, the
+sketches, and the exact independence checkers (``core.independence``)."""
 from repro_torch.core.families import (
     FAMILIES,
+    ID37,
+    BufferedGeneral,
     Cyclic,
     General,
+    ThreeWise,
     init_h1,
     make_family,
 )
@@ -15,6 +19,7 @@ from repro_torch.core.sketches import (
     trailing_zeros,
 )
 
-__all__ = ["FAMILIES", "Cyclic", "General", "init_h1", "make_family",
+__all__ = ["FAMILIES", "ThreeWise", "ID37", "General", "BufferedGeneral",
+           "Cyclic", "init_h1", "make_family",
            "BloomFilter", "CountMinSketch", "HyperLogLog", "MinHash",
            "trailing_zeros"]

@@ -1,22 +1,31 @@
-"""GF(2)[x] polynomial arithmetic on host integers.
+"""GF(2)[x] polynomial arithmetic on host integers, and multiplication by
+``x`` on lanes.
 
 Polynomials of degree < L are the L low bits of an int (the coefficient of
 ``x^i`` is bit ``i``), as in the paper (§6): addition is XOR, multiplication
-by ``x`` a left shift followed by a conditional XOR with the modulus. These
-run at set-up time only (finding irreducible moduli, the constants
-``x^k mod p`` of GENERAL); lane arithmetic lives in :mod:`repro_torch.core.u32`.
+by ``x`` a left shift followed by a conditional XOR with the modulus. The
+host functions run at set-up time (finding irreducible moduli, the constants
+``x^k mod p`` of GENERAL, the Lemma-2 shift tables of BUFFERED-GENERAL);
+:func:`xtimes` is the one lane operation here, the step of GENERAL's
+recursive form. The rest of the lane arithmetic lives in
+:mod:`repro_torch.core.u32`.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
+import torch
+
 __all__ = [
     "mask",
+    "xtimes",
     "xtimes_host",
     "mulmod_host",
     "x_pow_mod_host",
     "is_irreducible_host",
     "find_irreducible_host",
+    "build_shiftn_table_host",
     "PAPER_TABLE2",
     "GENERAL_L19",
 ]
@@ -129,3 +138,33 @@ def find_irreducible_host(L: int) -> int:
         if is_irreducible_host(top | low):
             return top | low
     raise RuntimeError(f"no irreducible polynomial found for L={L}")
+
+
+def build_shiftn_table_host(n: int, p: int, L: int,
+                            k_split: int = 1) -> list:
+    """RAM-buffered GENERAL (paper §8, Lemma 2) shift tables.
+
+    Returns ``k_split`` numpy uint32 tables; table ``j`` maps the j-th chunk
+    of the top-n bits of ``h`` to ``x^n * (chunk << position) mod p``.
+    ``k_split=1`` is Lemma 2's single O(2^n) table; ``k_split=K`` is the §8
+    trade-off with ``K * 2^(n/K)`` entries in all.
+    """
+    if n % k_split:
+        raise ValueError("k_split must divide n")
+    chunk = n // k_split
+    xn = x_pow_mod_host(n, p, L)
+    tables = []
+    for j in range(k_split):
+        # chunk j covers bit positions [L-n + j*chunk, L-n + (j+1)*chunk)
+        base = L - n + j * chunk
+        tables.append(np.asarray(
+            [mulmod_host(val << base, xn, p, L) for val in range(1 << chunk)],
+            dtype=np.uint32))
+    return tables
+
+
+def xtimes(v: torch.Tensor, p_low: int, L: int) -> torch.Tensor:
+    """Multiply int64 lanes of degree < L by x mod p(x); ``p_low`` is the
+    modulus without its top bit."""
+    msb = (v >> (L - 1)) & 1
+    return ((v << 1) & mask(L)) ^ (msb * (p_low & mask(L)))

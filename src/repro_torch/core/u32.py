@@ -48,6 +48,22 @@ def rotl_const(v: torch.Tensor, r: int, L: int) -> torch.Tensor:
     return ((v << r) | (v >> (L - r))) & m
 
 
+def rotl(v: torch.Tensor, r: torch.Tensor, L: int) -> torch.Tensor:
+    """Rotate-left within the L low bits by per-element amounts ``r`` (an
+    integer tensor broadcast against ``v``), taken mod L."""
+    m = mask(L)
+    v = v & m
+    r = r.to(torch.int64) % L
+    # (L - r) == L when r == 0: that lane keeps v and takes no right part
+    right = torch.where(r == 0, 0, v >> (L - r))
+    return ((v << r) & m) | right
+
+
+def rotr(v: torch.Tensor, r: torch.Tensor, L: int) -> torch.Tensor:
+    """Rotate-right within the L low bits by per-element amounts ``r``."""
+    return rotl(v, (L - r.to(torch.int64) % L) % L, L)
+
+
 def mul_const(v: torch.Tensor, c: int, p: int, L: int) -> torch.Tensor:
     """GF(2)[x] product of lanes ``v`` with the host constant ``c`` mod the
     degree-L polynomial ``p`` (given with its top bit): one XOR per set bit

@@ -20,9 +20,10 @@ order, so :meth:`MinHashDeduper.add_batch` reproduces the streaming
 per-document path (:meth:`MinHashDeduper.check_and_add`) exactly.
 
 Not ported yet: multi-device signing (``data_shards``, ``mesh``), the
-families outside the fused engine (``make_family`` raises for them) with
-their bucketed signing fallback, and ``exact_duplicate_mask`` (ROADMAP.md,
-Queue 1).
+bucketed signing fallback for the families outside the fused engine
+(THREEWISE and ID37: the deduper raises for them; BUFFERED-GENERAL gives
+GENERAL's bits and signs on its plan), and ``exact_duplicate_mask``
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -226,6 +227,10 @@ class MinHashDeduper:
         self.rows = cfg.n_signatures // cfg.lsh_bands
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)
+        if _plan_for_family(self.fam, cfg.n_signatures) is None:
+            raise NotImplementedError(
+                f"family {cfg.family!r} has no fused plan; the unfused "
+                f"signing path is not ported (ROADMAP.md, Queue 1 item 6)")
         self.fam_params = self.fam.init(gen, cfg.vocab, self.device)
         self.mh = MinHash(k=cfg.n_signatures)
         self.mh_params = self.mh.init(gen, self.device)

@@ -19,8 +19,9 @@ past 2^32 tokens.
 
 Not ported yet: multi-device updates (``data_shards``, ``mesh``),
 ``export_stream`` and ``import_stream`` (they wait for
-``stream.export_state``), and the families outside the fused engine
-(``make_family`` raises for them) (ROADMAP.md, Queue 1).
+``stream.export_state``), and the unfused path for the families outside
+the fused engine (THREEWISE, ID37, BUFFERED-GENERAL: the constructor
+raises for them) (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -88,6 +89,10 @@ class NgramStats:
             raise NotImplementedError(
                 "multi-device stats (mesh / data_shards) is not ported to "
                 "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
+        if cfg.family not in ("cyclic", "general"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} has no fused stats plan; the unfused "
+                f"stats path is not ported (ROADMAP.md, Queue 1 item 8)")
         self.device = torch.device(cfg.device)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)

@@ -9,10 +9,16 @@
                    no-repeat and canary probes, logit masking
 - sketch_fused.py  the plan kernel's wrapper (launch count in LAUNCHES):
                    MinHash, HLL, CountMin and Bloom epilogues, one launch
-                   for any plan
-- ops.py           ops.cyclic / ops.general: the plain window hashes
-- cyclic.py,       their kernels' wrappers (launch counts in LAUNCHES)
-  general.py
+                   for any plan; and the byte path's cyclic_rolling_fused
+                   (h1 lookup + CYCLIC, launch count in LOOKUP_LAUNCHES)
+- ops.py           ops.cyclic / ops.general: the plain window hashes;
+                   ops.cyclic_fused: the byte path
+- cyclic.py,       the window-hash kernels' wrappers (launch counts in
+  general.py       LAUNCHES)
+- bloom.py         standalone decontamination scan: Bloom membership of
+                   hash pairs (launch count in LAUNCHES)
+- hll.py           standalone telemetry: HLL registers of a hash stream
+                   (launch count in LAUNCHES)
 - csrc/            CUDA C++ sources for sm_90a, built by _build.py at
                    first use with nvcc and loaded with ctypes
 - ref.py           plain PyTorch versions of every kernel

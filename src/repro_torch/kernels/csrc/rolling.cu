@@ -1,14 +1,25 @@
 // The plain window-hash kernels CYCLIC and GENERAL, hand-written for Hopper
-// (sm_90a): the paper's Fig. 1 pair.
+// (sm_90a): the paper's Fig. 1 pair, and the byte path's CYCLIC over a
+// symbol-table lookup.
 //
 // Replaces the JAX package's Pallas kernels
-// repro/kernels/cyclic.py::cyclic_rolling (_cyclic_kernel) and
-// repro/kernels/general.py::general_rolling (_general_kernel, _mul_const).
-// Each maps (B, S) uint32 symbols to (B, S-n+1) uint32 window hashes, with
-// every symbol first masked to its L low bits and no discard:
+// repro/kernels/cyclic.py::cyclic_rolling (_cyclic_kernel),
+// repro/kernels/general.py::general_rolling (_general_kernel, _mul_const)
+// and repro/kernels/sketch_fused.py::cyclic_rolling_fused
+// (_lookup_fused_kernel, _lookup_mxu). The first two map (B, S) uint32
+// symbols to (B, S-n+1) uint32 window hashes, with every symbol first
+// masked to its L low bits and no discard:
 //
 //   CYCLIC   H_j = XOR_t rotl_L(x[j+t], n-1-t)
 //   GENERAL  H_j = XOR_t x[j+t] * x^(n-1-t) mod p   (carry-less, degree L)
+//
+// The third (the paper's inner loop, h1[c] then Algorithm 4) maps (B, S)
+// int32 byte tokens and a 256-entry uint32 table to the CYCLIC hashes of
+// x = table[c] & mask(L). A token outside [0, 256) reads the entry the
+// JAX package's plain version reads: a negative token counts from the end
+// once, then the index is clamped to [0, 255]. The TPU did the lookup as a
+// one-hot matmul on its matrix unit; here the 1 KiB table sits in shared
+// memory and is gathered directly while the block stages its symbols.
 //
 // Design: hash the way the paper does. A block covers kThreads * kRun
 // consecutive windows of one row and stages their symbols (plus the n-1
@@ -26,13 +37,15 @@
 //
 // What bounds it: 4 bytes read and 4 written per window, against three
 // integer instructions a window for CYCLIC at L = 32 (two funnel shifts
-// and a three-input XOR) and one shift-reduce step per bit of x^n mod p
-// for GENERAL (29 instructions at n = 8). At n = 8, L = 32 both are bound
-// by bytes on an H100, GENERAL with its integer work at about 0.7 of its
-// byte time. This first version does no more than the rolling recurrence
-// and coalesced staging about either bound.
+// and a three-input XOR; the lookup adds a clamp and a shared-memory load)
+// and one shift-reduce step per bit of x^n mod p for GENERAL (29
+// instructions at n = 8). At n = 8, L = 32 all three are bound by bytes on
+// an H100, GENERAL with its integer work at about 0.7 of its byte time.
+// This first version does no more than the rolling recurrence and
+// coalesced staging about either bound.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,6 +54,7 @@ constexpr int kThreads = 256;
 constexpr int kRun = 17;                     // windows a thread rolls over
 constexpr int kBlockWin = kThreads * kRun;   // windows a block covers
 constexpr int kMaxN = 32;                    // n <= L <= 32
+constexpr int kSigma = 256;                  // the byte path's alphabet
 
 struct RollParams {
   int n;
@@ -73,11 +87,21 @@ __device__ __forceinline__ uint32_t mul_const(uint32_t v, uint32_t c,
   return acc;
 }
 
-// kFamily: 0 = CYCLIC, 1 = GENERAL
+// The table entry a byte token reads (the JAX plain version's index rule).
+__device__ __forceinline__ int byte_index(int t) {
+  if (t < 0) t += kSigma;
+  return min(max(t, 0), kSigma - 1);
+}
+
+// kFamily: 0 = CYCLIC, 1 = GENERAL, 2 = CYCLIC over int32 byte tokens
+// looked up in `table` (unused by the other two)
 template <int kFamily>
 __global__ void __launch_bounds__(kThreads)
-rolling_kernel(const uint32_t* __restrict__ x, int S, int W,
-               uint32_t* __restrict__ out, RollParams rp) {
+rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
+                   __restrict__ x,
+               int S, int W, uint32_t* __restrict__ out, RollParams rp,
+               const uint32_t* __restrict__ table) {
+  constexpr bool kCyclic = kFamily != 1;
   __shared__ uint32_t xs[kBlockWin + kMaxN - 1];
   __shared__ uint32_t hs[kBlockWin];
 
@@ -85,23 +109,32 @@ rolling_kernel(const uint32_t* __restrict__ x, int S, int W,
   const int w0 = blockIdx.y * kBlockWin;
   const int nwin = min(kBlockWin, W - w0);
   const int n = rp.n;
-  const uint32_t* xr = x + static_cast<size_t>(row) * S + w0;
-  for (int i = threadIdx.x; i < nwin + n - 1; i += kThreads)
-    xs[i] = xr[i] & rp.lmask;
+  const auto* xr = x + static_cast<size_t>(row) * S + w0;
+  if constexpr (kFamily == 2) {
+    __shared__ uint32_t tab[kSigma];
+    for (int i = threadIdx.x; i < kSigma; i += kThreads)
+      tab[i] = table[i] & rp.lmask;
+    __syncthreads();
+    for (int i = threadIdx.x; i < nwin + n - 1; i += kThreads)
+      xs[i] = tab[byte_index(xr[i])];
+  } else {
+    for (int i = threadIdx.x; i < nwin + n - 1; i += kThreads)
+      xs[i] = xr[i] & rp.lmask;
+  }
   __syncthreads();
 
   const int j0 = threadIdx.x * kRun;
   if (j0 < nwin) {
     uint32_t h = 0;
     for (int t = 0; t < n; ++t)
-      h ^= kFamily == 0 ? rotl_l(xs[j0 + t], n - 1 - t, rp.L, rp.lmask)
-                        : mul_const(xs[j0 + t], rp.xpow[t], rp);
+      h ^= kCyclic ? rotl_l(xs[j0 + t], n - 1 - t, rp.L, rp.lmask)
+                   : mul_const(xs[j0 + t], rp.xpow[t], rp);
     hs[j0] = h;
     const int j1 = min(j0 + kRun, nwin);
     const int r_out = n % rp.L, r_one = 1 % rp.L;
     for (int j = j0 + 1; j < j1; ++j) {
       const uint32_t x_out = xs[j - 1], x_in = xs[j + n - 1];
-      if (kFamily == 0)
+      if (kCyclic)
         h = rotl_l(h, r_one, rp.L, rp.lmask) ^
             rotl_l(x_out, r_out, rp.L, rp.lmask) ^ x_in;
       else
@@ -115,7 +148,8 @@ rolling_kernel(const uint32_t* __restrict__ x, int S, int W,
 }
 
 int launch(int family, const void* x, int B, int S, int n, int L,
-           const RollParams& rp, void* out, void* stream) {
+           const RollParams& rp, void* out, void* stream,
+           const void* table = nullptr) {
   if (B < 0 || n < 1 || n > kMaxN || L < n || L > 32 || S < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = S - n + 1;
@@ -125,11 +159,15 @@ int launch(int family, const void* x, int B, int S, int n, int L,
   const dim3 grid(B, static_cast<unsigned int>(segs));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* xp = static_cast<const uint32_t*>(x);
+  const uint32_t* tp = static_cast<const uint32_t*>(table);
   uint32_t* op = static_cast<uint32_t*>(out);
   if (family == 0)
-    rolling_kernel<0><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp);
+    rolling_kernel<0><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp, tp);
+  else if (family == 1)
+    rolling_kernel<1><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp, tp);
   else
-    rolling_kernel<1><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp);
+    rolling_kernel<2><<<grid, kThreads, 0, st>>>(
+        static_cast<const int32_t*>(x), S, W, op, rp, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,4 +204,14 @@ extern "C" int general_rolling(const void* x, int B, int S, int n, int L,
   rp.c_out = c_out;
   for (int t = 0; t < n; ++t) rp.xpow[t] = xpow[t];
   return launch(1, x, B, S, n, L, rp, out, stream);
+}
+
+// tokens (B, S) int32 byte tokens, table (256,) uint32 (device pointers);
+// out (B, S-n+1) uint32: the CYCLIC hashes of table[token] & mask(L).
+extern "C" int cyclic_rolling_fused(const void* tokens, const void* table,
+                                    int B, int S, int n, int L, void* out,
+                                    void* stream) {
+  if (L < 1 || L > 32 || table == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(2, tokens, B, S, n, L, params(n, L), out, stream, table);
 }

@@ -5,11 +5,14 @@ These are deliberately naive re-implementations of the defining formulas,
 on ``int64`` lanes holding uint32 values (:mod:`repro_torch.core.u32`). The
 CUDA kernels are held bit-exact against them on the card:
 ``csrc/sketch_plan.cu`` against :func:`sketch_plan_ref`, ``csrc/rolling.cu``
-against :func:`cyclic_ref` and :func:`general_ref`, ``csrc/decode.cu``
-against :func:`decode_masks_ref`; the CPU tests hold the
-module against the JAX package's ``repro/kernels/ref.py``. Window-hash
-helpers return int64 lanes; :func:`sketch_plan_ref` and
-:func:`decode_masks_ref` return the kernel's dtypes.
+against :func:`cyclic_ref`, :func:`general_ref` and :func:`cyclic_fused_ref`,
+``csrc/decode.cu`` against :func:`decode_masks_ref`, ``csrc/bloom.cu``
+against :func:`bloom_probe_ref` and ``csrc/hll.cu`` against
+:func:`hll_update_ref`; the CPU tests hold the module against the JAX
+package's ``repro/kernels/ref.py`` and Pallas kernels. Window-hash helpers
+return int64 lanes; :func:`sketch_plan_ref`, :func:`decode_masks_ref`,
+:func:`bloom_probe_ref` and :func:`hll_update_ref` return the kernel's
+dtypes.
 """
 from __future__ import annotations
 
@@ -54,6 +57,24 @@ def general_ref(h1v, n: int, p: int, L: int = 32) -> torch.Tensor:
     for k in range(n):
         acc = acc ^ u32.mul_const(x[..., k : k + W], xpow[n - 1 - k], p, L)
     return acc
+
+
+def lookup_ref(tokens, table) -> torch.Tensor:
+    """The byte path's h1 lookup, (...,) token values -> int64 lanes, with
+    the JAX oracle's index rule: a negative token counts from the end of
+    the table once, then the index is clamped into it (for 256 entries:
+    -1 -> 255, 300 -> 255, -300 -> 0). Tokens are values: an int32 -1 is
+    -1, not the bit pattern 0xFFFFFFFF."""
+    tab = u32.lanes(table)
+    t = torch.as_tensor(tokens, device=tab.device).to(torch.int64)
+    sigma = tab.shape[0]
+    return tab[torch.where(t < 0, t + sigma, t).clamp(0, sigma - 1)]
+
+
+def cyclic_fused_ref(tokens, table, n: int, L: int = 32) -> torch.Tensor:
+    """The fused byte path: h1 table lookup, then CYCLIC window hashes.
+    (..., S) tokens -> (..., S-n+1) int64 lanes."""
+    return cyclic_ref(lookup_ref(tokens, table), n, L)
 
 
 def window_hashes_ref(h1v, *, family: str, n: int, L: int,
@@ -118,6 +139,14 @@ def hll_reduce(h, valid, b: int, rank_bits: int, init=None) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def hll_update_ref(hashes, *, b: int = 10, rank_bits: int = 32) -> torch.Tensor:
+    """HLL registers of a hash stream: (...) uint32 -> (2^b,) int32, index
+    ``h & (2^b - 1)``, rank ``min(ctz(h >> b), rank_bits) + 1`` (ctz(0) =
+    32), merged by max from zero."""
+    h = u32.lanes(hashes).reshape(-1)
+    return hll_reduce(h, torch.ones_like(h, dtype=torch.bool), b, rank_bits)
+
+
 def cms_reduce(h, valid, a, b, log2_width: int, init=None) -> torch.Tensor:
     """(B, W) masked hashes -> (depth, 2^log2_width) int32 counts: row d's
     column is the top ``log2_width`` bits of ``a[d] * h + b[d] mod 2^32``,
@@ -145,15 +174,24 @@ def bloom_reduce(ha, hb, valid, bits, k: int, log2_m: int,
     the valid windows whose k probes ``(ha + i * (hb | 1)) mod 2^32 & (m -
     1)`` all hit. ``init`` optionally carries running counts in (merged by
     ``+``)."""
-    hb = hb | 1                                  # odd probe stride
+    hit = bloom_probe_ref(ha, hb, bits, k=k, log2_m=log2_m)
+    out = (hit & valid).sum(dim=-1).to(torch.int32)
+    return out if init is None else out + init.to(torch.int32)
+
+
+def bloom_probe_ref(h_a, h_b, bits, *, k: int = 4,
+                    log2_m: int = 22) -> torch.Tensor:
+    """Bloom membership of hash pairs: (...) h_a, h_b + packed filter
+    (2^log2_m / 32,) -> (...) bool, true iff all k probes ``(h_a + i *
+    (h_b | 1)) mod 2^32 & (2^log2_m - 1)`` are set (word p >> 5, bit p &
+    31)."""
+    ha, hb = u32.lanes(h_a), u32.lanes(h_b) | 1       # odd probe stride
     i = torch.arange(k, dtype=torch.int64, device=ha.device)
     # the sum wraps in 32 bits before the mask, which matters at log2_m = 32
     probes = ((ha[..., None] + i * hb[..., None]) & u32.MASK32) & (
         (1 << log2_m) - 1)
     words = u32.lanes(bits)
-    hit = (((words[probes >> 5] >> (probes & 31)) & 1) == 1).all(dim=-1)
-    out = (hit & valid).sum(dim=-1).to(torch.int32)
-    return out if init is None else out + init.to(torch.int32)
+    return (((words[probes >> 5] >> (probes & 31)) & 1) == 1).all(dim=-1)
 
 
 def sketch_plan_ref(plan, h1v, h1v_b, n_windows, operands,

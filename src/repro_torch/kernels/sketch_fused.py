@@ -14,8 +14,14 @@ A plan with any mix of sketches runs as ONE launch: each sketch becomes one
 structs. A plan with a Bloom sketch also hashes the second stream
 ``h1v_b``, which gives the probe stride.
 
-On a CPU tensor the wrapper runs the plain version,
-:func:`repro_torch.kernels.ref.sketch_plan_ref`. On a CUDA tensor it
+The module also holds the byte path's wrapper,
+:func:`cyclic_rolling_fused`: the h1 table lookup fused into the CYCLIC
+window hash, on the card through ``csrc/rolling.cu`` (entry point
+``cyclic_rolling_fused``; launch count in ``LOOKUP_LAUNCHES``).
+
+On a CPU tensor each wrapper runs its plain version,
+:func:`repro_torch.kernels.ref.sketch_plan_ref` and
+:func:`repro_torch.kernels.ref.cyclic_fused_ref`. On a CUDA tensor it
 launches the kernel or raises; it never falls back.
 """
 from __future__ import annotations
@@ -37,6 +43,11 @@ LAUNCHES = 0
 # plan counts under every kind it holds)
 EPILOGUE_LAUNCHES = {t.__name__: 0 for t in
                      (MinHashSpec, HLLSpec, CountMinSpec, BloomSpec)}
+
+# kernel launches made by cyclic_rolling_fused
+LOOKUP_LAUNCHES = 0
+
+SIGMA = 256  # the byte path's alphabet
 
 _FAMILY_CODE = {"cyclic": 0, "general": 1}
 _KIND = {MinHashSpec: 0, HLLSpec: 1, CountMinSpec: 2, BloomSpec: 3}
@@ -185,3 +196,44 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     for kind in {type(spec).__name__ for _, spec in plan.sketches}:
         EPILOGUE_LAUNCHES[kind] += 1
     return results
+
+
+def cyclic_rolling_fused(tokens: torch.Tensor, table: torch.Tensor, *, n: int,
+                         L: int = 32) -> torch.Tensor:
+    """The fused byte -> fingerprint path: tokens (B, S) int32 bytes, table
+    (256,) uint32 -> (B, S-n+1) uint32 CYCLIC hashes of ``table[token] &
+    mask(L)``, no discard. Replaces the JAX package's Pallas kernel
+    ``repro/kernels/sketch_fused.py::cyclic_rolling_fused``. A token
+    outside [0, 256) reads the entry :func:`ref.lookup_ref` gives it."""
+    global LOOKUP_LAUNCHES
+    if tokens.dim() != 2 or tuple(table.shape) != (SIGMA,):
+        raise ValueError(f"need tokens (B, S) and table ({SIGMA},), got "
+                         f"{tuple(tokens.shape)} and {tuple(table.shape)}")
+    if tokens.device.type == "cpu":
+        return _ref.cyclic_fused_ref(tokens, table, n, L).to(torch.uint32)
+    if not tokens.is_cuda:
+        raise ValueError(f"cyclic_rolling_fused runs on CUDA or CPU tensors, "
+                         f"got {tokens.device}")
+    _check(tokens, "tokens", torch.int32, tokens.shape, tokens.device)
+    _check(table, "table", torch.uint32, (SIGMA,), tokens.device)
+    if not 1 <= n <= L <= 32:
+        raise ValueError(f"need 1 <= n <= L <= 32, got n={n}, L={L}")
+    B, S = tokens.shape
+    if S < n:
+        raise ValueError(f"sequence length {S} < window n={n}")
+    out = torch.empty((B, S - n + 1), dtype=torch.uint32,
+                      device=tokens.device)
+    fn = _build.load("rolling").cyclic_rolling_fused
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, i, i, i, i, vp, vp]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(tokens.device):
+        stream = torch.cuda.current_stream(tokens.device).cuda_stream
+        err = fn(tokens.data_ptr(), table.data_ptr(), B, S, n, L,
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"cyclic_rolling_fused launch failed: CUDA error "
+                           f"{err}")
+    LOOKUP_LAUNCHES += 1
+    return out

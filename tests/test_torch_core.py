@@ -137,5 +137,18 @@ def test_own_draws_are_seeded_and_well_formed():
 
 @pytest.mark.parametrize("name", ["threewise", "id37", "buffered_general"])
 def test_unported_families_raise(name):
+    # the families themselves are ported (tests/test_torch_families.py);
+    # what stays unported for them is the data paths' unfused fallback,
+    # which raises and names ROADMAP. BUFFERED-GENERAL gives GENERAL's bits,
+    # so the deduper signs it on the fused GENERAL plan, as the reference's
+    from repro_torch.data.dedup import DedupConfig, MinHashDeduper
+    from repro_torch.data.stats import NgramStats, StatsConfig
+    assert make_family(name, 4).name == name.upper().replace("_", "")
+    cfg = DedupConfig(family=name, ngram_n=4, device="cpu")
+    if name == "buffered_general":
+        assert MinHashDeduper(cfg).plan.hash.family == "general"
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MinHashDeduper(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_family(name, 4)
+        NgramStats(StatsConfig(family=name, ngram_n=4, device="cpu"))

@@ -5,7 +5,10 @@
 * the kernel path never falls back: ``impl="kernel"`` on a CPU tensor
   raises, a failed kernel build raises, and a tensor on a device with no
   kernel raises;
-* entry points default to the card.
+* entry points default to the card;
+* the byte path's wrappers (``bloom_probe``, ``hll_update``, which take no
+  ``impl``) run their plain version on a CPU tensor only, and
+  ``make_family`` builds all five families.
 """
 import ast
 import subprocess
@@ -20,7 +23,9 @@ from repro_torch.data.decontam import DecontamConfig
 from repro_torch.data.dedup import DedupConfig
 from repro_torch.data.pipeline import PipelineConfig
 from repro_torch.data.stats import StatsConfig
-from repro_torch.kernels import _build, api, decode, sketch_fused, stream
+from repro_torch.core import FAMILIES, make_family
+from repro_torch.kernels import (_build, api, bloom, decode, hll, ops, ref,
+                                 sketch_fused, stream)
 from repro_torch.kernels.plan import (DecodeSpec, HashSpec, MinHashSpec,
                                       SketchPlan)
 
@@ -68,6 +73,8 @@ def test_port_imports_with_jax_unavailable():
             "import repro_torch.data.pipeline\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
             "import repro_torch.configs.registry, repro_torch.nn.lm\n"
+            "import repro_torch.core.independence\n"
+            "import repro_torch.kernels.bloom, repro_torch.kernels.hll\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT, timeout=120,
@@ -94,6 +101,12 @@ def test_kernel_impl_on_cpu_raises():
         api.decode(spec, np.zeros((2, 40), np.float32), np.zeros(2),
                    np.ones(2, bool), np.zeros((2, 2), np.uint32),
                    np.zeros(40, np.uint32), impl="kernel", device="cpu")
+    before = sketch_fused.LOOKUP_LAUNCHES
+    with pytest.raises(ValueError, match="impl='kernel'"):
+        ops.cyclic_fused(torch.zeros((2, 40), dtype=torch.int32),
+                         torch.zeros(256, dtype=torch.uint32), n=8,
+                         impl="kernel")
+    assert sketch_fused.LOOKUP_LAUNCHES == before
 
 
 def test_failed_build_raises_without_fallback(monkeypatch, tmp_path):
@@ -125,6 +138,59 @@ def test_wrapper_has_no_fallback_off_cpu():
         decode.decode_masks_fused(x.view(torch.int32).float(), None, None,
                                   None, None, spec=DecodeSpec())
     assert decode.LAUNCHES == before
+    before = sketch_fused.LOOKUP_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        sketch_fused.cyclic_rolling_fused(
+            x.view(torch.int32), torch.zeros(256, dtype=torch.uint32,
+                                             device="meta"), n=8)
+    assert sketch_fused.LOOKUP_LAUNCHES == before
+
+
+def test_byte_path_wrappers_dispatch_by_device_only():
+    """bloom_probe and hll_update take no impl: the plain version on a CPU
+    tensor (no launch counted), the kernel on a CUDA tensor, and a raise on
+    any other device."""
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.integers(0, 1 << 32, (2, 50), dtype=np.uint32))
+    bits = torch.from_numpy(rng.integers(0, 1 << 32, 1 << 9,
+                                         dtype=np.uint32))
+    b0, h0 = bloom.LAUNCHES, hll.LAUNCHES
+    assert torch.equal(bloom.bloom_probe(h, h, bits, k=2, log2_m=14),
+                       ref.bloom_probe_ref(h, h, bits, k=2, log2_m=14))
+    assert torch.equal(hll.hll_update(h, b=6),
+                       ref.hll_update_ref(h, b=6))
+    assert (bloom.LAUNCHES, hll.LAUNCHES) == (b0, h0)
+    meta = h.to("meta")
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        bloom.bloom_probe(meta, meta, bits.to("meta"), k=2, log2_m=14)
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        hll.hll_update(meta, b=6)
+    assert (bloom.LAUNCHES, hll.LAUNCHES) == (b0, h0)
+
+
+def test_byte_path_launches_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels "
+                    "there)")
+    h = torch.arange(4096, dtype=torch.int64).to(torch.uint32).cuda()
+    b0, h0, l0 = bloom.LAUNCHES, hll.LAUNCHES, sketch_fused.LOOKUP_LAUNCHES
+    bloom.bloom_probe(h[None], h[None],
+                      torch.zeros(1 << 9, dtype=torch.uint32, device="cuda"),
+                      log2_m=14)
+    hll.hll_update(h, b=8)
+    ops.cyclic_fused(torch.zeros((1, 64), dtype=torch.int32, device="cuda"),
+                     torch.zeros(256, dtype=torch.uint32, device="cuda"), n=8)
+    assert (bloom.LAUNCHES, hll.LAUNCHES, sketch_fused.LOOKUP_LAUNCHES) == (
+        b0 + 1, h0 + 1, l0 + 1)
+
+
+def test_make_family_builds_all_five():
+    assert sorted(FAMILIES) == ["buffered_general", "cyclic", "general",
+                                "id37", "threewise"]
+    for name in FAMILIES:
+        fam = make_family(name, 4, 16)
+        params = fam.init(torch.Generator().manual_seed(0), 32, "cpu")
+        assert fam.hash_windows(params, torch.arange(10)).shape == (7,)
 
 
 def test_entry_points_default_to_the_card():
@@ -132,7 +198,8 @@ def test_entry_points_default_to_the_card():
         assert cfg().device == "cuda", cfg
     assert api.resolve_device(np.zeros(3)) == torch.device("cuda")
     assert api.resolve_device(torch.zeros(3)) == torch.device("cpu")
-    assert {"sketch_plan", "rolling", "decode"} <= set(_build.sources())
+    assert {"sketch_plan", "rolling", "decode", "bloom", "hll"} <= set(
+        _build.sources())
     import inspect
 
     from repro_torch.nn import lm
@@ -145,3 +212,23 @@ def test_entry_points_default_to_the_card():
         torch.device("cuda")
     from repro_torch.launch import serve
     assert "default=\"cuda\"" in inspect.getsource(serve.main)
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_byte_path_entry_point_defaults_to_the_card(monkeypatch):
+    """ops.cyclic_fused sends an array to cuda unless told otherwise."""
+    seen = []
+
+    def spy(impl, dev):
+        seen.append(torch.device(dev))
+        raise _Stop
+    monkeypatch.setattr(api, "use_ref", spy)
+    toks, table = np.zeros((1, 8), np.int32), np.zeros(256, np.uint32)
+    with pytest.raises(_Stop):
+        ops.cyclic_fused(toks, table, n=2)
+    with pytest.raises(_Stop):
+        ops.cyclic_fused(toks, table, n=2, device="cpu")
+    assert seen == [torch.device("cuda"), torch.device("cpu")]
