@@ -6,17 +6,25 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
 
 1. prints the card's name and power limit;
 2. builds every kernel under ``src/repro_torch/kernels/csrc`` with nvcc,
-   one process per source, all started together;
+   and the measurement kernel ``tools/countmin_red_floor.cu``, one process
+   per source, all started together;
 3. holds every kernel bit-exact against its plain PyTorch version on the
    card: the plan kernel (``api.run(impl="kernel")`` against
-   ``impl="ref"``) for MinHash, HLL (b in {4, 12}, an explicit rank_bits),
-   CountMin (w in {12, 16}), Bloom (log2_m in {20, 22}), the stats plan
-   (HLL + CountMin) and a plan of all four, both families, B in {64, 1024},
-   S in {7, 520, 1024, 8192} (B=64, S=1024 is the ``DataPlane`` launch),
-   random ``n_windows``, ``w_start`` and ``init``; and ``ops.cyclic`` /
-   ``ops.general`` at n in {1, 8, 25, 32}, L in {16, 32}, among other shapes
-   at (1024, 64), the heavy-hitter query's, and (1024, 8192), the Fig. 1
-   pair's;
+   ``impl="ref"``) for MinHash, HLL (b in {4, 12, 14} in shared memory,
+   {15, 16} in global memory, an explicit rank_bits), CountMin (w in
+   {12, 16}), Bloom (log2_m in {20, 22}), the stats plan (HLL + CountMin)
+   and a plan of all four, both families, B in {8, 64, 1024} (B=8: fewer
+   tiles than blocks fit on the card; B=1024 at S=8192: 8 to 16 tiles a
+   block), S in {7, 520, 1024, 8192} (B=64, S=1024 is the ``DataPlane``
+   launch), random ``n_windows``, ``w_start`` and
+   ``init``, plus the CYCLIC stats plan over one row of 65,600 x 1,024
+   windows (more segments than a grid dimension once took); ``ops.cyclic``
+   / ``ops.general`` at n in {1, 8, 25, 32}, L in {16, 32}, among other
+   shapes at (1024, 64), the heavy-hitter query's,
+   and (1024, 8192), the Fig. 1 pair's, and at n > L, (n, L) in {(9, 8),
+   (20, 16), (33, 32)}; at the stats launch's shape (1024 x 519) the plan
+   kernel again with warm and zeroed registers, its carry copied and
+   donated (then its profile must hold no copy or fill);
 4. drives the dedup path (``MinHashDeduper.add_batch``) over a 100,000
    document corpus with planted near-duplicates (CYCLIC) and over 20,000 of
    them (GENERAL), at the reference's published widths (n=8, L=32, k=64,
@@ -58,11 +66,12 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    (the King-James-sized English-byte stream) through ``ops.cyclic_fused``
    (the h1 lookup fused into the CYCLIC kernel), ``hll_update`` and
    ``bloom_probe``. Gates: (a) ``cyclic_fused`` kernel == plain version on
-   the corpus at n in {1, 5, 8, 15, 25} (L=32) and n in {5, 8} (L=20), at
+   the corpus at n in {1, 5, 8, 15, 25} (L=32), n in {5, 8} (L=20) and
+   (n, L) in {(9, 8), (20, 16), (33, 32)} (n > L), at
    (1024, 8192) random bytes (where it also equals ``ops.cyclic`` of the
    looked-up values), at (3, 300) and on a row holding tokens -300, -1, 256
    and 300; (b) ``hll_update`` kernel == plain at N in {1, 300, 5000,
-   4299996} x b in {4, 10, 12, 16} x rank_bits in {32-b, 32}, with 0 and
+   4299996} x b in {2, 4, 10, 12, 16, 17} x rank_bits in {32-b, 32}, with 0 and
    values below 2^b among the inputs; (c) the §2 count: the HLL (b=12,
    rank_bits=16) of the corpus's CYCLIC n=5 hashes kept to their 28
    pairwise bits is within 0.1 of the exact distinct 5-gram count, and its
@@ -76,14 +85,18 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    path;
 9. times every path end to end with the card's idle share, every kernel per
    launch at its main path's shape beside its plain version, and reckons
-   each kernel's bound; for the serve path also tokens/s and the split of
-   a decode step between ``lm.decode_step`` and ``SessionPool.step``.
+   each kernel's bound; the plan kernel's stats launches with the carry
+   copied in and donated (the ``kernels`` line holds the donated times of
+   HLL and CountMin, named so), and ``countmin_red_floor``, CountMin's
+   increments issued alone; for the serve path also tokens/s and the split
+   of a decode step between ``lm.decode_step`` and ``SessionPool.step``.
 
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
 device line.
 Any failure raises and exits non-zero; without a CUDA card it exits 2.
 """
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -95,6 +108,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# measurement only: the CountMin increments alone, built beside the kernels
+RED_FLOOR_SRC = ROOT / "tools" / "countmin_red_floor.cu"
 
 # H100 SXM: 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper white
 # paper; the same figures give the data sheet's 67 TFLOP/s float32 as
@@ -114,6 +129,7 @@ BLOCK_T = 8                 # chunks per stats block
 DECON_ROWS, SEQ = 512, 1024  # decontam batch
 EVAL_DOCS, PLANTED = 500, 8  # eval set; planted rows per decontam batch
 PREFIX_COLS = 2048          # HLL accuracy prefix: 1024 rows x 2048 tokens
+WIDE_NL = ((9, 8), (20, 16), (33, 32))   # window ops at n > L
 
 
 def card_line() -> str:
@@ -167,11 +183,22 @@ def device_ms(torch, fn, iters: int):
 
 def in_turns(torch, kern, plain, k_iters=200, p_iters=10):
     """plain, kernel, kernel, plain: compare within one call, in turns.
-    Returns (kernel ms, plain ms, kernel host ms, the four readings)."""
+    Returns (kernel ms, plain ms, kernel host ms, the four readings). A
+    trace can lose device events (CUPTI drops some: a donated launch once
+    read half its time), which only reads low, so when a side's two turns
+    differ by more than 5 % a third turn is taken and the median of the
+    three kept; otherwise the lower of the two."""
     (p1, _), (k1, kh), (k2, _), (p2, _) = (
         device_ms(torch, plain, p_iters), device_ms(torch, kern, k_iters),
         device_ms(torch, kern, k_iters), device_ms(torch, plain, p_iters))
-    return min(k1, k2), min(p1, p2), kh, (k1, k2, p1, p2)
+
+    def settle(a, b, fn, iters):
+        if abs(a - b) <= 0.05 * max(a, b):
+            return min(a, b)
+        return sorted((a, b, device_ms(torch, fn, iters)[0]))[1]
+
+    return (settle(k1, k2, kern, k_iters), settle(p1, p2, plain, p_iters),
+            kh, (k1, k2, p1, p2))
 
 
 def hash_ops(hs) -> int:
@@ -305,14 +332,16 @@ def plan_operands(torch, plan, gen, B, dev, init=True) -> dict:
     return ops
 
 
-def check_plan(torch, api, plan, gen, B, S) -> int:
+def check_plan(torch, api, plan, gen, B, S, full=False) -> int:
     """One kernel-vs-plain comparison of a plan on the card, with random
-    n_windows, w_start and init; returns max |diff| over its outputs."""
+    n_windows (every window with ``full``), w_start and init; returns max
+    |diff| over its outputs."""
     dev = torch.device("cuda")
     W = max(0, S - plan.hash.n + 1)
     x = rand_u32(torch, gen, (B, S), dev)
     xb = rand_u32(torch, gen, (B, S), dev) if plan.needs_second_stream else None
-    nw = torch.randint(0, W + 2, (B,), generator=gen, dtype=torch.int32)
+    nw = (torch.full((B,), W, dtype=torch.int32) if full else
+          torch.randint(0, W + 2, (B,), generator=gen, dtype=torch.int32))
     ws = torch.randint(0, plan.hash.n + 1, (B,), generator=gen,
                        dtype=torch.int32)
     args = dict(h1v_b=xb, n_windows=nw.to(dev), w_start=ws.to(dev),
@@ -907,7 +936,7 @@ def bytes_phase(torch, card, reset_counts, read_counts):
     # (a) the fused lookup kernel against its plain version
     err_a = 0
     for n, Lw in ((1, 32), (5, 32), (8, 32), (15, 32), (25, 32), (5, 20),
-                  (8, 20)):
+                  (8, 20)) + WIDE_NL:
         err_a = max(err_a, check_fused(chars, n, Lw, "corpus")[1])
     rnd = rand_bytes((1024, 8192))
     got, e = check_fused(rnd, SCAN_N, 32, "(1024, 8192)")
@@ -924,8 +953,9 @@ def bytes_phase(torch, card, reset_counts, read_counts):
         err_a = max(err_a, check_fused(odd, n, 32, "tokens outside [0, 256)"
                                        )[1])
     print(f"gate (a): cyclic_rolling_fused == plain version on the card: the "
-          f"corpus (1, {BYTES_CHARS}) at n in (1, 5, 8, 15, 25) with L=32 and "
-          f"n in (5, 8) with L=20, (1024, 8192) (== ops.cyclic of the "
+          f"corpus (1, {BYTES_CHARS}) at n in (1, 5, 8, 15, 25) with L=32, "
+          f"n in (5, 8) with L=20 and (n, L) in {WIDE_NL}, (1024, 8192) (== "
+          f"ops.cyclic of the "
           f"looked-up values too), (3, 300), and a row with tokens -300, -1, "
           f"256, 300")
 
@@ -933,7 +963,7 @@ def bytes_phase(torch, card, reset_counts, read_counts):
     err_b = 0
     for N in (1, 300, 5000, BYTES_CHARS - COUNT_N + 1):
         h = rand_hashes((N,))
-        for b in (4, 10, 12, 16):
+        for b in (2, 4, 10, 12, 16, 17):
             planted = torch.tensor([0, 1, (1 << b) - 1, 1 << b],
                                    dtype=torch.int64)[:N]
             hv = h.view(torch.int32).clone()
@@ -949,7 +979,8 @@ def bytes_phase(torch, card, reset_counts, read_counts):
                                          f"version at N={N} b={b} "
                                          f"rank_bits={rb}")
     print("gate (b): hll_update == plain version on the card at N in (1, "
-          f"300, 5000, {BYTES_CHARS - COUNT_N + 1}) x b in (4, 10, 12, 16) x "
+          f"300, 5000, {BYTES_CHARS - COUNT_N + 1}) x b in (2, 4, 10, 12, 16, "
+          f"17) x "
           "rank_bits in (32-b, 32), with 0, 1, 2^b - 1 and 2^b planted")
 
     # (d) bloom_probe against its plain version
@@ -1132,8 +1163,9 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(_build.sources())
-    print(f"build: {_build.sources()} with {_build.nvcc()} into "
+    _build.build(_build.sources() + [str(RED_FLOOR_SRC)])
+    print(f"build: {_build.sources()} and {RED_FLOOR_SRC.name} with "
+          f"{_build.nvcc()} into "
           f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -1147,6 +1179,9 @@ def main() -> int:
             "minhash": (("sig", MinHashSpec(k=K)),),
             "hll b=4": (("hll", HLLSpec(b=4)),),
             "hll b=12": (("hll", HLLSpec(b=12)),),
+            "hll b=14": (("hll", HLLSpec(b=14)),),
+            "hll b=15": (("hll", HLLSpec(b=15)),),
+            "hll b=16": (("hll", HLLSpec(b=16)),),
             "hll b=12 rank_bits=6": (("hll", HLLSpec(b=12, rank_bits=6)),),
             "countmin w=12": (("cms", CountMinSpec(depth=4,
                                                    log2_width=12)),),
@@ -1169,14 +1204,24 @@ def main() -> int:
     t0 = time.perf_counter()
     for family in ("cyclic", "general"):
         for what, plan in check_sets(family).items():
-            for B in (64, 1024):
+            for B in (8, 64, 1024):
                 for S in (7, 520, 1024, 8192):
                     e = check_plan(torch, api, plan, gen, B, S)
                     for _, spec in plan.sketches:
                         kind = type(spec).__name__
                         err[kind] = max(err[kind], e)
             print(f"check: {family} {what}: kernel == plain version on the "
-                  f"card at B in (64, 1024) x S in (7, 520, 1024, 8192)")
+                  f"card at B in (8, 64, 1024) x S in (7, 520, 1024, 8192)")
+    # one row of 65,600 segments: a row this long keeps the longest segment
+    # (1,024 windows), and a grid of one block a (row, segment) held at most
+    # 65,535 segments a row; the tiles are now one linear index
+    big_s = 65_600 * 1024 + N - 1
+    e = check_plan(torch, api, check_sets("cyclic")["stats (hll + countmin)"],
+                   gen, 1, big_s, full=True)
+    err["HLLSpec"] = max(err["HLLSpec"], e)
+    err["CountMinSpec"] = max(err["CountMinSpec"], e)
+    print(f"check: cyclic stats plan over one row of {big_s - N + 1} windows "
+          f"(65,600 tiles of 1,024): kernel == plain version on the card")
     for family in ("cyclic", "general"):
         for n in (1, 8, 25, 32):
             for Lw in (16, 32):
@@ -1188,6 +1233,13 @@ def main() -> int:
                         torch, ops, family, n, Lw, B, S, gen))
             print(f"check: ops.{family} n={n} L in (16, 32): kernel == "
                   f"plain version on the card")
+        # n > L: rotations reduce mod L, the halo is sized past 32
+        for n, Lw in WIDE_NL:
+            for B, S in ((1024, 520), (3, 9000)):
+                err[family] = max(err[family], check_rolling(
+                    torch, ops, family, n, Lw, B, S, gen))
+        print(f"check: ops.{family} at (n, L) in {WIDE_NL}: kernel == plain "
+              f"version on the card")
     err_decode = check_decode_grid(torch, api, DecodeSpec)
     print(f"checks: {time.perf_counter() - t0:.1f} s")
 
@@ -1384,6 +1436,7 @@ def main() -> int:
           f"on the card: equal")
 
     # -- 9. times of the dedup and data-plane paths ---------------------------------
+    t_times = time.perf_counter()
     two_blocks = rows[:, : 2 * BLOCK_T * CHUNK_S]
     idle_stats = device_busy(torch, lambda: stats_run(ng["cyclic"],
                                                       two_blocks), card,
@@ -1402,23 +1455,41 @@ def main() -> int:
     ws = torch.zeros((B,), dtype=torch.int32, device=dev)
 
     def time_plan(name, plan, operands, xb=None, probes=0.0, replaces=None,
-                  launches=0, max_err=0, nbytes=0):
-        kern = lambda: sketch_fused.sketch_plan_fused(
-            x, xb, nw, operands, plan=plan, w_start=ws)
+                  launches=0, max_err=0, nbytes=0, donate=False):
+        """Check the launch at the main shape against its plain version,
+        then time it in turns. With ``donate`` every timed launch folds
+        into one carry of its own, and a profile of one launch must show
+        the kernel alone: no copy, no fill."""
+        own = lambda: {k: {kk: v.clone() if kk == "init" else v
+                           for kk, v in o.items()}
+                       for k, o in operands.items()}
         plain_fn = lambda: ref.sketch_plan_ref(plan, x, xb, nw, operands,
                                                w_start=ws)
-        got, want = kern(), plain_fn()
+        got = sketch_fused.sketch_plan_fused(x, xb, nw, own(), plan=plan,
+                                             w_start=ws, donate=donate)
+        want = plain_fn()
         for key in got:
             if not torch.equal(got[key], want[key]):
                 raise AssertionError(f"{name}: kernel != plain at the main "
-                                     f"shape")
+                                     f"shape (donate={donate})")
+        carry = own() if donate else operands
+        kern = lambda: sketch_fused.sketch_plan_fused(
+            x, xb, nw, carry, plan=plan, w_start=ws, donate=donate)
         ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(torch, kern, plain_fn)
         b_ms, by, text = bound(plan, windows, nbytes, probes)
+        events = ""
+        if donate:
+            # 20 launches: CUPTI can drop the one event of a single launch
+            _, _, rows = profiled(torch, kern, 20)
+            if any("sketch_plan_kernel" not in r[1] for r in rows):
+                raise AssertionError(f"{name}: a donated launch put more than "
+                                     f"the kernel on the card: {rows}")
+            events = "; its profile: the kernel alone, no copy or fill"
         print(f"kernel[{name}] {plan.hash.family} B={B} S={S}: {ms:.5f} ms "
               f"per launch ({k1:.5f}, {k2:.5f}); plain version "
               f"{plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} "
               f"ms by {by} ({text}); bound / time {b_ms / ms:.3f}; the host "
-              f"takes {kh:.5f} ms to issue one launch [{card}]")
+              f"takes {kh:.5f} ms to issue one launch{events} [{card}]")
         if replaces:
             kernels.append({
                 "name": name, "route": "cuda",
@@ -1467,23 +1538,99 @@ def main() -> int:
                "init": table}
     rb = 4 * (B * S + 2 * B)                   # symbols, n_windows, w_start
     hll_plan = SketchPlan(hs, (("hll", hll_spec),))
-    time_plan("sketch_plan_hll", hll_plan, {"hll": {"init": regs}},
+    cms_plan = SketchPlan(hs, (("cms", cms_spec),))
+    hll_bytes = rb + 2 * 4 * regs.numel()
+    cms_bytes = rb + 2 * 4 * table.numel() + 8 * cms_spec.depth
+    # the carry copied in (the first chunk of a block), then donated (every
+    # other chunk: update_many folds into its own carry in place)
+    time_plan("sketch_plan_hll copied", hll_plan, {"hll": {"init": regs}},
+              nbytes=hll_bytes)
+    time_plan("sketch_plan_hll donated", hll_plan, {"hll": {"init": regs}},
               replaces="src/repro/kernels/sketch_fused.py:381",
               launches=counts_dp["HLLSpec"], max_err=err["HLLSpec"],
-              nbytes=rb + 2 * 4 * regs.numel())
+              nbytes=hll_bytes, donate=True)
     # the first launch of a stream: registers at zero, so most windows
-    # reach the atomic
+    # raise a register
+    zero_regs = torch.zeros_like(regs)
     time_plan("sketch_plan_hll from zeroed registers", hll_plan,
-              {"hll": {"init": torch.zeros_like(regs)}},
-              nbytes=rb + 2 * 4 * regs.numel())
-    time_plan("sketch_plan_countmin", SketchPlan(hs, (("cms", cms_spec),)),
-              {"cms": cms_ops},
-              replaces="src/repro/kernels/sketch_fused.py:381",
-              launches=counts_dp["CountMinSpec"], max_err=err["CountMinSpec"],
-              nbytes=rb + 2 * 4 * table.numel() + 8 * cms_spec.depth)
-    time_plan("sketch_plan_stats (hll + countmin)", ngc.plan,
-              {"hll": {"init": regs}, "cms": cms_ops},
-              nbytes=rb + 2 * 4 * (regs.numel() + table.numel()))
+              {"hll": {"init": zero_regs}}, nbytes=hll_bytes)
+    time_plan("sketch_plan_countmin copied", cms_plan, {"cms": cms_ops},
+              nbytes=cms_bytes)
+    cms_ms = time_plan("sketch_plan_countmin donated", cms_plan,
+                       {"cms": cms_ops},
+                       replaces="src/repro/kernels/sketch_fused.py:381",
+                       launches=counts_dp["CountMinSpec"],
+                       max_err=err["CountMinSpec"], nbytes=cms_bytes,
+                       donate=True)
+    stats_ops = {"hll": {"init": regs}, "cms": cms_ops}
+    stats_bytes = rb + 2 * 4 * (regs.numel() + table.numel())
+    time_plan("sketch_plan_stats (hll + countmin) copied", ngc.plan,
+              stats_ops, nbytes=stats_bytes)
+    time_plan("sketch_plan_stats (hll + countmin) donated", ngc.plan,
+              stats_ops, nbytes=stats_bytes, donate=True)
+    time_plan("sketch_plan_stats (hll + countmin) from zeroed registers",
+              ngc.plan, {"hll": {"init": zero_regs}, "cms": cms_ops},
+              nbytes=stats_bytes)
+    # the fourth case, checked only: zeroed registers with the carry donated
+    # (timed, its registers would be warm after the first launch)
+    zdon = {"hll": {"init": zero_regs.clone()},
+            "cms": {**cms_ops, "init": table.clone()}}
+    want = ref.sketch_plan_ref(ngc.plan, x, None, nw, zdon, w_start=ws)
+    got = sketch_fused.sketch_plan_fused(x, None, nw, zdon, plan=ngc.plan,
+                                         w_start=ws, donate=True)
+    if any(not torch.equal(got[k], want[k]) for k in got):
+        raise AssertionError("stats plan from zeroed registers, donated: "
+                             "kernel != plain")
+    print("check: the stats launch from zeroed registers with its carry "
+          "donated: kernel == plain version on the card")
+
+    # the launch's skeleton at this shape: stage, hash and the tile's
+    # barriers under the lightest epilogue there is (MinHash with k = 1:
+    # one multiply-add and min a window, one atomicMin a tile)
+    skel = SketchPlan(hs, (("sig", MinHashSpec(k=1)),))
+    sk_ops = {"sig": {"a": cms_ops["a"][:1].contiguous(),
+                      "b": cms_ops["b"][:1].contiguous(),
+                      "init": api.full_u32((B, 1), 0xFFFFFFFF, dev)}}
+    time_plan("sketch_plan skeleton (minhash k=1)", skel, sk_ops,
+              nbytes=rb + 8 * B + 8, donate=True)
+
+    # the floor of any CountMin design with one global atomic an increment:
+    # the same 4 x 524,288 increments of this launch, columns precomputed
+    # (depth-major, as the table), issued by a kernel that does nothing else
+    hw = (ref.window_hashes_ref(x, family=hs.family, n=hs.n, L=hs.L, p=hs.p)
+          & hs.hash_mask)[:, :CHUNK_S].reshape(-1)
+    ca, cb = (ref.u32.lanes(cms_ops[k]) for k in ("a", "b"))
+    lw = cms_spec.log2_width
+    cols = (((ref.u32.mulmod32(ca[:, None], hw[None, :]) + cb[:, None])
+             & ref.u32.MASK32) >> (32 - lw)).to(torch.int32).contiguous()
+    floor_table = torch.zeros_like(table)
+    red_floor = _build.load(str(RED_FLOOR_SRC)).countmin_red_floor
+    red_floor.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    red_floor.restype = ctypes.c_int
+
+    def floor_launch():
+        e = red_floor(cols.data_ptr(), hw.numel(), cms_spec.depth, lw,
+                      floor_table.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
+        if e != 0:
+            raise RuntimeError(f"countmin_red_floor launch failed: {e}")
+
+    floor_launch()
+    fresh = sketch_fused.sketch_plan_fused(
+        x, None, nw, {"cms": {k: v for k, v in cms_ops.items()
+                              if k != "init"}}, plan=cms_plan, w_start=ws)
+    if not torch.equal(floor_table, fresh["cms"]):
+        raise AssertionError("countmin_red_floor: its table != the CountMin "
+                             "epilogue's from zero")
+    floor_ms, floor_host = device_ms(torch, floor_launch, 200)
+    print(f"kernel[countmin_red_floor] {cms_spec.depth} x {hw.numel()} "
+          f"increments into a ({cms_spec.depth}, {table.shape[1]}) int32 "
+          f"table, columns precomputed ({4 * cols.numel()} bytes): "
+          f"{floor_ms:.5f} ms per launch; the CountMin epilogue (donated) "
+          f"takes {cms_ms / floor_ms:.3f} of it; the host takes "
+          f"{floor_host:.5f} ms to issue one launch [{card}]")
+
     # the decontam path's launch: real packed tokens, the real filter
     x, xb = dc._lookups(rows[:, : S])
     probes = probes_needed(torch, ref, dc.plan, x, xb, dc.bits)
@@ -1534,6 +1681,8 @@ def main() -> int:
           f"(CYCLIC) and {fig_frac['general']:.3f} (GENERAL) of their bounds: "
           f"a reading of these kernels, not yet of the families "
           f"(the paper's claim: about 2) [{card}]")
+    print(f"kernel times of the dedup and data-plane paths: "
+          f"{time.perf_counter() - t_times:.1f} s")
     print(f"end to end: dedup add_batch {tokens / dt:.0f} tokens/s; stats "
           f"cyclic {n_stats / stats_s['cyclic']:.0f} tokens/s, general "
           f"{n_stats / stats_s['general']:.0f} tokens/s (idle share "

@@ -40,34 +40,42 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, or the ``.cu`` file that ``name`` is the path of
+    (a measurement kernel kept outside the package)."""
+    return Path(name) if name.endswith(".cu") else CSRC / f"{name}.cu"
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha1(src.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def _compile(name: str) -> Path:
     """nvcc one source into its library (atomically renamed into place)."""
-    out = _target(name)
+    src = _source(name)
+    out = _target(src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {src.name} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
-    BUILD_LOG[name] = proc.stderr
+    BUILD_LOG[src.stem] = proc.stderr
     os.replace(tmp, out)
     return out
 
 
 def build(names: Iterable[str]) -> None:
-    """Compile and load each named kernel that is not loaded yet: one nvcc
-    per source, all started together, so a cold build takes about as long
-    as its slowest source however many sources the port grows."""
+    """Compile and load each named kernel (a ``csrc`` name or a ``.cu``
+    path) that is not loaded yet: one nvcc per source, all started
+    together, so a cold build takes about as long as its slowest source
+    however many sources the port grows."""
     todo = [name for name in dict.fromkeys(names) if name not in _libs]
     if not todo:
         return
@@ -83,7 +91,8 @@ def sources() -> list:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or for the ``.cu`` path
+    ``name``), built on first use."""
     if name not in _libs:
         build([name])
     return _libs[name]

@@ -293,14 +293,16 @@ def validate(plan: SketchPlan, h1v, h1v_b, n_windows, operands, impl: str,
 
 
 def execute(plan: SketchPlan, x, xb, nw, operands, ref_path: bool,
-            w_start=None) -> Dict[str, torch.Tensor]:
+            w_start=None, donate: bool = False) -> Dict[str, torch.Tensor]:
     """The back half: dispatch validated (B, S) tensors to the CUDA kernel's
-    wrapper or the plain executor."""
+    wrapper or the plain executor. ``donate`` hands every ``init`` carry to
+    the kernel as its output (folded in place, no fill); the plain executor
+    ignores it."""
     if ref_path:
         return _ref.sketch_plan_ref(plan, x, xb, nw, operands,
                                     w_start=w_start)
     return _sf.sketch_plan_fused(x, xb, nw, operands, plan=plan,
-                                 w_start=w_start)
+                                 w_start=w_start, donate=donate)
 
 
 def shape_outputs(plan: SketchPlan, out: Dict[str, torch.Tensor],

@@ -3,7 +3,7 @@
 //
 // Replaces the JAX package's Pallas kernel
 // repro/kernels/hll.py::hll_update (_hll_kernel). It maps N uint32 hashes
-// to 2^b int32 registers, b in [4, 16]:
+// to 2^b int32 registers, b in [1, 31]:
 //
 //   index = h & (2^b - 1),  rank = min(ctz(h >> b), rank_bits) + 1,
 //   ctz(0) = 32,            register = max over its hashes' ranks (from 0).
@@ -16,10 +16,10 @@
 // the register, and issue an atomicMax only when the rank is larger. For
 // b <= 14 (64 KiB of int32 registers) each block keeps its own register
 // file in shared memory and raises it there; at the end the block raises
-// each global register it touched, at most one global atomicMax each. For
-// b = 15 and 16 (128 and 256 KiB) a block's file would leave at most one
-// block an SM, or not fit in the 227 KB a block may use at all, so those
-// raise the global registers directly (they stay in L2). Each thread keeps
+// each global register it touched, at most one global atomicMax each. From
+// b = 15 (128 KiB) a block's file would leave at most one block an SM, or
+// not fit in the 227 KB a block may use at all, so those raise the global
+// registers directly (up to b = 23 they stay in L2). Each thread keeps
 // four loads in flight (a grid-stride loop unrolled by four), so two
 // blocks an SM still read at the memory's rate.
 //
@@ -54,12 +54,13 @@ __global__ void __launch_bounds__(kThreads)
 hll_kernel(const uint32_t* __restrict__ h, long long N, int b, int rank_bits,
            int* regs) {
   extern __shared__ int sregs[];
-  const int m = 1 << b;
+  // b <= 31: the mask is formed in 32 unsigned bits (1 << 31 overflows int)
+  const uint32_t idx_mask = (1u << b) - 1u;
   if constexpr (kShared) {
-    for (int i = threadIdx.x; i < m; i += kThreads) sregs[i] = 0;
+    for (int i = threadIdx.x; i <= static_cast<int>(idx_mask); i += kThreads)
+      sregs[i] = 0;
     __syncthreads();
   }
-  const uint32_t idx_mask = static_cast<uint32_t>(m - 1);
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long e = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
@@ -81,7 +82,7 @@ hll_kernel(const uint32_t* __restrict__ h, long long N, int b, int rank_bits,
   }
   if constexpr (kShared) {
     __syncthreads();
-    for (int i = threadIdx.x; i < m; i += kThreads)
+    for (int i = threadIdx.x; i <= static_cast<int>(idx_mask); i += kThreads)
       if (sregs[i] > 0) raise_to(regs + i, sregs[i]);
   }
 }
@@ -105,7 +106,7 @@ int sm_count() {
 // out of range.
 extern "C" int hll_update(const void* hashes, long long N, int b,
                           int rank_bits, void* regs, void* stream) {
-  if (N < 0 || b < 4 || b > 16 || rank_bits < 0)
+  if (N < 0 || b < 1 || b > 31 || rank_bits < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaGetLastError());
   rank_bits = rank_bits < 32 ? rank_bits : 32;

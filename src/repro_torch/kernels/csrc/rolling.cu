@@ -23,14 +23,18 @@
 //
 // Design: hash the way the paper does. A block covers kThreads * kRun
 // consecutive windows of one row and stages their symbols (plus the n-1
-// halo) in shared memory with coalesced loads. Thread t owns the run of
-// kRun windows starting at t * kRun: it hashes the first directly (n
-// terms), then rolls through the rest with the recursive update
+// halo) in shared memory with coalesced loads; above n = 32 the halo is
+// sized at launch (dynamic shared memory), so any n whose block fits in
+// shared memory runs, n > L included. Thread t owns the run of kRun windows starting at
+// t * kRun: it hashes the first directly (n terms; GENERAL by Horner's
+// rule, h = x * h ^ x[t], which needs no table of powers), then rolls
+// through the rest with the recursive update
 //
 //   CYCLIC   h' = rotl(h, 1) ^ rotl(x_out, n mod L) ^ x_in  (Algorithm 4)
 //   GENERAL  h' = x * h ^ (x^n mod p) * x_out ^ x_in        (Algorithm 3)
 //
-// which gives the direct form's bits. kRun is odd, so the 32 threads of a
+// which gives the direct form's bits. Every rotation is taken mod L, so
+// n > L gives the plain version's bits. kRun is odd, so the 32 threads of a
 // warp, reading shared memory kRun words apart, hit 32 distinct banks. The
 // hashes go back through shared memory and leave with coalesced stores;
 // the ragged tail of a row is masked.
@@ -53,7 +57,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRun = 17;                     // windows a thread rolls over
 constexpr int kBlockWin = kThreads * kRun;   // windows a block covers
-constexpr int kMaxN = 32;                    // n <= L <= 32
+constexpr int kMaxN = 32;                    // a fixed halo up to n = 32
 constexpr int kSigma = 256;                  // the byte path's alphabet
 
 struct RollParams {
@@ -62,7 +66,6 @@ struct RollParams {
   uint32_t lmask;        // the L low bits
   uint32_t p_low;        // GENERAL: modulus without its top bit
   uint32_t c_out;        // GENERAL: x^n mod p
-  uint32_t xpow[kMaxN];  // GENERAL: xpow[t] = x^(n-1-t) mod p
 };
 
 __device__ __forceinline__ uint32_t rotl_l(uint32_t v, int r, int L,
@@ -102,8 +105,13 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
                int S, int W, uint32_t* __restrict__ out, RollParams rp,
                const uint32_t* __restrict__ table) {
   constexpr bool kCyclic = kFamily != 1;
-  __shared__ uint32_t xs[kBlockWin + kMaxN - 1];
   __shared__ uint32_t hs[kBlockWin];
+  // the symbols with their n-1 halo: a fixed array up to n = kMaxN, sized
+  // at launch (dynamic shared memory) above it; with the dynamic array for
+  // every n the compiler's schedule cost plain CYCLIC 7 %
+  __shared__ uint32_t xs_fixed[kBlockWin + kMaxN - 1];
+  extern __shared__ uint32_t xs_wide[];
+  uint32_t* xs = rp.n <= kMaxN ? xs_fixed : xs_wide;
 
   const int row = blockIdx.x;
   const int w0 = blockIdx.y * kBlockWin;
@@ -125,10 +133,16 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
 
   const int j0 = threadIdx.x * kRun;
   if (j0 < nwin) {
+    // the first window directly: CYCLIC as n independent rotations (the
+    // rotation is reduced mod L only past L, i.e. for n > L), GENERAL by
+    // Horner's rule, h = x * h ^ x[t] (no table of powers)
     uint32_t h = 0;
-    for (int t = 0; t < n; ++t)
-      h ^= kCyclic ? rotl_l(xs[j0 + t], n - 1 - t, rp.L, rp.lmask)
-                   : mul_const(xs[j0 + t], rp.xpow[t], rp);
+    for (int t = 0; t < n; ++t) {
+      const int r = n - 1 - t;
+      h = kCyclic ? h ^ rotl_l(xs[j0 + t], r < rp.L ? r : r % rp.L, rp.L,
+                               rp.lmask)
+                  : xtimes(h, rp) ^ xs[j0 + t];
+    }
     hs[j0] = h;
     const int j1 = min(j0 + kRun, nwin);
     const int r_out = n % rp.L, r_one = 1 % rp.L;
@@ -150,24 +164,47 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
 int launch(int family, const void* x, int B, int S, int n, int L,
            const RollParams& rp, void* out, void* stream,
            const void* table = nullptr) {
-  if (B < 0 || n < 1 || n > kMaxN || L < n || L > 32 || S < n)
+  if (B < 0 || n < 1 || L < 1 || L > 32 || S < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = S - n + 1;
   const long long segs = (W + kBlockWin - 1LL) / kBlockWin;
   if (segs > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
+  // above kMaxN the staged symbols with their n-1 halo take dynamic shared
+  // memory; a kernel must opt in to it past 48 KiB with its static arrays,
+  // and the block's whole footprint must fit the device's limit (n up to
+  // about 45,000)
+  const size_t smem =
+      n <= kMaxN ? 0 : (static_cast<size_t>(kBlockWin) + n - 1) * 4;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t fixed = (2 * kBlockWin + kMaxN - 1 + kSigma) * 4;
+  if (smem + fixed > static_cast<size_t>(most))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B, static_cast<unsigned int>(segs));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* xp = static_cast<const uint32_t*>(x);
   const uint32_t* tp = static_cast<const uint32_t*>(table);
   uint32_t* op = static_cast<uint32_t*>(out);
+  auto go = [&](auto kernel, const auto* xin) {
+    if (smem > 0)
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    if (err == cudaSuccess)
+      kernel<<<grid, kThreads, smem, st>>>(xin, S, W, op, rp, tp);
+  };
   if (family == 0)
-    rolling_kernel<0><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp, tp);
+    go(rolling_kernel<0>, xp);
   else if (family == 1)
-    rolling_kernel<1><<<grid, kThreads, 0, st>>>(xp, S, W, op, rp, tp);
+    go(rolling_kernel<1>, xp);
   else
-    rolling_kernel<2><<<grid, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(x), S, W, op, rp, tp);
+    go(rolling_kernel<2>, static_cast<const int32_t*>(x));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,18 +228,14 @@ extern "C" int cyclic_rolling(const void* x, int B, int S, int n, int L,
   return launch(0, x, B, S, n, L, params(n, L), out, stream);
 }
 
-// xpow is a HOST array of n values x^(n-1-t) mod p; c_out = x^n mod p;
-// p_low is the modulus without its top bit.
+// c_out = x^n mod p; p_low is the modulus without its top bit.
 extern "C" int general_rolling(const void* x, int B, int S, int n, int L,
                                unsigned int p_low, unsigned int c_out,
-                               const unsigned int* xpow, void* out,
-                               void* stream) {
-  if (L < 1 || L > 32 || n < 1 || n > kMaxN || xpow == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+                               void* out, void* stream) {
+  if (L < 1 || L > 32) return static_cast<int>(cudaErrorInvalidValue);
   RollParams rp = params(n, L);
   rp.p_low = p_low;
   rp.c_out = c_out;
-  for (int t = 0; t < n; ++t) rp.xpow[t] = xpow[t];
   return launch(1, x, B, S, n, L, rp, out, stream);
 }
 

@@ -19,58 +19,81 @@
 //            mod 2^32 & (2^log2_m - 1) are set in the filter}, where hb_j
 //            is the window hash of the second stream
 //
-// Design (simple first):
-//   * grid = rows x window segments; 256 threads a block. A segment holds
-//     up to kSeg windows; the launcher halves it (down to kMinSeg) while
-//     the grid would hold fewer than kBlocksPerSm blocks per SM.
-//   * The valid windows of a row form one contiguous range, so a block
-//     clips its segment to that range and returns early when it is empty.
-//   * Hash once: the block stages its symbols plus the n-1 halo in shared
+// Design:
+//   * ONE ordinary launch of min(tiles, resident blocks) blocks of 256
+//     threads. A tile is one row's segment of up to kSeg windows; the
+//     launcher halves the segment (down to kMinSeg) while the rows would
+//     hold fewer than kBlocksPerSm tiles per SM. Each block walks the
+//     linear tile index with a stride of the grid (so no grid-dimension
+//     limit), and skips an empty tile as a whole block, which keeps its
+//     barriers uniform. The index is 32 bits: 2^30 tiles of at least 64
+//     windows would need an input of 256 GiB, and a 64-bit index cost the
+//     kernel registers that slowed every plan (PERF.md §6). The valid
+//     windows of a row form one contiguous range, so a tile clips its
+//     segment to that range.
+//   * Hash once: a tile stages its symbols plus the n-1 halo in shared
 //     memory (both streams for a Bloom plan) and hashes each valid window
 //     once into shared memory. Every epilogue then reads the hashes there.
 //     The kernel has two instances, with and without the second stream, so
 //     a plan without Bloom keeps the smaller shared footprint; the
 //     epilogues' descriptors are read at a dynamic index from the
 //     kernel's constant bank, so their code appears once.
-//   * The launcher pre-fills each output from its init carry, or with the
+//   * The launcher fills each output from its init carry, or with the
 //     sketch's identity (0xFFFFFFFF for MinHash, 0 for the others), on the
-//     launch's stream. All merges are order-free (min, max, +), so the
-//     result is bit-identical whatever the block schedule.
+//     launch's stream, except where the carry is donated (init == out):
+//     then the kernel folds into it in place and nothing is filled. All
+//     merges are order-free (min, max, +), so the result is bit-identical
+//     whatever the block schedule.
 //   * MinHash: thread t owns signature lane t % k over the window group
 //     t / k; the groups fold in shared memory and each lane does one
-//     atomicMin.
-//   * HLL: a global atomicMax per window, skipped when an L2 read of the
-//     register already shows the rank (registers only rise, so a stale read
-//     costs an atomic, never a lost update). A per-block shared histogram
-//     was rejected: at b = 12 it is 16 KiB and flushing its 4096 registers
-//     costs more atomics than the block's 1024 windows.
-//   * CountMin: depth global atomicAdds per window, for every width. At the
+//     atomicMin, once per tile.
+//   * HLL, b <= 14: the block keeps the register file in (dynamic) shared
+//     memory for all its tiles. It seeds the file from the output
+//     registers, raises it in shared memory (read, and atomicMax only when
+//     larger) and marks each register it raised in a bitmap; at its end it
+//     issues one global atomicMax for each marked register. Registers only
+//     rise, so a seed read stale while other blocks raise costs at most an
+//     extra atomic and never loses an update. A plan's HLL files share up
+//     to kMaxHllSmem bytes; the launch then runs at most kHllBlocksPerSm
+//     blocks an SM, so each block's seed read and flush are spread over
+//     several tiles. Above b = 14 (or past that budget): a global
+//     atomicMax per window, skipped when an L2 read of the register already
+//     shows the rank.
+//   * CountMin: depth global atomicAdds per window (REDs into L2). At the
 //     stats default (depth 4, w = 16) the table is 1 MiB, too large for
-//     shared memory; the atomics land in the 50 MB L2.
+//     shared memory; chip_smoke.py times the same increments issued alone
+//     (tools/countmin_red_floor.cu), the floor of this design.
 //   * Bloom: the filter (512 KiB at log2_m = 22) does not fit in shared
 //     memory; probes read it through the read-only path (__ldg) and L2
-//     holds it. Hits reduce per warp, then per block, and each block does
-//     one atomicAdd per row and segment.
+//     holds it. Hits reduce per warp, then per block, and each tile does
+//     one atomicAdd for its row.
 //
 // What bounds it: per window it reads 4 bytes of input (8 for Bloom) and
 // issues integer work and memory operations: k multiply-adds and mins for
 // MinHash, depth atomics for CountMin, up to k filter loads for Bloom, at
-// most one atomic for HLL. So it is bound by instruction issue and by the
-// atomics' and loads' rate, not by bytes. This design does nothing yet
-// about that bound (direct hash of every window, no specialisation on n,
-// the family or the plan); making it fast is later work.
+// most one shared-memory update for HLL. So it is bound by instruction
+// issue and by the atomics' and loads' rate, not by bytes. MinHash and
+// Bloom are still the first, direct designs.
 
+#include <algorithm>
 #include <cstdint>
+#include <mutex>
+#include <vector>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSeg = 1024;   // most windows per block
-constexpr int kMinSeg = 64;  // fewest windows per block
-constexpr int kBlocksPerSm = 4;
+constexpr int kSeg = 1024;   // most windows per tile
+constexpr int kMinSeg = 64;  // fewest windows per tile
+constexpr int kBlocksPerSm = 4;  // tiles per SM below which segments halve
 constexpr int kMaxN = 32;    // n <= L <= 32
 constexpr int kMaxSketches = 8;
+constexpr int kMaxSharedB = 14;  // HLL register files in shared memory
+// the shared HLL files of one plan, with their raised-register bitmaps:
+// one file at b = 14, or several smaller ones
+constexpr int kMaxHllSmem = (4 << kMaxSharedB) + (1 << kMaxSharedB) / 8;
+constexpr int kHllBlocksPerSm = 4;  // blocks an SM with shared HLL files
 
 enum Kind { kMinHash = 0, kHll = 1, kCountMin = 2, kBloom = 3 };
 
@@ -92,10 +115,12 @@ struct Epilogue {
   int kind;          // Kind
   int p0;            // MinHash k; HLL b; CountMin depth; Bloom k
   int p1;            // HLL rank_bits; CountMin log2 width; Bloom log2_m
-  int unused;
+  int smem;          // HLL: word offset of its shared register file, or -1
+                     // for the global path (set by the launcher)
   const void* a;     // MinHash / CountMin a (uint32); Bloom filter words
   const void* b;     // MinHash / CountMin b (uint32)
-  const void* init;  // carry in (the output's shape and type), or null
+  const void* init;  // carry in (the output's shape and type), or null;
+                     // equal to out when the carry is donated
   void* out;         // MinHash (B, k) u32; HLL (2^b,) i32;
                      // CountMin (depth, 2^w) i32; Bloom (B,) i32
 };
@@ -183,17 +208,76 @@ __device__ __forceinline__ void minhash_epilogue(const Epilogue& ep, int row,
   }
 }
 
+__device__ __forceinline__ int hll_rank(uint32_t h, int b, int rank_bits) {
+  const uint32_t rest = h >> b;
+  // __ffs(0) is 0, so the zero case is spelled out: ctz(0) = 32
+  const int tz = rest ? __ffs(static_cast<int>(rest)) - 1 : 32;
+  return min(tz, rank_bits) + 1;
+}
+
+// A shared HLL file: 2^b registers, then one bit a register, set when the
+// block raised it above its seed.
+__device__ __forceinline__ int* hll_file(const Epilogue& ep, uint32_t* dyn) {
+  return reinterpret_cast<int*>(dyn + ep.smem);
+}
+
+__device__ __forceinline__ uint32_t* hll_raised(const Epilogue& ep,
+                                                uint32_t* dyn) {
+  return dyn + ep.smem + (1u << ep.p0);
+}
+
+// Seed the block's file from the output registers (filled by the launcher,
+// or the donated carry). __ldcg reads L2: other blocks raise the registers
+// with atomics, and a value read stale is only lower.
+__device__ __forceinline__ void hll_seed(const Epilogue& ep, uint32_t* dyn) {
+  const int m = 1 << ep.p0;
+  const int* regs = static_cast<const int*>(ep.out);
+  int* file = hll_file(ep, dyn);
+  if (m % 4 == 0 && (reinterpret_cast<uintptr_t>(regs) & 15) == 0) {
+    const int4* r4 = reinterpret_cast<const int4*>(regs);
+    int4* f4 = reinterpret_cast<int4*>(file);
+    for (int i = threadIdx.x; i < m / 4; i += kThreads) f4[i] = __ldcg(r4 + i);
+  } else {
+    for (int i = threadIdx.x; i < m; i += kThreads) file[i] = __ldcg(regs + i);
+  }
+  uint32_t* raised = hll_raised(ep, dyn);
+  for (int i = threadIdx.x; i < (m + 31) / 32; i += kThreads) raised[i] = 0;
+}
+
+// One global atomicMax for each register the block raised.
+__device__ __forceinline__ void hll_flush(const Epilogue& ep, uint32_t* dyn) {
+  const int m = 1 << ep.p0;
+  int* regs = static_cast<int*>(ep.out);
+  const int* file = hll_file(ep, dyn);
+  const uint32_t* raised = hll_raised(ep, dyn);
+  for (int i = threadIdx.x; i < m; i += kThreads)
+    if ((raised[i >> 5] >> (i & 31)) & 1u) atomicMax(regs + i, file[i]);
+}
+
 __device__ __forceinline__ void hll_epilogue(const Epilogue& ep, int lo,
-                                             int hi, const uint32_t* hs) {
+                                             int hi, const uint32_t* hs,
+                                             uint32_t* dyn) {
   const int b = ep.p0, rank_bits = ep.p1;
   const uint32_t idx_mask = (1u << b) - 1u;
+  if (ep.smem >= 0) {
+    int* file = hll_file(ep, dyn);
+    uint32_t* raised = hll_raised(ep, dyn);
+    for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
+      const uint32_t h = hs[j], i = h & idx_mask;
+      const int rank = hll_rank(h, b, rank_bits);
+      // a stale read is only lower: an extra atomic, never a lost update;
+      // the atomic leaves the register at least rank > seed, so it rose
+      if (rank > file[i]) {
+        atomicMax(file + i, rank);
+        atomicOr(raised + (i >> 5), 1u << (i & 31));
+      }
+    }
+    return;
+  }
   int* regs = static_cast<int*>(ep.out);
   for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
     const uint32_t h = hs[j];
-    const uint32_t rest = h >> b;
-    // __ffs(0) is 0, so the zero case is spelled out: ctz(0) = 32
-    const int tz = rest ? __ffs(static_cast<int>(rest)) - 1 : 32;
-    const int rank = min(tz, rank_bits) + 1;
+    const int rank = hll_rank(h, b, rank_bits);
     int* r = regs + (h & idx_mask);
     if (rank > __ldcg(r)) atomicMax(r, rank);
   }
@@ -245,13 +329,16 @@ __device__ __forceinline__ void bloom_epilogue(const Epilogue& ep, int row,
 }
 
 // kTwo: the plan has a Bloom sketch, so the second stream xb is staged and
-// hashed too; plans without one keep the smaller shared footprint.
+// hashed too; plans without one keep the smaller shared footprint. The
+// dynamic shared memory holds the plan's shared HLL files (none, and no
+// bytes, for a plan without one).
 template <bool kTwo>
 __global__ void __launch_bounds__(kThreads)
 sketch_plan_kernel(const uint32_t* __restrict__ x,
                    const uint32_t* __restrict__ xb, int S, int W,
                    const int32_t* __restrict__ n_windows,
-                   const int32_t* __restrict__ w_start, int seg,
+                   const int32_t* __restrict__ w_start, int seg, int segs,
+                   int tiles,
                    const __grid_constant__ PlanDesc plan,
                    const __grid_constant__ HashParams hp) {
   constexpr int kSegB = kTwo ? kSeg : 1;
@@ -260,43 +347,62 @@ sketch_plan_kernel(const uint32_t* __restrict__ x,
   __shared__ uint32_t hs[kSeg];
   __shared__ uint32_t hbs[kSegB];
   __shared__ uint32_t part[kThreads];
+  extern __shared__ uint32_t dyn[];
 
-  const int row = blockIdx.x;
-  const int seg0 = blockIdx.y * seg;
-  const int nw = min(n_windows[row], W);
-  const int ws = w_start ? max(w_start[row], 0) : 0;
-  // this segment's valid windows, relative to seg0: [lo, hi)
-  const int lo = max(ws - seg0, 0);
-  const int hi = min(nw - seg0, seg);
-  if (hi <= lo) return;  // uniform over the block
-
-  // symbols [lo, hi + n - 1) of the segment; the last one read is at most
-  // n_windows + n - 2 <= S - 1
-  const size_t base = static_cast<size_t>(row) * S + seg0;
-  for (int i = lo + threadIdx.x; i < hi + hp.n - 1; i += kThreads) {
-    xs[i] = x[base + i];
-    if (kTwo) xbs[i] = xb[base + i];
-  }
-  __syncthreads();
-  for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
-    hs[j] = window_hash(xs + j, hp);
-    if (kTwo) hbs[j] = window_hash(xbs + j, hp);
-  }
-  __syncthreads();
-
-  // one copy of the epilogue code: the descriptors are read from the
-  // kernel's constant bank (__grid_constant__) at a dynamic index
+  bool shared_hll = false;
 #pragma unroll 1
-  for (int e = 0; e < plan.n_sketches; ++e) {
-    const Epilogue& ep = plan.sk[e];
-    switch (ep.kind) {
-      case kMinHash: minhash_epilogue(ep, row, lo, hi, hs, part); break;
-      case kHll: hll_epilogue(ep, lo, hi, hs); break;
-      case kCountMin: countmin_epilogue(ep, lo, hi, hs); break;
-      default: bloom_epilogue(ep, row, lo, hi, hs, hbs, part); break;
+  for (int e = 0; e < plan.n_sketches; ++e)
+    if (plan.sk[e].kind == kHll && plan.sk[e].smem >= 0) {
+      hll_seed(plan.sk[e], dyn);
+      shared_hll = true;
     }
-    // part[] is reused by the next epilogue; none follows the last
-    if (e + 1 < plan.n_sketches) __syncthreads();
+  if (shared_hll) __syncthreads();
+
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row = t / segs;
+    const int seg0 = (t % segs) * seg;
+    const int nw = min(n_windows[row], W);
+    const int ws = w_start ? max(w_start[row], 0) : 0;
+    // this tile's valid windows, relative to seg0: [lo, hi)
+    const int lo = max(ws - seg0, 0);
+    const int hi = min(nw - seg0, seg);
+    if (hi <= lo) continue;  // uniform over the block
+
+    // symbols [lo, hi + n - 1) of the segment; the last one read is at
+    // most n_windows + n - 2 <= S - 1
+    const size_t base = static_cast<size_t>(row) * S + seg0;
+    for (int i = lo + threadIdx.x; i < hi + hp.n - 1; i += kThreads) {
+      xs[i] = x[base + i];
+      if (kTwo) xbs[i] = xb[base + i];
+    }
+    __syncthreads();
+    for (int j = lo + threadIdx.x; j < hi; j += kThreads) {
+      hs[j] = window_hash(xs + j, hp);
+      if (kTwo) hbs[j] = window_hash(xbs + j, hp);
+    }
+    __syncthreads();
+
+    // one copy of the epilogue code: the descriptors are read from the
+    // kernel's constant bank (__grid_constant__) at a dynamic index
+#pragma unroll 1
+    for (int e = 0; e < plan.n_sketches; ++e) {
+      const Epilogue& ep = plan.sk[e];
+      switch (ep.kind) {
+        case kMinHash: minhash_epilogue(ep, row, lo, hi, hs, part); break;
+        case kHll: hll_epilogue(ep, lo, hi, hs, dyn); break;
+        case kCountMin: countmin_epilogue(ep, lo, hi, hs); break;
+        default: bloom_epilogue(ep, row, lo, hi, hs, hbs, part); break;
+      }
+      // part[] is reused by the next epilogue, and xs, hs by the next tile
+      __syncthreads();
+    }
+  }
+
+  if (shared_hll) {
+#pragma unroll 1
+    for (int e = 0; e < plan.n_sketches; ++e)
+      if (plan.sk[e].kind == kHll && plan.sk[e].smem >= 0)
+        hll_flush(plan.sk[e], dyn);
   }
 }
 
@@ -323,15 +429,51 @@ bool epilogue_ok(const Epilogue& ep, bool has_xb) {
   }
 }
 
+// The blocks of one instance that an SM holds at `smem` bytes of dynamic
+// shared memory, and the SM count, cached per device (a launch asks the
+// runtime once per device, instance and footprint).
+struct Residency {
+  int dev, two, smem, blocks, sms;
+};
+
+cudaError_t residency(bool two, int smem, int* blocks, int* sms) {
+  static std::mutex mu;
+  static std::vector<Residency> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Residency& r : seen)
+    if (r.dev == dev && r.two == two && r.smem == smem) {
+      *blocks = r.blocks;
+      *sms = r.sms;
+      return cudaSuccess;
+    }
+  auto kernel = two ? sketch_plan_kernel<true> : sketch_plan_kernel<false>;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  // above 48 KiB a kernel must opt in to its dynamic shared memory
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxHllSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  seen.push_back({dev, two, smem, *blocks, *sms});
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Device pointers: x and xb (B, S)
 // uint32 (xb, the second stream, only for plans with a Bloom sketch, else
 // null), n_windows (B,) int32, w_start (B,) int32 or null, and every
-// pointer inside `plan` (a HOST struct). xpow is a HOST array of n values
-// x^(n-1-t) mod p (GENERAL only; may be null for CYCLIC). Runs on `stream`
-// and does not synchronise. Returns cudaGetLastError() after the launch
-// (0 = success), or cudaErrorInvalidValue for arguments out of range.
+// pointer inside `plan` (a HOST struct). A sketch whose init equals its out
+// has its carry donated: it is folded into in place, with no fill. xpow is
+// a HOST array of n values x^(n-1-t) mod p (GENERAL only; may be null for
+// CYCLIC). Runs on `stream` and does not synchronise. Returns
+// cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for arguments out of range.
 extern "C" int sketch_plan(
     const void* x, const void* xb, int B, int S, const void* n_windows,
     const void* w_start, const PlanDesc* plan, int family, int n, int L,
@@ -344,12 +486,27 @@ extern "C" int sketch_plan(
   for (int e = 0; e < plan->n_sketches; ++e)
     if (!epilogue_ok(plan->sk[e], xb != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
-  const int W = S - n + 1;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the launch's own copy of the plan: HLL files get their shared offsets
+  PlanDesc desc = *plan;
+  int words = 0;
+  for (int e = 0; e < desc.n_sketches; ++e) {
+    Epilogue& ep = desc.sk[e];
+    ep.smem = -1;
+    if (ep.kind != kHll || ep.p0 > kMaxSharedB) continue;
+    // the registers and their bitmap, rounded to 16 bytes for the seed's
+    // vector stores
+    const int need = ((1 << ep.p0) + ((1 << ep.p0) + 31) / 32 + 3) & ~3;
+    if (4 * (words + need) > kMaxHllSmem) continue;
+    ep.smem = words;
+    words += need;
+  }
+  const int smem = 4 * words;
+  int blocks = 0, sms = 0;
+  cudaError_t err = residency(xb != nullptr, smem, &blocks, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+
+  const int W = S - n + 1;
   int seg = kSeg;
   auto n_segs = [W](int s) { return W > 0 ? (W + s - 1LL) / s : 0LL; };
   while (seg > kMinSeg &&
@@ -357,10 +514,13 @@ extern "C" int sketch_plan(
              static_cast<long long>(kBlocksPerSm) * sms)
     seg /= 2;
   const long long segs = n_segs(seg);
-  if (segs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = static_cast<long long>(B) * segs;
+  // the 32-bit tile index, with room for the grid stride past the end
+  if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int e = 0; e < plan->n_sketches; ++e) {
-    const Epilogue& ep = plan->sk[e];
+  for (int e = 0; e < desc.n_sketches; ++e) {
+    const Epilogue& ep = desc.sk[e];
+    if (ep.init == ep.out) continue;  // donated: folded into in place
     const size_t bytes = out_bytes(ep, B);
     const cudaError_t fill =
         ep.init ? cudaMemcpyAsync(ep.out, ep.init, bytes,
@@ -369,7 +529,7 @@ extern "C" int sketch_plan(
                                   bytes, st);
     if (fill != cudaSuccess) return static_cast<int>(fill);
   }
-  if (B == 0 || segs == 0) return static_cast<int>(cudaGetLastError());
+  if (tiles == 0) return static_cast<int>(cudaGetLastError());
 
   HashParams hp{};
   hp.family = family;
@@ -381,11 +541,17 @@ extern "C" int sketch_plan(
   if (family == 1)
     for (int t = 0; t < n; ++t) hp.xpow[t] = xpow[t];
 
-  const dim3 grid(B, static_cast<unsigned int>(segs));
+  long long resident = static_cast<long long>(blocks) * sms;
+  if (words > 0)
+    resident = std::min(resident, static_cast<long long>(kHllBlocksPerSm) *
+                                      sms);
+  const unsigned int grid =
+      static_cast<unsigned int>(std::min(tiles, resident));
   auto kernel = xb ? sketch_plan_kernel<true> : sketch_plan_kernel<false>;
-  kernel<<<grid, kThreads, 0, st>>>(
+  kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(xb), S,
       W, static_cast<const int32_t*>(n_windows),
-      static_cast<const int32_t*>(w_start), seg, *plan, hp);
+      static_cast<const int32_t*>(w_start), seg, static_cast<int>(segs),
+      static_cast<int>(tiles), desc, hp);
   return static_cast<int>(cudaGetLastError());
 }

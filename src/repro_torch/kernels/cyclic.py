@@ -27,15 +27,16 @@ LAUNCHES = 0
 
 def check_input(x: torch.Tensor, n: int, L: int) -> None:
     """What the rolling kernels take: (B, S >= n) contiguous uint32 on a
-    CUDA device, n <= L <= 32."""
+    CUDA device, n >= 1, 1 <= L <= 32 (n > L included, as the plain
+    version takes)."""
     if not x.is_cuda:
         raise ValueError(f"the rolling kernels run on CUDA or CPU tensors, "
                          f"got {x.device}")
     if x.dtype != torch.uint32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, S) uint32 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if not 1 <= n <= L <= 32:
-        raise ValueError(f"need 1 <= n <= L <= 32, got n={n}, L={L}")
+    if n < 1 or not 1 <= L <= 32:
+        raise ValueError(f"need n >= 1 and 1 <= L <= 32, got n={n}, L={L}")
     if x.shape[1] < n:
         raise ValueError(f"sequence length {x.shape[1]} < window n={n}")
 

@@ -40,14 +40,12 @@ def general_rolling(x: torch.Tensor, *, n: int, p: int,
     fn = _build.load("rolling").general_rolling
     if fn.argtypes is None:
         vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        fn.argtypes = [vp, i, i, i, i, u, u, ctypes.POINTER(ctypes.c_uint),
-                       vp, vp]
+        fn.argtypes = [vp, i, i, i, i, u, u, vp, vp]
         fn.restype = ctypes.c_int
-    pows = _ref._xpows_host(n, p, L)
-    xpow = (ctypes.c_uint * n)(*[pows[n - 1 - t] for t in range(n)])
+    c_out = _ref._xpows_host(n, p, L)[n]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), B, S, n, L, p & ((1 << L) - 1), pows[n], xpow,
+        err = fn(x.data_ptr(), B, S, n, L, p & ((1 << L) - 1), c_out,
                  out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"general_rolling launch failed: CUDA error {err}")

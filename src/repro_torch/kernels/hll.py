@@ -26,13 +26,16 @@ LAUNCHES = 0
 
 def hll_update(hashes: torch.Tensor, *, b: int = 10,
                rank_bits: int = 32) -> torch.Tensor:
-    """hashes (...) uint32 -> (2^b,) int32 HLL registers; b in [4, 16]."""
+    """hashes (...) uint32 -> (2^b,) int32 HLL registers. Any b >= 1 on
+    the CPU, as the reference takes; the kernel takes b <= 31 (b <= 14 in
+    shared memory, above it in the global registers)."""
     global LAUNCHES
-    if not 4 <= b <= 16 or rank_bits < 0:
-        raise ValueError(f"need 4 <= b <= 16 and rank_bits >= 0, got b={b}, "
-                         f"rank_bits={rank_bits}")
+    if rank_bits < 0:
+        raise ValueError(f"need rank_bits >= 0, got rank_bits={rank_bits}")
     if hashes.device.type == "cpu":
         return _ref.hll_update_ref(hashes, b=b, rank_bits=rank_bits)
+    if not 1 <= b <= 31:
+        raise ValueError(f"the HLL kernel takes 1 <= b <= 31, got b={b}")
     if not hashes.is_cuda:
         raise ValueError(f"hll_update runs on CUDA or CPU tensors, got "
                          f"{hashes.device}")

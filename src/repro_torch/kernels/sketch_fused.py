@@ -56,7 +56,7 @@ _MAX_SKETCHES = 8
 
 class _Epilogue(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int), ("p0", ctypes.c_int),
-                ("p1", ctypes.c_int), ("unused", ctypes.c_int),
+                ("p1", ctypes.c_int), ("smem", ctypes.c_int),
                 ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("init", ctypes.c_void_p), ("out", ctypes.c_void_p)]
 
@@ -102,12 +102,27 @@ def operand_shapes(spec) -> dict:
     return {}
 
 
-def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev):
-    """-> (the C descriptor, its output tensor) for one sketch, with its
-    operands checked against what the kernel reads."""
-    u32, i32 = torch.uint32, torch.int32
+def _check_init(name: str, spec, init, B: int, dev):
+    """An ``init`` carry in its output's exact shape and type on ``dev``
+    (a donated one becomes that output) -> (shape, dtype) of the output."""
     shape, dtype_name, _ = spec.state_struct(B)
-    dtype = u32 if dtype_name == "uint32" else i32
+    dtype = torch.uint32 if dtype_name == "uint32" else torch.int32
+    if init is not None:
+        if not isinstance(init, torch.Tensor):
+            raise TypeError(f"sketch {name!r}: init must be a tensor here, "
+                            f"got {type(init).__name__}")
+        _check(init, f"sketch {name!r} init", dtype, shape, dev)
+    return shape, dtype
+
+
+def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev,
+              donate: bool):
+    """-> (the C descriptor, its output tensor) for one sketch, with its
+    operands checked against what the kernel reads. A donated ``init`` is
+    the output itself: the kernel folds into it in place."""
+    u32 = torch.uint32
+    init = ops.get("init")
+    shape, dtype = _check_init(name, spec, init, B, dev)
     if isinstance(spec, MinHashSpec):
         p0, p1 = spec.k, 0
     elif isinstance(spec, HLLSpec):
@@ -120,10 +135,8 @@ def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev):
         p0, p1 = spec.k, spec.log2_m
     for op, op_shape in operand_shapes(spec).items():
         _check(ops[op], f"sketch {name!r} operand {op!r}", u32, op_shape, dev)
-    init = ops.get("init")
-    if init is not None:
-        _check(init, f"sketch {name!r} init", dtype, shape, dev)
-    out = torch.empty(shape, dtype=dtype, device=dev)
+    out = (init if donate and init is not None
+           else torch.empty(shape, dtype=dtype, device=dev))
     ep = _Epilogue(kind=_KIND[type(spec)], p0=p0, p1=p1,
                    a=_ptr(ops.get("a", ops.get("bits"))), b=_ptr(ops.get("b")),
                    init=_ptr(init), out=out.data_ptr())
@@ -131,7 +144,8 @@ def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev):
 
 
 def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
-                      operands, *, plan: SketchPlan, w_start=None) -> dict:
+                      operands, *, plan: SketchPlan, w_start=None,
+                      donate: bool = False) -> dict:
     """Execute every sketch in ``plan`` in ONE rolling-hash pass.
 
     h1v and h1v_b (B, S) uint32 (h1v_b only for a plan with a Bloom
@@ -141,9 +155,19 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     ``{name: MinHash (B, k) uint32 | HLL (2^b,) int32 | CountMin (depth,
     2^w) int32 | Bloom (B,) int32}``. Without ``init`` a sketch starts at
     its identity.
+
+    ``donate=True`` hands each ``init`` to the kernel as its output: the
+    kernel folds into it in place, the launch fills nothing, and the caller
+    must not read the old carry again. Every donated ``init`` must have its
+    output's exact shape and type on ``h1v``'s device. The plain version
+    takes the flag's checks but stays functional (fresh outputs).
     """
     global LAUNCHES
     if h1v.device.type == "cpu":
+        if donate:   # checked as the card's path checks it, then unused
+            for name, spec in plan.sketches:
+                _check_init(name, spec, (operands.get(name) or {}).get(
+                    "init"), h1v.shape[0], h1v.device)
         return _ref.sketch_plan_ref(plan, h1v, h1v_b, n_windows, operands,
                                     w_start=w_start)
     if not h1v.is_cuda:
@@ -177,7 +201,7 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     for e, (name, spec) in enumerate(plan.sketches):
         desc.sk[e], results[name] = _epilogue(name, spec,
                                               operands.get(name, {}), plan,
-                                              B, dev)
+                                              B, dev, donate)
     fn = _bind(_build.load("sketch_plan"))
     xpow = None
     if hs.family == "general":
@@ -216,8 +240,8 @@ def cyclic_rolling_fused(tokens: torch.Tensor, table: torch.Tensor, *, n: int,
                          f"got {tokens.device}")
     _check(tokens, "tokens", torch.int32, tokens.shape, tokens.device)
     _check(table, "table", torch.uint32, (SIGMA,), tokens.device)
-    if not 1 <= n <= L <= 32:
-        raise ValueError(f"need 1 <= n <= L <= 32, got n={n}, L={L}")
+    if n < 1 or not 1 <= L <= 32:
+        raise ValueError(f"need n >= 1 and 1 <= L <= 32, got n={n}, L={L}")
     B, S = tokens.shape
     if S < n:
         raise ValueError(f"sequence length {S} < window n={n}")

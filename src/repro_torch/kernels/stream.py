@@ -31,11 +31,13 @@ preserved verbatim.
 
 The JAX package folds a block of chunks into one ``lax.scan`` dispatch.
 Here :func:`update_many` is a Python loop over the block's chunks, one
-kernel launch per chunk; all launches are asynchronous, so the host runs
-ahead of the card. :func:`feed` overlaps the next block's host->device copy
-(pinned memory, ``non_blocking``) with the current block's kernels. There
-is no mesh: multi-device streaming, ``export_state``, ``import_state`` and
-``run_stream`` are not ported yet (ROADMAP.md, Queue 1).
+kernel launch per chunk, with the loop's own carry donated from the second
+chunk on (the kernel folds into it in place); all launches are
+asynchronous, so the host runs ahead of the card. :func:`feed` overlaps
+the next block's host->device copy (pinned memory, ``non_blocking``) with
+the current block's kernels. There is no mesh: multi-device streaming,
+``export_state``, ``import_state`` and ``run_stream`` are not ported yet
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -98,8 +100,11 @@ def init_state(plan: SketchPlan, batch: int, *, carry: Optional[Dict] = None,
     return state
 
 
-def _update_body(plan, ref_path, state, chunk, chunk_b, lengths, operands):
-    """One chunk through the plan engine, carry in / carry out."""
+def _update_body(plan, ref_path, state, chunk, chunk_b, lengths, operands,
+                 donate=False):
+    """One chunk through the plan engine, carry in / carry out. With
+    ``donate`` the kernel folds into the carry's sketch tensors in place:
+    only for a carry that nothing but the caller's loop holds."""
     n = plan.hash.n
     seen = state["seen"]
     v = lengths.clamp(0, chunk.shape[1])
@@ -112,7 +117,8 @@ def _update_body(plan, ref_path, state, chunk, chunk_b, lengths, operands):
     ws = (n - 1 - seen).clamp(min=0)
     ops = {name: dict(operands.get(name, {}), init=state["sketch"][name])
            for name, _ in plan.sketches}
-    out = api.execute(plan, x, xb, v, ops, ref_path, w_start=ws)
+    out = api.execute(plan, x, xb, v, ops, ref_path, w_start=ws,
+                      donate=donate)
 
     # tail refresh: the last n-1 *consumed* symbols end at the row's fill
     # level, so gather columns [v, v + n-1) of x — for an idle row (v = 0)
@@ -215,6 +221,11 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
     successive :func:`update` calls (bit-identical carry out), validated
     once for the block, one kernel launch per chunk on CUDA.
 
+    The carry of chunks 1..T-1 is the loop's own, so its sketch tensors are
+    donated to the kernel (folded in place, no fill a launch), as the JAX
+    package donates its steady-state carry. Chunk 0 reads the caller's
+    ``state``, which is never donated and stays unchanged.
+
     Args mirror :func:`update` with a leading chunk axis:
       chunks: (T, B, C) h1 chunk stack, folded in order.
       chunk_b: (T, B, C) second family draw, iff the plan has a BloomSpec.
@@ -240,7 +251,7 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
         state = _update_body(plan, ref_path, state, chunks[t].contiguous(),
                              None if chunk_b is None
                              else chunk_b[t].contiguous(),
-                             lengths[t], operands)
+                             lengths[t], operands, donate=t > 0)
     return state
 
 

@@ -80,7 +80,8 @@ def test_cyclic_fused_exact_for_extreme_values():
 
 
 @pytest.mark.parametrize("n,L", [(1, 32), (5, 32), (8, 32), (25, 32),
-                                 (5, 20), (8, 20)])
+                                 (5, 20), (8, 20), (9, 8), (20, 16),
+                                 (33, 32)])
 def test_cyclic_fused_matches_oracle(n, L):
     table, toks = _u32((256,), n), _bytes((3, 300), L + n)
     for impl in ("ref", "auto"):
@@ -224,13 +225,17 @@ def test_hll_update_estimate_quality():
     assert abs(est - 200_000) / 200_000 < 0.12
 
 
-def test_hll_update_validates():
-    h = torch.zeros(8, dtype=torch.uint32)
-    for b in (3, 17):
-        with pytest.raises(ValueError, match="4 <= b <= 16"):
-            hll.hll_update(h, b=b)
+@pytest.mark.parametrize("b", [1, 2, 3, 17])
+def test_hll_update_validates(b):
+    """Any b, as the reference takes: b = 1, 2, 3 and 17 give the
+    reference's registers; a negative rank_bits still raises."""
+    h = _u32((5000,), 30 + b)
+    got = hll.hll_update(torch.from_numpy(h), b=b)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1 << b,)
+    want = j_hll_update(jnp.asarray(h), b=b, block=1024, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="rank_bits"):
-        hll.hll_update(h, b=8, rank_bits=-1)
+        hll.hll_update(torch.from_numpy(h), b=b, rank_bits=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -260,3 +265,20 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
         got = hll.hll_update(ha.to(cuda), b=b, rank_bits=32 - b)
         assert torch.equal(got.cpu(), hll.hll_update(ha, b=b,
                                                      rank_bits=32 - b))
+
+
+def test_widened_domains_match_plain_versions_on_the_card(cuda):
+    """hll_update over b in [1, 31] (shared registers up to b = 14, global
+    above) and the fused lookup kernel at n > L."""
+    gen = torch.Generator().manual_seed(1)
+    h = torch.randint(0, 1 << 32, (20_000,), generator=gen).to(torch.uint32)
+    for b in (1, 2, 3, 14, 15, 17, 20):
+        got = hll.hll_update(h.to(cuda), b=b)
+        assert torch.equal(got.cpu(), hll.hll_update(h, b=b))
+    toks = torch.randint(0, 256, (3, 2000), generator=gen, dtype=torch.int32)
+    table = torch.randint(0, 1 << 32, (256,), generator=gen).to(torch.uint32)
+    for n, L in ((9, 8), (20, 16), (33, 32), (100, 32)):
+        got = ops.cyclic_fused(toks.to(cuda), table.to(cuda), n=n, L=L,
+                               impl="kernel")
+        want = ops.cyclic_fused(toks, table, n=n, L=L, impl="ref")
+        assert torch.equal(got.cpu(), want)

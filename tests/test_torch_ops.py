@@ -49,6 +49,9 @@ def _both(family, x, n, L, **jkw):
 
 
 _CASES = [(n, L) for n in (1, 2, 5, 8, 25, 32) for L in (16, 32) if n <= L]
+# n > L: every rotation is taken mod L (the reference's degraded regime),
+# which the card's rolling kernels take too
+_WIDE = [(9, 8), (20, 16), (33, 32)]
 
 
 @pytest.mark.parametrize("family", ["cyclic", "general"])
@@ -57,6 +60,14 @@ def test_rolling_hash_matches_reference(family, n, L):
     x = _x((3, 100), seed=10 * n + L)
     got, want = _both(family, x, n, L, impl="ref")
     assert got.shape == (3, 100 - n + 1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["cyclic", "general"])
+@pytest.mark.parametrize("n,L", _WIDE)
+def test_rolling_hash_matches_reference_above_L(family, n, L):
+    x = _x((3, 100), seed=10 * n + L)
+    got, want = _both(family, x, n, L, impl="ref")
     np.testing.assert_array_equal(got, want)
 
 
@@ -106,3 +117,15 @@ def test_kernels_match_plain_on_card(cuda):
         assert torch.equal(ops.general(x, n=n, p=p, L=L, impl="kernel"),
                            ops.general(x, n=n, p=p, L=L, impl="ref"))
         assert (cyclic.LAUNCHES, general.LAUNCHES) == (c0 + 1, g0 + 1)
+
+
+def test_kernels_match_plain_on_card_above_L(cuda):
+    """n > L on the card: the first window's rotations reduce mod L and the
+    shared halo is sized for n above 32."""
+    x = torch.from_numpy(_x((5, 9000), seed=4)).to(cuda)
+    for n, L in _WIDE + [(100, 32)]:
+        p = gf2.find_irreducible_host(L)
+        assert torch.equal(ops.cyclic(x, n=n, L=L, impl="kernel"),
+                           ops.cyclic(x, n=n, L=L, impl="ref"))
+        assert torch.equal(ops.general(x, n=n, p=p, L=L, impl="kernel"),
+                           ops.general(x, n=n, p=p, L=L, impl="ref"))

@@ -224,3 +224,97 @@ def test_kernel_matches_plain_on_card(cuda):
         assert sketch_fused.LAUNCHES == before + 1
         for name in got:
             assert torch.equal(got[name], want[name]), name
+
+
+def test_donated_init_is_checked():
+    """sketch_plan_fused(donate=True) hands each init to the kernel as its
+    output, so an init of the wrong shape, type or device is rejected (on
+    the CPU as on the card); a right one gives the undonated result."""
+    _, tp = _plans("cyclic", 5, 32, [("hll", "hll", {"b": 6}),
+                                     ("cms", "cms", {"depth": 2,
+                                                     "log2_width": 8})])
+    rng = np.random.default_rng(3)
+    x, _, nw, ws, ops = _case(tp, rng)
+    x, nw = torch.from_numpy(x), torch.from_numpy(nw)
+    ops = {n: {k: torch.from_numpy(v) for k, v in o.items()}
+           for n, o in ops.items()}
+    run = lambda o, **kw: sketch_fused.sketch_plan_fused(
+        x, None, nw, o, plan=tp, **kw)
+    want = run(ops)
+    got = run({n: {k: v.clone() for k, v in o.items()}
+               for n, o in ops.items()}, donate=True)
+    for name in want:
+        assert torch.equal(got[name], want[name])
+    hll_init = ops["hll"]["init"]
+    for bad, match in ((hll_init[:-1], "shape"),
+                       (hll_init.to(torch.int64), "dtype"),
+                       (hll_init.to("meta"), "expected cpu"),
+                       (hll_init.numpy(), "must be a tensor")):
+        with pytest.raises((ValueError, TypeError), match=match):
+            run({**ops, "hll": {"init": bad}}, donate=True)
+
+
+def test_tile_looping_grid_matches_plain_on_card(cuda):
+    """The grid holds fewer blocks than tiles: few rows of many segments
+    (B = 8 at S = 70,000, and B = 1 at S = 300,000), ragged n_windows and
+    w_start, HLL in shared memory (b = 4, 12, 14) and in global memory
+    (b = 15, 16), both families, a four-sketch plan, and donated
+    carries."""
+    rng = np.random.default_rng(11)
+    for family in ("cyclic", "general"):
+        for b in (4, 12, 14, 15, 16):
+            sketches = [("sig", "minhash", {"k": 16}), ("hll", "hll",
+                                                        {"b": b}),
+                        ("cms", "cms", {"depth": 4, "log2_width": 16}),
+                        ("bloom", "bloom", {"k": 4, "log2_m": 16})]
+            _, tp = _plans(family, 8, 32, sketches)
+            for B, S in ((8, 70_000), (1, 300_000), (1024, 519)):
+                x, xb, _, _, ops = _case(tp, rng, B=B, S=S)
+                W = S - 8 + 1
+                nw = rng.integers(W // 2, W + 1, size=B).astype(np.int32)
+                ws = rng.integers(0, 9, size=B).astype(np.int32)
+                if B > 2:
+                    nw[B // 2] = 0                     # an idle row
+                args = [torch.from_numpy(a).to(cuda) for a in (x, xb, nw, ws)]
+                ops = {n: {k: torch.from_numpy(v).to(cuda)
+                           for k, v in o.items()} for n, o in ops.items()}
+                want = sketch_fused.sketch_plan_fused(
+                    *[a.cpu() for a in args[:3]],
+                    {n: {k: v.cpu() for k, v in o.items()}
+                     for n, o in ops.items()}, plan=tp, w_start=args[3].cpu())
+                for donate in (False, True):
+                    o = {n: {k: v.clone() for k, v in d.items()}
+                         for n, d in ops.items()}
+                    got = sketch_fused.sketch_plan_fused(
+                        *args[:3], o, plan=tp, w_start=args[3], donate=donate)
+                    for name in want:
+                        assert torch.equal(got[name].cpu(), want[name]), (
+                            family, b, B, S, donate, name)
+                        assert donate == (got[name].data_ptr()
+                                          == o[name]["init"].data_ptr())
+
+
+def test_plan_row_past_65535_segments_on_card(cuda):
+    """One row of 65,600 segments of 1,024 windows (a row this long keeps
+    the longest segment): more than the 65,535 a grid dimension holds, which
+    bounded a row while a block took one (row, segment). The stats plan,
+    against its plain version on the card."""
+    _, tp = _plans("cyclic", 8, 32, [("hll", "hll", {"b": 12}),
+                                     ("cms", "cms", {"depth": 4,
+                                                     "log2_width": 16})])
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    S = 65_600 * 1024 + 7
+    x = torch.randint(0, 1 << 32, (1, S), generator=gen, device=cuda,
+                      dtype=torch.int64).to(torch.uint32)
+    nw = torch.full((1,), S - 7, dtype=torch.int32, device=cuda)
+    ws = torch.full((1,), 3, dtype=torch.int32, device=cuda)
+    ops = {"hll": {}, "cms": {
+        "a": torch.randint(0, 1 << 32, (4,), generator=gen, device=cuda,
+                           dtype=torch.int64).to(torch.uint32),
+        "b": torch.randint(0, 1 << 32, (4,), generator=gen, device=cuda,
+                           dtype=torch.int64).to(torch.uint32)}}
+    got = api.run(tp, x, n_windows=nw, w_start=ws, operands=ops,
+                  impl="kernel")
+    want = api.run(tp, x, n_windows=nw, w_start=ws, operands=ops, impl="ref")
+    for name in want:
+        assert torch.equal(got[name], want[name]), name

@@ -100,6 +100,96 @@ def test_update_many_equals_update_loop():
     assert torch.equal(s1["sketch"]["sig"], s2["sketch"]["sig"])
 
 
+def _four(family):
+    """A plan of all four sketches in both packages, with numpy operands."""
+    sk = lambda m: (("sig", m.MinHashSpec(k=K)), ("hll", m.HLLSpec(b=6)),
+                    ("cms", m.CountMinSpec(depth=3, log2_width=7)),
+                    ("bloom", m.BloomSpec(k=3, log2_m=10)))
+    plans = tuple(m.SketchPlan(m.HashSpec(family=family, n=5), sk(m))
+                  for m in (jplan, tplan))
+    rng = np.random.default_rng(5)
+    u32 = lambda n: rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+    ops = {"sig": _ops(6), "cms": {"a": u32(3) | 1, "b": u32(3)},
+           "bloom": {"bits": u32(1 << 5)}}
+    return plans, ops
+
+
+def _donation_case(dev):
+    """A ragged block with idle rows: (T, B, C) chunks, both streams, and
+    (T, B) lengths where row 1 idles in chunks 1-2 and row 3 from chunk 2."""
+    rng = np.random.default_rng(8)
+    T, B, C = 4, 4, 23
+    chunks = rng.integers(0, 1 << 32, size=(T, B, C), dtype=np.uint32)
+    chunks_b = rng.integers(0, 1 << 32, size=(T, B, C), dtype=np.uint32)
+    lens = rng.integers(1, C + 1, size=(T, B)).astype(np.int32)
+    lens[1:3, 1] = 0
+    lens[2:, 3] = 0
+    return (torch.from_numpy(chunks).to(dev),
+            torch.from_numpy(chunks_b).to(dev), lens)
+
+
+def _check_donated_update_many(tp, ops, dev):
+    chunks, chunks_b, lens = _donation_case(dev)
+    T, B, _ = chunks.shape
+    ops = {name: {k: torch.from_numpy(v).to(dev) for k, v in o.items()}
+           for name, o in ops.items()}
+    # the caller's state carries a warm start from one update
+    start = stream.init_state(tp, B, device=dev)
+    start = stream.update(tp, start, chunks[0], chunk_b=chunks_b[0],
+                          lengths=lens[0], operands=ops)
+    before = {k: v.clone() for k, v in start["sketch"].items()}
+    tails = (start["tail"].clone(), start["tail_b"].clone(),
+             start["seen"].clone())
+    many = stream.update_many(tp, start, chunks, chunk_b=chunks_b,
+                              lengths=lens, operands=ops)
+    loop = start
+    for t in range(T):
+        loop = stream.update(tp, loop, chunks[t], chunk_b=chunks_b[t],
+                             lengths=lens[t], operands=ops)
+    for key in ("tail", "tail_b", "seen"):
+        assert torch.equal(many[key], loop[key]), key
+    for name in many["sketch"]:
+        assert torch.equal(many["sketch"][name], loop["sketch"][name]), name
+        # the caller's carry is never donated: unchanged, not aliased
+        assert torch.equal(start["sketch"][name], before[name]), name
+        assert (many["sketch"][name].data_ptr()
+                != start["sketch"][name].data_ptr()), name
+    assert all(torch.equal(a, b) for a, b in zip(
+        (start["tail"], start["tail_b"], start["seen"]), tails))
+    return start, chunks, chunks_b, lens, ops, many
+
+
+@pytest.mark.parametrize("family", ["cyclic", "general"])
+def test_donated_update_many_equals_update_loop(family):
+    """update_many donates its own carry from the second chunk on: the same
+    carry as T update calls for all four sketches, with ragged lengths and
+    idle rows, equal to the reference's update_many, and the caller's state
+    untouched."""
+    (jp, tp), ops = _four(family)
+    start, chunks, chunks_b, lens, _, many = _check_donated_update_many(
+        tp, ops, "cpu")
+    jstate = {k: (jnp.asarray(v.numpy()) if k != "sketch" else
+                  {n: jnp.asarray(t.numpy()) for n, t in v.items()})
+              for k, v in start.items()}
+    want = jstream.update_many(
+        jp, jstate, jnp.asarray(chunks.numpy()),
+        chunk_b=jnp.asarray(chunks_b.numpy()), lengths=jnp.asarray(lens),
+        operands={n: {k: jnp.asarray(v) for k, v in o.items()}
+                  for n, o in ops.items()}, impl="ref")
+    for name, got in many["sketch"].items():
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want["sketch"][name]))
+
+
+def test_donated_update_many_equals_update_loop_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels "
+                    "there)")
+    for family in ("cyclic", "general"):
+        (_, tp), ops = _four(family)
+        _check_donated_update_many(tp, ops, "cuda")
+
+
 def test_short_documents_sign_to_sentinel():
     _, tp = _plans("cyclic", 8)
     x = _x((3, 5))                               # S < n
