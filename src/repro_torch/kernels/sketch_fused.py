@@ -9,10 +9,13 @@ epilogues and the CountMin scatter epilogue). The window hashes are
 computed once, masked by the Theorem-1 discard and reduced into every
 sketch inside the kernel; they never reach device memory.
 
-A plan with any mix of sketches runs as ONE launch: each sketch becomes one
-:class:`_Epilogue` of a :class:`_PlanDesc`, which mirrors the kernel's C
-structs. A plan with a Bloom sketch also hashes the second stream
-``h1v_b``, which gives the probe stride.
+A plan with any mix of up to eight sketches runs as ONE launch: each sketch
+becomes one :class:`_Epilogue` of a :class:`_PlanDesc`, which mirrors the
+kernel's C structs. A larger plan runs as one launch for each group of
+eight (:func:`sketch_groups`) over the same inputs; every sketch's output
+is its own, so the bits are those of one launch. A launch with a Bloom
+sketch also hashes the second stream ``h1v_b``, which gives the probe
+stride.
 
 The module also holds the byte path's wrapper,
 :func:`cyclic_rolling_fused`: the h1 table lookup fused into the CYCLIC
@@ -36,8 +39,8 @@ from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HLLSpec,
                                       MinHashSpec, SketchPlan)
 
 # kernel launches made by this wrapper (one per sketch_plan_fused call on
-# CUDA tensors); the smoke run resets it and reads it to show the main path
-# went through the kernel
+# CUDA tensors, one a group of eight in a larger plan); the smoke run
+# resets it and reads it to show the main path went through the kernel
 LAUNCHES = 0
 # launches that ran each epilogue, by spec type name (a launch of a mixed
 # plan counts under every kind it holds)
@@ -51,7 +54,7 @@ SIGMA = 256  # the byte path's alphabet
 
 _FAMILY_CODE = {"cyclic": 0, "general": 1}
 _KIND = {MinHashSpec: 0, HLLSpec: 1, CountMinSpec: 2, BloomSpec: 3}
-_MAX_SKETCHES = 8
+_MAX_SKETCHES = 8   # epilogue descriptors of one launch (csrc/sketch_plan.cu)
 
 
 class _Epilogue(ctypes.Structure):
@@ -74,6 +77,13 @@ def _bind(lib: ctypes.CDLL):
                        i, u, u, ctypes.POINTER(ctypes.c_uint), vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+def sketch_groups(sketches, size: int = _MAX_SKETCHES) -> list:
+    """A plan's ``(name, spec)`` sketches cut, in order, into consecutive
+    groups of at most ``size``: one plan launch each."""
+    sketches = tuple(sketches)
+    return [sketches[i : i + size] for i in range(0, len(sketches), size)]
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
@@ -146,7 +156,8 @@ def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev,
 def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
                       operands, *, plan: SketchPlan, w_start=None,
                       donate: bool = False) -> dict:
-    """Execute every sketch in ``plan`` in ONE rolling-hash pass.
+    """Execute every sketch in ``plan`` in ONE rolling-hash pass (one launch
+    for each group of up to eight sketches, :func:`sketch_groups`).
 
     h1v and h1v_b (B, S) uint32 (h1v_b only for a plan with a Bloom
     sketch), n_windows (B,) int32 (at most S-n+1), w_start (B,) int32 or
@@ -192,35 +203,38 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     _check(n_windows, "n_windows", torch.int32, (B,), dev)
     if w_start is not None:
         _check(w_start, "w_start", torch.int32, (B,), dev)
-    if len(plan.sketches) > _MAX_SKETCHES:
-        raise ValueError(f"the plan kernel takes at most {_MAX_SKETCHES} "
-                         f"sketches, got {len(plan.sketches)}")
 
-    desc = _PlanDesc(n_sketches=len(plan.sketches))
-    results = {}
-    for e, (name, spec) in enumerate(plan.sketches):
-        desc.sk[e], results[name] = _epilogue(name, spec,
-                                              operands.get(name, {}), plan,
-                                              B, dev, donate)
     fn = _bind(_build.load("sketch_plan"))
     xpow = None
     if hs.family == "general":
         pows = _ref._xpows_host(hs.n, hs.p, hs.L)
         xpow = (ctypes.c_uint * hs.n)(
             *[pows[hs.n - 1 - t] for t in range(hs.n)])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(h1v.data_ptr(), _ptr(h1v_b), B, S, n_windows.data_ptr(),
-                 _ptr(w_start), ctypes.byref(desc), _FAMILY_CODE[hs.family],
-                 hs.n, hs.L, hs.hash_mask, hs.p & ((1 << hs.L) - 1), xpow,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"sketch_plan launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    for kind in {type(spec).__name__ for _, spec in plan.sketches}:
-        EPILOGUE_LAUNCHES[kind] += 1
+    # every group's descriptors first: an operand a group rejects raises
+    # before any launch (and before any donated carry is folded into)
+    results, launches = {}, []
+    for group in sketch_groups(plan.sketches):
+        desc = _PlanDesc(n_sketches=len(group))
+        for e, (name, spec) in enumerate(group):
+            desc.sk[e], results[name] = _epilogue(
+                name, spec, operands.get(name, {}), plan, B, dev, donate)
+        # the second stream only where the group holds a Bloom sketch
+        xb = (h1v_b if any(isinstance(spec, BloomSpec) for _, spec in group)
+              else None)
+        launches.append((group, desc, xb))
+    for group, desc, xb in launches:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(h1v.data_ptr(), _ptr(xb), B, S, n_windows.data_ptr(),
+                     _ptr(w_start), ctypes.byref(desc),
+                     _FAMILY_CODE[hs.family], hs.n, hs.L, hs.hash_mask,
+                     hs.p & ((1 << hs.L) - 1), xpow, stream)
+        if err != 0:
+            raise RuntimeError(f"sketch_plan launch failed: CUDA error {err}")
+        LAUNCHES += 1
+        for kind in {type(spec).__name__ for _, spec in group}:
+            EPILOGUE_LAUNCHES[kind] += 1
     return results
-
 
 def cyclic_rolling_fused(tokens: torch.Tensor, table: torch.Tensor, *, n: int,
                          L: int = 32) -> torch.Tensor:
