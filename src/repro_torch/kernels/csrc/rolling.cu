@@ -34,8 +34,11 @@
 //   GENERAL  h' = x * h ^ (x^n mod p) * x_out ^ x_in        (Algorithm 3)
 //
 // which gives the direct form's bits. Every rotation is taken mod L, so
-// n > L gives the plain version's bits. kRun is odd, so the 32 threads of a
-// warp, reading shared memory kRun words apart, hit 32 distinct banks. The
+// n > L gives the plain version's bits. A row of more segments than a grid
+// dimension holds (65,535, some 285 M windows) runs as one launch for each
+// group of 65,535 segments, each told its first segment. kRun is odd, so
+// the 32 threads of a warp, reading shared memory kRun words apart, hit 32
+// distinct banks. The
 // hashes go back through shared memory and leave with coalesced stores;
 // the ragged tail of a row is masked.
 //
@@ -59,6 +62,7 @@ constexpr int kRun = 17;                     // windows a thread rolls over
 constexpr int kBlockWin = kThreads * kRun;   // windows a block covers
 constexpr int kMaxN = 32;                    // a fixed halo up to n = 32
 constexpr int kSigma = 256;                  // the byte path's alphabet
+constexpr long long kMaxSegs = 65535;        // segments a launch's grid.y holds
 
 struct RollParams {
   int n;
@@ -102,8 +106,8 @@ template <int kFamily>
 __global__ void __launch_bounds__(kThreads)
 rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
                    __restrict__ x,
-               int S, int W, uint32_t* __restrict__ out, RollParams rp,
-               const uint32_t* __restrict__ table) {
+               int S, int W, int seg0, uint32_t* __restrict__ out,
+               RollParams rp, const uint32_t* __restrict__ table) {
   constexpr bool kCyclic = kFamily != 1;
   __shared__ uint32_t hs[kBlockWin];
   // the symbols with their n-1 halo: a fixed array up to n = kMaxN, sized
@@ -114,7 +118,7 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
   uint32_t* xs = rp.n <= kMaxN ? xs_fixed : xs_wide;
 
   const int row = blockIdx.x;
-  const int w0 = blockIdx.y * kBlockWin;
+  const int w0 = (seg0 + static_cast<int>(blockIdx.y)) * kBlockWin;
   const int nwin = min(kBlockWin, W - w0);
   const int n = rp.n;
   const auto* xr = x + static_cast<size_t>(row) * S + w0;
@@ -168,7 +172,6 @@ int launch(int family, const void* x, int B, int S, int n, int L,
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = S - n + 1;
   const long long segs = (W + kBlockWin - 1LL) / kBlockWin;
-  if (segs > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   // above kMaxN the staged symbols with their n-1 halo take dynamic shared
   // memory; a kernel must opt in to it past 48 KiB with its static arrays,
@@ -185,7 +188,6 @@ int launch(int family, const void* x, int B, int S, int n, int L,
   const size_t fixed = (2 * kBlockWin + kMaxN - 1 + kSigma) * 4;
   if (smem + fixed > static_cast<size_t>(most))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, static_cast<unsigned int>(segs));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* xp = static_cast<const uint32_t*>(x);
   const uint32_t* tp = static_cast<const uint32_t*>(table);
@@ -195,8 +197,14 @@ int launch(int family, const void* x, int B, int S, int n, int L,
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
-    if (err == cudaSuccess)
-      kernel<<<grid, kThreads, smem, st>>>(xin, S, W, op, rp, tp);
+    // a launch for each group of kMaxSegs segments of every row
+    for (long long s0 = 0; err == cudaSuccess && s0 < segs; s0 += kMaxSegs) {
+      const dim3 grid(B, static_cast<unsigned int>(
+                             segs - s0 < kMaxSegs ? segs - s0 : kMaxSegs));
+      kernel<<<grid, kThreads, smem, st>>>(xin, S, W, static_cast<int>(s0),
+                                           op, rp, tp);
+      err = cudaGetLastError();
+    }
   };
   if (family == 0)
     go(rolling_kernel<0>, xp);
@@ -217,6 +225,10 @@ RollParams params(int n, int L) {
 }
 
 }  // namespace
+
+// Windows one block covers: a row of W windows has ceil(W / this)
+// segments (the size a check past the grid's 65,535 segments needs).
+extern "C" int rolling_block_windows() { return kBlockWin; }
 
 // Plain C interfaces, bound with ctypes. Device pointers: x (B, S) uint32,
 // out (B, S-n+1) uint32. Run on `stream` and do not synchronise. Return
