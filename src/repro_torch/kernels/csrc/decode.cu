@@ -24,7 +24,9 @@
 // Design: one warp per 32 consecutive candidates, so each packed word is
 // one __ballot_sync and the logits move with coalesced 128-byte loads and
 // stores. A block of 8 warps walks a contiguous span of one row's words;
-// the launcher sizes the spans so that about 8 blocks an SM are in flight.
+// the launcher sizes the spans so that about 8 blocks an SM are in flight,
+// and launches once for each group of 65,535 rows (the grid's y holds no
+// more).
 // A session's filter row that fits (up to 32 KiB, log2_m <= 18; the
 // serving default is 2 KiB) is staged in shared memory once per block, so
 // its random probes hit shared memory; a larger row (up to 2 MiB at
@@ -50,6 +52,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStageMaxWords = 8192;          // 32 KiB of shared memory
 constexpr int kBlocksWanted = 8 * 132;        // about 8 blocks an SM
+constexpr long long kMaxRows = 65535;         // rows a launch's grid.y holds
 constexpr uint32_t kStride = 0x9E3779B9u;     // ref.BLOOM_STRIDE
 constexpr float kNegLogit = -1e30f;           // float32(-1e30), ref.NEG_LOGIT
 
@@ -155,7 +158,7 @@ extern "C" int decode_masks(const void* logits, const void* prefix,
                             int canary_log2_m, int canary_k, void* out,
                             void* banned, void* canary_out, void* stream) {
   const bool has_canary = canary_log2_m != 0;
-  if (B < 0 || B > 65535 || V < 0 || L < 1 || L > 32 || log2_m < 5 ||
+  if (B < 0 || V < 0 || L < 1 || L > 32 || log2_m < 5 ||
       log2_m > 24 || k < 1 || k > 8 ||
       (has_canary && (canary_log2_m < 5 || canary_log2_m > 30 ||
                       canary_k < 1 || canary_k > 8 || canary == nullptr ||
@@ -174,28 +177,38 @@ extern "C" int decode_masks(const void* logits, const void* prefix,
                         : 0u;
   p.canary_k = canary_k;
   if (B == 0 || p.W == 0) return static_cast<int>(cudaGetLastError());
-  const int per_row = max(1, (kBlocksWanted + B - 1) / B);
-  p.span = max(kWarps, (p.W + per_row - 1) / per_row);
-  const dim3 grid((p.W + p.span - 1) / p.span, B);
   const bool stage = p.n_words <= kStageMaxWords;
   const size_t smem = stage ? sizeof(uint32_t) * p.n_words : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lg = static_cast<const float*>(logits);
-  const uint32_t* pf = static_cast<const uint32_t*>(prefix);
-  const int* rd = static_cast<const int*>(ready);
-  const uint32_t* bl = static_cast<const uint32_t*>(bloom);
   const uint32_t* hv = static_cast<const uint32_t*>(h1);
   const uint32_t* cb = static_cast<const uint32_t*>(canary);
-  float* o = static_cast<float*>(out);
-  uint32_t* bo = static_cast<uint32_t*>(banned);
-  uint32_t* co = static_cast<uint32_t*>(canary_out);
-  if (stage && has_canary)
-    launch<true, true>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co, p);
-  else if (stage)
-    launch<true, false>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co, p);
-  else if (has_canary)
-    launch<false, true>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co, p);
-  else
-    launch<false, false>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co, p);
+  // a launch for each group of at most 65,535 rows (the grid's y)
+  for (long long r0 = 0; r0 < B; r0 += kMaxRows) {
+    const int rows = static_cast<int>(B - r0 < kMaxRows ? B - r0 : kMaxRows);
+    const int per_row = max(1, (kBlocksWanted + rows - 1) / rows);
+    p.span = max(kWarps, (p.W + per_row - 1) / per_row);
+    const dim3 grid((p.W + p.span - 1) / p.span, rows);
+    const float* lg = static_cast<const float*>(logits) + r0 * V;
+    const uint32_t* pf = static_cast<const uint32_t*>(prefix) + r0;
+    const int* rd = static_cast<const int*>(ready) + r0;
+    const uint32_t* bl = static_cast<const uint32_t*>(bloom) + r0 * p.n_words;
+    float* o = static_cast<float*>(out) + r0 * V;
+    uint32_t* bo = static_cast<uint32_t*>(banned) + r0 * p.W;
+    uint32_t* co =
+        has_canary ? static_cast<uint32_t*>(canary_out) + r0 * p.W : nullptr;
+    if (stage && has_canary)
+      launch<true, true>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co, p);
+    else if (stage)
+      launch<true, false>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co,
+                          p);
+    else if (has_canary)
+      launch<false, true>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co,
+                          p);
+    else
+      launch<false, false>(grid, smem, st, lg, pf, rd, bl, hv, cb, o, bo, co,
+                           p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
