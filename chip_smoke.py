@@ -108,8 +108,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-# measurement only: the CountMin increments alone, built beside the kernels
+# measurement only, built beside the kernels: the CountMin increments alone,
+# and the decode plane's streams with no filter probe
 RED_FLOOR_SRC = ROOT / "tools" / "countmin_red_floor.cu"
+STREAM_FLOOR_SRC = ROOT / "tools" / "decode_stream_floor.cu"
+GRID_DIM = 65535            # blocks a grid's y or z dimension holds
 
 # H100 SXM: 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper white
 # paper; the same figures give the data sheet's 67 TFLOP/s float32 as
@@ -199,6 +202,18 @@ def in_turns(torch, kern, plain, k_iters=200, p_iters=10):
 
     return (settle(k1, k2, kern, k_iters), settle(p1, p2, plain, p_iters),
             kh, (k1, k2, p1, p2))
+
+
+def palindrome(torch, fns, iters=200):
+    """Device ms a call of each of ``fns``, timed in the order A B C C B A
+    with :func:`in_turns`'s rule for the two readings of each."""
+    first = [device_ms(torch, fn, iters)[0] for fn in fns]
+    second = [device_ms(torch, fn, iters)[0] for fn in reversed(fns)][::-1]
+    out = []
+    for fn, a, b in zip(fns, first, second):
+        out.append(min(a, b) if abs(a - b) <= 0.05 * max(a, b) else
+                   sorted((a, b, device_ms(torch, fn, iters)[0]))[1])
+    return out
 
 
 def hash_ops(hs) -> int:
@@ -466,6 +481,108 @@ def probes_needed(torch, ref, plan, x, xb, bits) -> float:
     return pair_probes(torch, ref.u32, ha, hb, bits, spec.k, spec.log2_m)
 
 
+def check_past_limits(torch, gen, err) -> float:
+    """The kernels past the limits they once had, each size taken from its
+    launcher's own rule and printed with the count it reached: a plan of
+    ten sketches (one launch a group of eight), one row of more rolling
+    segments than a grid dimension holds, and the decode kernel over more
+    rows than that. Raises ``err``'s maxima in place; returns the decode
+    check's max |logit difference|."""
+    from repro_torch.core import gf2
+    from repro_torch.kernels import _build, api, ops, sketch_fused
+    from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, DecodeSpec,
+                                          HashSpec, HLLSpec, MinHashSpec,
+                                          SketchPlan)
+    dev = torch.device("cuda")
+    for family in ("cyclic", "general"):
+        ten = SketchPlan(HashSpec(family=family, n=N, L=L), (
+            ("sig_a", MinHashSpec(k=K)), ("hll_a", HLLSpec(b=12)),
+            ("cms_a", CountMinSpec(depth=4, log2_width=16)),
+            ("bl_a", BloomSpec(k=4, log2_m=22)), ("sig_b", MinHashSpec(k=16)),
+            ("hll_b", HLLSpec(b=15)),
+            ("cms_b", CountMinSpec(depth=2, log2_width=12)),
+            ("bl_b", BloomSpec(k=2, log2_m=20)), ("sig_c", MinHashSpec(k=8)),
+            ("hll_c", HLLSpec(b=4))))
+        groups = len(sketch_fused.sketch_groups(ten.sketches))
+        before = sketch_fused.LAUNCHES
+        for B, S in ((64, 1024), (1024, 520)):
+            e = check_plan(torch, api, ten, gen, B, S)
+            for _, spec in ten.sketches:
+                err[type(spec).__name__] = max(err[type(spec).__name__], e)
+        launched = sketch_fused.LAUNCHES - before
+        if groups < 2 or launched != 2 * groups:
+            raise AssertionError(f"ten-sketch plan: {launched} launches for "
+                                 f"2 calls of {groups} groups")
+        print(f"check: {family} plan of {len(ten.sketches)} sketches (2 or 3 "
+              f"of each kind) in {groups} launches a call ({launched} for 2 "
+              f"calls): kernel == plain version on the card at (64, 1024) "
+              f"and (1024, 520)")
+
+    # one row of GRID_DIM + 1 segments of the launcher's own size
+    seg = _build.load("rolling").rolling_block_windows()
+    segs = GRID_DIM + 1
+    S = segs * seg + N - 1
+    first = (GRID_DIM - 5) * seg
+    cgen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randint(0, 1 << 32, (1, S), generator=cgen, device=dev,
+                      dtype=torch.int64).to(torch.uint32)
+    toks = (x.view(torch.int32) & 255).contiguous()
+    table = torch.randint(0, 1 << 32, (256,), generator=cgen, device=dev,
+                          dtype=torch.int64).to(torch.uint32)
+    p32 = gf2.find_irreducible_host(L)
+    calls = {"cyclic": lambda v, impl: ops.cyclic(v, n=N, L=L, impl=impl),
+             "general": lambda v, impl: ops.general(v, n=N, p=p32, L=L,
+                                                    impl=impl),
+             "cyclic_fused": lambda v, impl: ops.cyclic_fused(
+                 v, table, n=N, L=L, impl=impl)}
+    for what, call in calls.items():
+        src = toks if what == "cyclic_fused" else x
+        got = call(src, "kernel")
+        # the first segments and those from GRID_DIM - 5 on, each against
+        # the plain version of its slice with the n-1 halo
+        for lo, hi in ((0, 6 * seg), (first, segs * seg)):
+            want = call(src[:, lo : hi + N - 1].contiguous(), "ref")
+            d = (got[:, lo:hi].to(torch.int64) - want.to(torch.int64)).abs()
+            e = int(d.max())
+            err["cyclic" if what != "general" else "general"] = max(
+                err["cyclic" if what != "general" else "general"], e)
+            if not torch.equal(got[:, lo:hi], want):
+                raise AssertionError(f"{what}: kernel != plain over windows "
+                                     f"[{lo}, {hi}) of a row of {segs} "
+                                     f"segments, max |diff| {e}")
+        del got
+    print(f"check: one row of {S} symbols = {segs} segments of {seg} windows "
+          f"(the grid's y holds {GRID_DIM}): ops.cyclic, ops.general and "
+          f"ops.cyclic_fused == plain version on the card over the first 6 "
+          f"segments and those from segment {GRID_DIM - 5} on "
+          f"({segs * seg - first} windows)")
+    del x, toks
+
+    # the decode kernel over more rows than a grid dimension holds
+    B, V = GRID_DIM + 65, 96
+    spec = DecodeSpec(n=4, L=L, log2_m=14, k=2, canary_log2_m=20, canary_k=4)
+    word = lambda *shape: torch.randint(0, 1 << 32, shape, generator=cgen,
+                                        device=dev, dtype=torch.int64)
+    dense = lambda *shape: (word(*shape) | word(*shape)).to(torch.uint32)
+    args = (torch.randn((B, V), generator=cgen, device=dev),
+            word(B).to(torch.uint32),
+            torch.rand((B,), generator=cgen, device=dev) < 0.8,
+            dense(B, spec.n_words), word(V).to(torch.uint32))
+    cb = dense(spec.canary_words)
+    got = api.decode(spec, *args, canary_bits=cb, impl="kernel")
+    want = api.decode(spec, *args, canary_bits=cb, impl="ref")
+    torch.cuda.synchronize()
+    for key in want:
+        if not same_bits(torch, got[key], want[key]):
+            raise AssertionError(f"decode kernel != plain version: {key} at "
+                                 f"{B} rows, V={V}")
+    banned_far = int((want["banned"][GRID_DIM:] != 0).sum())
+    print(f"check: decode kernel == plain version on the card at {B} rows "
+          f"(more than {GRID_DIM}) x V={V}, log2_m=14, canary 2^20 (the rows "
+          f"past {GRID_DIM} hold {banned_far} nonzero banned words)")
+    return float((got["logits"] - want["logits"]).abs().max())
+
+
 # -- the decode plane and the serve path --------------------------------------
 
 SERVE_ARCH, SERVE_B, SERVE_P, SERVE_NEW, SERVE_N = "qwen1.5-0.5b", 16, 128, 64, 4
@@ -659,6 +776,46 @@ def repeated_completions(prompts, toks, n) -> int:
                 bad += 1
             seen.add(g)
     return bad
+
+
+def decode_split(torch, decode, spec, args, cbits, got, card):
+    """Split the decode kernel's time at one shape: the launch as the path
+    makes it, the same launch with the canary filter off, and the stream
+    floor (``tools/decode_stream_floor.cu``: every logit, h1 entry and
+    packed word moved, no probe at all), timed in turns; and the device
+    events of one call."""
+    from repro_torch.kernels import _build
+    lg, prefix, ready, _, h1 = args
+    B, V = lg.shape
+    floor = _build.load(str(STREAM_FLOOR_SRC)).decode_stream_floor
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    floor.argtypes = [vp, vp, vp, vp, i, i, ctypes.c_uint, vp, vp, vp, vp]
+    floor.restype = ctypes.c_int
+    rd = (ready != 0).to(torch.int32)
+    outs = [torch.empty_like(got[k]) for k in ("logits", "banned", "canary")]
+
+    def floor_launch():
+        e = floor(lg.data_ptr(), prefix.data_ptr(), rd.data_ptr(),
+                  h1.data_ptr(), B, V, spec.hash_mask,
+                  *[o.data_ptr() for o in outs],
+                  torch.cuda.current_stream().cuda_stream)
+        if e != 0:
+            raise RuntimeError(f"decode_stream_floor launch failed: {e}")
+
+    off = dataclasses.replace(spec, canary_log2_m=0)
+    kern = lambda: decode.decode_masks_fused(*args, spec=spec,
+                                             canary_bits=cbits)
+    t_k, t_off, t_fl = palindrome(torch, [
+        kern, lambda: decode.decode_masks_fused(*args, spec=off),
+        floor_launch])
+    _, _, rows = profiled(torch, kern, 20)
+    events = "; ".join(f"{k[:40]} x{c} {t / 1e3 / 20:.5f} ms" for t, k, c in
+                       rows)
+    print(f"kernel[decode split] ({B}, {V}): the launch {t_k:.5f} ms, canary "
+          f"off {t_off:.5f} ms, stream floor {t_fl:.5f} ms: streaming "
+          f"{t_fl:.5f}, session probes and the rest {t_off - t_fl:.5f}, "
+          f"canary probes {t_k - t_off:.5f} ms; the launch / floor "
+          f"{t_k / t_fl:.3f}; device events of one call: {events} [{card}]")
 
 
 def serve_phase(torch, card, reset_counts, read_counts, err_grid):
@@ -868,6 +1025,7 @@ def serve_phase(torch, card, reset_counts, read_counts, err_grid):
               f"({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} ms by {by} ({text}); "
               f"bound / time {b_ms / ms:.3f}; the host takes {kh:.5f} ms to "
               f"issue one launch [{card}]")
+        decode_split(torch, decode, spec, args, cbits, got, card)
         out[B] = (ms, plain_ms, b_ms, by)
     ms, plain_ms, b_ms, by = out[SERVE_B]
     entry = {"name": "decode_masks", "route": "cuda",
@@ -1163,8 +1321,10 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(_build.sources() + [str(RED_FLOOR_SRC)])
-    print(f"build: {_build.sources()} and {RED_FLOOR_SRC.name} with "
+    _build.build(_build.sources() + [str(RED_FLOOR_SRC),
+                                     str(STREAM_FLOOR_SRC)])
+    print(f"build: {_build.sources()}, {RED_FLOOR_SRC.name} and "
+          f"{STREAM_FLOOR_SRC.name} with "
           f"{_build.nvcc()} into "
           f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.BUILD_LOG.items():
@@ -1241,6 +1401,7 @@ def main() -> int:
         print(f"check: ops.{family} at (n, L) in {WIDE_NL}: kernel == plain "
               f"version on the card")
     err_decode = check_decode_grid(torch, api, DecodeSpec)
+    err_decode = max(err_decode, check_past_limits(torch, gen, err))
     print(f"checks: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. the dedup path ----------------------------------------------------
