@@ -6,8 +6,9 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
 
 1. prints the card's name and power limit;
 2. builds every kernel under ``src/repro_torch/kernels/csrc`` with nvcc,
-   and the measurement kernel ``tools/countmin_red_floor.cu``, one process
-   per source, all started together;
+   and the measurement kernels ``tools/countmin_red_floor.cu`` and
+   ``tools/decode_stream_floor.cu``, one process per source, all started
+   together;
 3. holds every kernel bit-exact against its plain PyTorch version on the
    card: the plan kernel (``api.run(impl="kernel")`` against
    ``impl="ref"``) for MinHash, HLL (b in {4, 12, 14} in shared memory,
@@ -18,11 +19,17 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    block), S in {7, 520, 1024, 8192} (B=64, S=1024 is the ``DataPlane``
    launch), random ``n_windows``, ``w_start`` and
    ``init``, plus the CYCLIC stats plan over one row of 65,600 x 1,024
-   windows (more segments than a grid dimension once took); ``ops.cyclic``
+   windows (more segments than a grid dimension once took) and a plan of
+   ten sketches, two or three of each kind, both families (one launch a
+   group of eight); ``ops.cyclic``
    / ``ops.general`` at n in {1, 8, 25, 32}, L in {16, 32}, among other
    shapes at (1024, 64), the heavy-hitter query's,
    and (1024, 8192), the Fig. 1 pair's, and at n > L, (n, L) in {(9, 8),
-   (20, 16), (33, 32)}; at the stats launch's shape (1024 x 519) the plan
+   (20, 16), (33, 32)}, and ``ops.cyclic``, ``ops.general`` and
+   ``ops.cyclic_fused`` over one row of 65,536 segments of the rolling
+   launcher's own size (``rolling_block_windows``), the windows of the
+   first 6 and of the last 6 segments against the plain version of their
+   slice; at the stats launch's shape (1024 x 519) the plan
    kernel again with warm and zeroed registers, its carry copied and
    donated (then its profile must hold no copy or fill);
 4. drives the dedup path (``MinHashDeduper.add_batch``) over a 100,000
@@ -49,7 +56,12 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    words — at B in {1, 16, 256} x V in {152064, 151936, 1000} x n in {2, 4,
    8, 33} x L in {32, 20} x log2_m in {14, 20, 24} (the session filter in
    shared memory, and in global memory) x canary off or at canary_log2_m
-   in {20, 24} x ready all set or mixed;
+   in {20, 24} x ready all set or mixed, and at 65,600 rows (more than a
+   grid dimension holds) x V = 96; in the serve phase, at (16, 152064) and
+   (256, 152064) with the pool's real state, the decode split: the launch,
+   the same launch with the canary filter off, and the stream floor
+   (``tools/decode_stream_floor.cu``, no probe at all, on the kernel's grid
+   and on the first version's grid);
 7. drives the serve path (``ServeEngine.generate``) on qwen1.5-0.5b at its
    published widths with random weights, 16 prompts of 128 tokens, 64 new
    tokens, ``no_repeat_ngram=4`` with the shared canary filter (2^20 bits,
@@ -77,7 +89,11 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    pairwise bits is within 0.1 of the exact distinct 5-gram count, and its
    registers equal the plain version's; (d) ``bloom_probe`` kernel == plain
    at (B, S) in {(1, 4299993), (1024, 4096), (3, 300)} x (k, log2_m) in
-   {(4, 22), (2, 14), (8, 18), (4, 24)}; (e) the decontamination scan: a
+   ``BLOOM_CASES``, which cover its three routes, each printed by
+   ``bloom.route``: the filter whole in each block's shared memory (log2_m
+   14, 18, 20), its first 224 KiB there and the rest through the read-only
+   cache (21, 22, 23), all through that cache (24, 26); (e) the
+   decontamination scan: a
    Bloom filter (2^22 bits, k=4) of the 8-grams of the first 500,000
    chars, from two CYCLIC n=8 draws with the Theorem-1 discard, probed at
    every window of the corpus: every window of that segment hits, the rest
@@ -782,22 +798,24 @@ def decode_split(torch, decode, spec, args, cbits, got, card):
     """Split the decode kernel's time at one shape: the launch as the path
     makes it, the same launch with the canary filter off, and the stream
     floor (``tools/decode_stream_floor.cu``: every logit, h1 entry and
-    packed word moved, no probe at all), timed in turns; and the device
-    events of one call."""
+    packed word moved, no probe at all, on the kernel's grid and on the
+    first version's), timed in turns; and the device events of one
+    call."""
     from repro_torch.kernels import _build
     lg, prefix, ready, _, h1 = args
     B, V = lg.shape
     floor = _build.load(str(STREAM_FLOOR_SRC)).decode_stream_floor
     vp, i = ctypes.c_void_p, ctypes.c_int
-    floor.argtypes = [vp, vp, vp, vp, i, i, ctypes.c_uint, vp, vp, vp, vp]
+    floor.argtypes = [vp, vp, vp, vp, i, i, ctypes.c_uint, vp, vp, vp, i,
+                      vp]
     floor.restype = ctypes.c_int
     rd = (ready != 0).to(torch.int32)
     outs = [torch.empty_like(got[k]) for k in ("logits", "banned", "canary")]
 
-    def floor_launch():
+    def floor_launch(grid):
         e = floor(lg.data_ptr(), prefix.data_ptr(), rd.data_ptr(),
                   h1.data_ptr(), B, V, spec.hash_mask,
-                  *[o.data_ptr() for o in outs],
+                  *[o.data_ptr() for o in outs], grid,
                   torch.cuda.current_stream().cuda_stream)
         if e != 0:
             raise RuntimeError(f"decode_stream_floor launch failed: {e}")
@@ -805,9 +823,9 @@ def decode_split(torch, decode, spec, args, cbits, got, card):
     off = dataclasses.replace(spec, canary_log2_m=0)
     kern = lambda: decode.decode_masks_fused(*args, spec=spec,
                                              canary_bits=cbits)
-    t_k, t_off, t_fl = palindrome(torch, [
+    t_k, t_off, t_fl, t_fl0 = palindrome(torch, [
         kern, lambda: decode.decode_masks_fused(*args, spec=off),
-        floor_launch])
+        lambda: floor_launch(1), lambda: floor_launch(0)])
     _, _, rows = profiled(torch, kern, 20)
     events = "; ".join(f"{k[:40]} x{c} {t / 1e3 / 20:.5f} ms" for t, k, c in
                        rows)
@@ -815,7 +833,8 @@ def decode_split(torch, decode, spec, args, cbits, got, card):
           f"off {t_off:.5f} ms, stream floor {t_fl:.5f} ms: streaming "
           f"{t_fl:.5f}, session probes and the rest {t_off - t_fl:.5f}, "
           f"canary probes {t_k - t_off:.5f} ms; the launch / floor "
-          f"{t_k / t_fl:.3f}; device events of one call: {events} [{card}]")
+          f"{t_k / t_fl:.3f}; the floor on the first version's grid "
+          f"{t_fl0:.5f} ms; device events of one call: {events} [{card}]")
 
 
 def serve_phase(torch, card, reset_counts, read_counts, err_grid):
@@ -1042,6 +1061,11 @@ def serve_phase(torch, card, reset_counts, read_counts, err_grid):
 BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
 COUNT_N, COUNT_B, COUNT_RANK = 5, 12, 16   # 28 pairwise bits = 12 + 16
 SCAN_N, SEG_CHARS = 8, 500_000             # decontam: 8-grams, eval segment
+# bloom_probe's (k, log2_m) checks: its filter whole in each block's shared
+# memory (14, 18, 20), its first 224 KiB there and the rest through the
+# read-only cache (21, 22, 23), all through the read-only cache (24, 26)
+BLOOM_CASES = ((2, 14), (8, 18), (4, 20), (4, 21), (4, 22), (4, 23),
+               (4, 24), (1, 26))
 
 
 def distinct_byte_grams(text: np.ndarray, n: int) -> int:
@@ -1141,11 +1165,14 @@ def bytes_phase(torch, card, reset_counts, read_counts):
           f"17) x "
           "rank_bits in (32-b, 32), with 0, 1, 2^b - 1 and 2^b planted")
 
-    # (d) bloom_probe against its plain version
+    # (d) bloom_probe against its plain version, on each of its routes
     err_d = 0
+    routes = {m: bloom.route(m) for _, m in BLOOM_CASES}
+    if set(routes.values()) != {0, 1, 2}:
+        raise AssertionError(f"gate (d): the cases miss a route: {routes}")
     for B, S in ((1, BYTES_CHARS - SCAN_N + 1), (1024, 4096), (3, 300)):
         ha, hb = rand_hashes((B, S)), rand_hashes((B, S))
-        for k, log2_m in ((4, 22), (2, 14), (8, 18), (4, 24)):
+        for k, log2_m in BLOOM_CASES:
             bits = rand_words(torch, cgen, (1 << (log2_m - 5),), dev)
             got = bloom.bloom_probe(ha, hb, bits, k=k, log2_m=log2_m)
             want = ref.bloom_probe_ref(ha, hb, bits, k=k, log2_m=log2_m)
@@ -1155,8 +1182,11 @@ def bytes_phase(torch, card, reset_counts, read_counts):
                                      f"at ({B}, {S}) k={k} log2_m={log2_m}")
     print(f"gate (d): bloom_probe == plain version on the card at (B, S) in "
           f"((1, {BYTES_CHARS - SCAN_N + 1}), (1024, 4096), (3, 300)) x (k, "
-          f"log2_m) in ((4, 22), (2, 14), (8, 18), (4, 24)); checks of the "
-          f"phase {time.perf_counter() - t0:.1f} s")
+          f"log2_m) in {BLOOM_CASES}; the route of each log2_m (1 whole in "
+          f"each block's shared memory, 2 its first 224 KiB there and the "
+          f"rest through the read-only cache, 0 all through that cache): "
+          f"{json.dumps(routes)}; checks of the phase "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- the main path: the §2 count and the decontamination scan --
     seg_w = SEG_CHARS - SCAN_N + 1

@@ -6,6 +6,12 @@ a packed filter of 2^log2_m bits -> (B, S) bool membership, true iff all k
 probes ``(h_a + i * (h_b | 1)) & (2^log2_m - 1)`` are set. The
 decontamination scan probes every window fingerprint of a stream this way.
 
+The kernel reads the filter from shared memory where a block can hold it:
+whole in each block up to 2^20 bits; up to 2^23 bits (the decontaminator's
+2^22 among them) its first 224 KiB in each block and the rest through the
+read-only cache; above that all of it through the read-only cache.
+:func:`route` says which.
+
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.bloom_probe_ref`. On a CUDA tensor it
 launches the kernel or raises; it never falls back.
@@ -21,6 +27,16 @@ from repro_torch.kernels import ref as _ref
 
 # kernel launches made by this wrapper; the smoke run resets and reads it
 LAUNCHES = 0
+
+
+def route(log2_m: int) -> int:
+    """Where ``csrc/bloom.cu`` reads a filter of 2^log2_m bits: 1 staged
+    whole in each block's shared memory, 2 its first 224 KiB staged there
+    and the rest through the read-only cache, 0 all through the read-only
+    cache. Loads (and on first use builds) the kernel's library."""
+    fn = _build.load("bloom").bloom_probe_route
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(log2_m)
 
 
 def bloom_probe(h_a: torch.Tensor, h_b: torch.Tensor, bits: torch.Tensor, *,

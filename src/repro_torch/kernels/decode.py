@@ -34,10 +34,16 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.decode_masks
     if fn.argtypes is None:
         vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, u, i, i, i, i, vp,
-                       vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, i, vp, vp, vp, i, i, i, u, i, i, i, i,
+                       vp, vp, vp, vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+# flag types the kernel reads as they are (nonzero = ready), by byte width;
+# any other type becomes int32 first
+_READY_BYTES = {torch.bool: 1, torch.int8: 1, torch.uint8: 1, torch.int16: 2,
+                torch.int32: 4, torch.int64: 8}
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
@@ -92,7 +98,8 @@ def decode_masks_fused(logits: torch.Tensor, prefix: torch.Tensor,
         _check(canary_bits, "canary_bits", u32, (spec.canary_words,), dev)
     elif canary_bits is not None:
         raise ValueError("canary_bits given but spec.canary_log2_m == 0")
-    rd = (ready != 0).to(torch.int32)
+    rd = (ready.contiguous() if ready.dtype in _READY_BYTES
+          else (ready != 0).to(torch.int32))
     W = -(-V // 32)
     out = torch.empty((B, V), dtype=torch.float32, device=dev)
     banned = torch.empty((B, W), dtype=u32, device=dev)
@@ -103,7 +110,8 @@ def decode_masks_fused(logits: torch.Tensor, prefix: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(logits.data_ptr(), prefix.data_ptr(), rd.data_ptr(),
-                 bloom.data_ptr(), h1.data_ptr(), ptr(canary_bits), B, V,
+                 _READY_BYTES[rd.dtype], bloom.data_ptr(), h1.data_ptr(),
+                 ptr(canary_bits), B, V,
                  spec.L, spec.hash_mask, spec.log2_m, spec.k,
                  spec.canary_log2_m, spec.canary_k, out.data_ptr(),
                  banned.data_ptr(), ptr(canary), stream)

@@ -9,10 +9,9 @@ both families, bit for bit; the decode plane's plain version at V in {1,
 word, three full words) against the reference's Pallas kernel in interpret
 mode.
 
-On the card (skipped without one; ``chip_smoke.py`` runs the same checks
-there): a plan of ten sketches, a rolling-hash row of more segments than a
-grid dimension holds, the decode kernel over more rows than that, and
-``bloom_probe`` through each of its three filter routes.
+The same limits on the card are checked in tests/test_torch_on_card.py
+(which imports no JAX, so it runs on a card's machine) and by
+``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,30 +20,20 @@ import torch
 
 from repro.kernels import api as japi
 from repro.kernels import plan as jplan
-from repro_torch.core import gf2
-from repro_torch.kernels import api, bloom, decode, ops, sketch_fused
+from repro_torch.kernels import api, decode, sketch_fused
 from repro_torch.kernels import plan as tplan
 
 # the suite runs test files side by side in worker processes: keep torch's
 # CPU work to one thread so it does not crowd the others
 torch.set_num_threads(1)
 
-GRID_DIM = 65535   # blocks a grid's y or z dimension holds
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels "
-                    "there)")
-    return torch.device("cuda")
-
 
 def _u32(rng, *shape):
     return rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
 
 
-# ten sketches, at least two of each kind
+# ten sketches, at least two of each kind (tests/test_torch_on_card.py
+# holds the same plan on the card)
 _TEN = [("sig_a", "minhash", {"k": 8}), ("hll_a", "hll", {"b": 6}),
         ("cms_a", "cms", {"depth": 3, "log2_width": 8}),
         ("bl_a", "bloom", {"k": 3, "log2_m": 12}),
@@ -158,102 +147,3 @@ def test_decode_plain_matches_pallas_at_narrow_vocab(V):
         tail = ~np.uint32((1 << (V % 32)) - 1)
         assert not (got["banned"].numpy()[:, -1] & tail).any()
         assert not (got["canary"].numpy()[:, -1] & tail).any()
-
-
-# ---------------------------------------------------------------------------
-# On the card
-# ---------------------------------------------------------------------------
-
-def test_plan_more_than_8_sketches_on_card(cuda):
-    for family in ("cyclic", "general"):
-        _, tp = _ten_plans(family)
-        rng = np.random.default_rng(19)
-        x, xb, nw, ws, ops_ = _ten_case(tp, rng, B=16, S=700)
-        kw = dict(h1v_b=xb, n_windows=nw, w_start=ws, operands=ops_,
-                  device=cuda)
-        before = sketch_fused.LAUNCHES
-        got = api.run(tp, x, impl="kernel", **kw)
-        assert sketch_fused.LAUNCHES == before + len(
-            sketch_fused.sketch_groups(tp.sketches)) == before + 2
-        want = api.run(tp, x, impl="ref", **kw)
-        for name in want:
-            assert torch.equal(got[name], want[name]), (family, name)
-
-
-def test_rolling_row_past_65535_segments_on_card(cuda):
-    """One row of more segments than a grid dimension holds, by the
-    launcher's own segment size; the windows from segment 65,530 on are
-    compared with the plain version of that slice with its n-1 halo (each
-    window depends on its own n symbols alone)."""
-    from repro_torch.kernels import _build
-    seg = _build.load("rolling").rolling_block_windows()
-    n, L = 8, 32
-    segs = GRID_DIM + 1
-    S = segs * seg + n - 1
-    first = (GRID_DIM - 5) * seg
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randint(0, 1 << 32, (1, S), generator=gen, device=cuda,
-                      dtype=torch.int64).to(torch.uint32)
-    p = gf2.find_irreducible_host(L)
-    for name, call in (("cyclic", lambda v, impl: ops.cyclic(
-                            v, n=n, L=L, impl=impl)),
-                       ("general", lambda v, impl: ops.general(
-                            v, n=n, p=p, L=L, impl=impl))):
-        got = call(x, "kernel")
-        assert got.shape == (1, segs * seg)
-        want = call(x[:, first:].contiguous(), "ref")
-        assert torch.equal(got[:, first:], want), name
-        del got
-    toks = (x.view(torch.int32) & 255).contiguous()
-    del x
-    table = torch.randint(0, 1 << 32, (256,), generator=gen, device=cuda,
-                          dtype=torch.int64).to(torch.uint32)
-    got = ops.cyclic_fused(toks, table, n=n, L=L, impl="kernel")
-    want = ops.cyclic_fused(toks[:, first:].contiguous(), table, n=n, L=L,
-                            impl="ref")
-    assert torch.equal(got[:, first:], want)
-
-
-def test_decode_rows_past_65535_on_card(cuda):
-    B, V = 65_600, 96
-    kw = dict(n=4, L=32, log2_m=10, k=2, canary_log2_m=12, canary_k=3)
-    spec = tplan.DecodeSpec(**kw)
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    word = lambda *shape: torch.randint(0, 1 << 32, shape, generator=gen,
-                                        device=cuda, dtype=torch.int64)
-    dense = lambda *shape: (word(*shape) | word(*shape)).to(torch.uint32)
-    args = (torch.randn((B, V), generator=gen, device=cuda),
-            word(B).to(torch.uint32),
-            torch.rand((B,), generator=gen, device=cuda) < 0.8,
-            dense(B, spec.n_words), word(V).to(torch.uint32))
-    cb = dense(spec.canary_words)
-    got = api.decode(spec, *args, canary_bits=cb, impl="kernel")
-    want = api.decode(spec, *args, canary_bits=cb, impl="ref")
-    assert bool(want["banned"][GRID_DIM:].any())       # the far rows ban
-    for key in want:
-        a, b = got[key], want[key]
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        assert torch.equal(a, b), key
-
-
-@pytest.mark.parametrize("log2_m,route", [(18, "local"), (22, "cluster"),
-                                          (26, "ldg")])
-def test_bloom_probe_routes_on_card(cuda, log2_m, route):
-    """bloom_probe with its filter in the block's shared memory, split over
-    a cluster's shared memory, and probed through the read-only cache."""
-    got_route = bloom.route(log2_m)
-    assert {"local": got_route == 1, "cluster": got_route > 1,
-            "ldg": got_route == 0}[route], got_route
-    gen = torch.Generator(device=cuda).manual_seed(log2_m)
-    word = lambda *shape: torch.randint(0, 1 << 32, shape, generator=gen,
-                                        device=cuda, dtype=torch.int64)
-    bits = (word(1 << (log2_m - 5)) | word(1 << (log2_m - 5))).to(
-        torch.uint32)
-    for B, S in ((3, 300), (2, 500_001)):
-        ha, hb = (word(B, S).to(torch.uint32) for _ in range(2))
-        for k in (1, 4, 8):
-            got = bloom.bloom_probe(ha, hb, bits, k=k, log2_m=log2_m)
-            want = bloom.bloom_probe(ha.cpu(), hb.cpu(), bits.cpu(), k=k,
-                                     log2_m=log2_m)
-            assert torch.equal(got.cpu(), want), (B, S, k)

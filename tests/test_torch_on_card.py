@@ -1,0 +1,178 @@
+"""The port's kernels on the card past the limits they once had, the
+decode kernel's ready flags of every type, and ``bloom_probe`` through each
+of its filter routes, each against its plain version on the same card.
+
+Every test takes the ``cuda`` fixture and skips without a card. The file
+imports no JAX, so it runs on a machine with a card and no JAX:
+``PYTHONPATH=src python -m pytest -q tests/test_torch_on_card.py``.
+tests/test_torch_card_limits.py holds the same plain paths against the JAX
+package on the CPU; ``chip_smoke.py`` makes the same checks at its sizes.
+"""
+import pytest
+import torch
+
+from repro_torch.core import gf2
+from repro_torch.kernels import api, bloom, ops, sketch_fused
+from repro_torch.kernels import plan as tplan
+
+# the suite runs test files side by side in worker processes: keep torch's
+# CPU work to one thread so it does not crowd the others
+torch.set_num_threads(1)
+
+GRID_DIM = 65535   # blocks a grid's y or z dimension holds
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py checks the kernels "
+                    "there)")
+    return torch.device("cuda")
+
+
+def _words(gen, dev, *shape, dense=False):
+    draw = lambda: torch.randint(0, 1 << 32, shape, generator=gen,
+                                 device=dev, dtype=torch.int64)
+    return (draw() | draw() if dense else draw()).to(torch.uint32)
+
+
+def test_plan_more_than_8_sketches_on_card(cuda):
+    """Ten sketches, two or three of each kind: one launch a group of
+    eight, every output equal to the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    B, S = 16, 700
+    for family in ("cyclic", "general"):
+        tp = tplan.SketchPlan(tplan.HashSpec(family=family, n=5, L=32), (
+            ("sig_a", tplan.MinHashSpec(k=8)), ("hll_a", tplan.HLLSpec(b=6)),
+            ("cms_a", tplan.CountMinSpec(depth=3, log2_width=8)),
+            ("bl_a", tplan.BloomSpec(k=3, log2_m=12)),
+            ("sig_b", tplan.MinHashSpec(k=5)),
+            ("hll_b", tplan.HLLSpec(b=15)),
+            ("cms_b", tplan.CountMinSpec(depth=2, log2_width=13)),
+            ("bl_b", tplan.BloomSpec(k=2, log2_m=22)),
+            ("sig_c", tplan.MinHashSpec(k=3)), ("hll_c", tplan.HLLSpec(b=4))))
+        ops_ = {}
+        for name, spec in tp.sketches:
+            if isinstance(spec, tplan.MinHashSpec):
+                ops_[name] = {"a": _words(gen, cuda, spec.k),
+                              "b": _words(gen, cuda, spec.k),
+                              "init": _words(gen, cuda, B, spec.k)}
+            elif isinstance(spec, tplan.HLLSpec):
+                ops_[name] = {"init": torch.randint(
+                    0, 3, (1 << spec.b,), generator=gen, device=cuda,
+                    dtype=torch.int32)}
+            elif isinstance(spec, tplan.CountMinSpec):
+                ops_[name] = {"a": _words(gen, cuda, spec.depth),
+                              "b": _words(gen, cuda, spec.depth)}
+            else:
+                ops_[name] = {"bits": _words(gen, cuda, spec.n_words,
+                                             dense=True)}
+        nw = torch.tensor([S - 4] * (B - 1) + [0], dtype=torch.int32,
+                          device=cuda)
+        ws = torch.randint(0, 6, (B,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        kw = dict(h1v_b=_words(gen, cuda, B, S), n_windows=nw, w_start=ws,
+                  operands=ops_)
+        x = _words(gen, cuda, B, S)
+        before = sketch_fused.LAUNCHES
+        got = api.run(tp, x, impl="kernel", **kw)
+        assert sketch_fused.LAUNCHES - before == len(
+            sketch_fused.sketch_groups(tp.sketches)) == 2
+        want = api.run(tp, x, impl="ref", **kw)
+        for name in want:
+            assert torch.equal(got[name], want[name]), (family, name)
+
+
+def test_rolling_row_past_65535_segments_on_card(cuda):
+    """One row of GRID_DIM + 1 segments of the launcher's own size; the
+    windows of the first 6 and the last 6 segments against the plain
+    version of their slice with its n-1 halo (a window depends on its own
+    n symbols alone)."""
+    from repro_torch.kernels import _build
+    seg = _build.load("rolling").rolling_block_windows()
+    n, L = 8, 32
+    segs = GRID_DIM + 1
+    S = segs * seg + n - 1
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _words(gen, cuda, 1, S)
+    toks = (x.view(torch.int32) & 255).contiguous()
+    table = _words(gen, cuda, 256)
+    p = gf2.find_irreducible_host(L)
+    calls = {"cyclic": (x, lambda v, impl: ops.cyclic(v, n=n, L=L,
+                                                      impl=impl)),
+             "general": (x, lambda v, impl: ops.general(v, n=n, p=p, L=L,
+                                                        impl=impl)),
+             "cyclic_fused": (toks, lambda v, impl: ops.cyclic_fused(
+                 v, table, n=n, L=L, impl=impl))}
+    for name, (src, call) in calls.items():
+        got = call(src, "kernel")
+        assert got.shape == (1, segs * seg)
+        for lo, hi in ((0, 6 * seg), ((GRID_DIM - 5) * seg, segs * seg)):
+            want = call(src[:, lo : hi + n - 1].contiguous(), "ref")
+            assert torch.equal(got[:, lo:hi], want), (name, lo)
+        del got
+
+
+def test_decode_rows_past_65535_on_card(cuda):
+    B, V = GRID_DIM + 65, 96
+    spec = tplan.DecodeSpec(n=4, L=32, log2_m=10, k=2, canary_log2_m=12,
+                            canary_k=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    args = (torch.randn((B, V), generator=gen, device=cuda),
+            _words(gen, cuda, B),
+            torch.rand((B,), generator=gen, device=cuda) < 0.8,
+            _words(gen, cuda, B, spec.n_words, dense=True),
+            _words(gen, cuda, V))
+    cb = _words(gen, cuda, spec.canary_words, dense=True)
+    got = api.decode(spec, *args, canary_bits=cb, impl="kernel")
+    want = api.decode(spec, *args, canary_bits=cb, impl="ref")
+    assert bool((want["banned"][GRID_DIM:] != 0).any())   # the far rows ban
+    for key in want:
+        a, b = got[key], want[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), key
+
+
+@pytest.mark.parametrize("ready_dtype", [torch.bool, torch.int32,
+                                         torch.int64, torch.float32])
+def test_decode_ready_flags_of_any_type_on_card(cuda, ready_dtype):
+    """The kernel reads bool and integer flags as they are and any other
+    type after a conversion; each gives the plain version's bits."""
+    spec = tplan.DecodeSpec(n=3, L=32, log2_m=14, k=2, canary_log2_m=20,
+                            canary_k=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, V = 16, 152064
+    on = torch.arange(B, device=cuda) % 3 != 1
+    ready = (on if ready_dtype == torch.bool else
+             torch.where(on, 2.0, -0.0) if ready_dtype == torch.float32 else
+             on.to(ready_dtype) * 2)             # -0.0 is not ready
+    args = (torch.randn((B, V), generator=gen, device=cuda),
+            _words(gen, cuda, B), ready,
+            _words(gen, cuda, B, spec.n_words, dense=True),
+            _words(gen, cuda, V))
+    cb = _words(gen, cuda, spec.canary_words, dense=True)
+    got = api.decode(spec, *args, canary_bits=cb, impl="kernel")
+    want = api.decode(spec, *args, canary_bits=cb, impl="ref")
+    for key in want:
+        a, b = got[key], want[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), key
+
+
+@pytest.mark.parametrize("log2_m,route", [(18, 1), (22, 2), (26, 0)])
+def test_bloom_probe_routes_on_card(cuda, log2_m, route):
+    """bloom_probe with its filter whole in each block's shared memory (1),
+    its first 224 KiB there and the rest through the read-only cache (2),
+    and all through the read-only cache (0)."""
+    assert bloom.route(log2_m) == route
+    gen = torch.Generator(device=cuda).manual_seed(log2_m)
+    bits = _words(gen, cuda, 1 << (log2_m - 5), dense=True)
+    for B, S in ((3, 300), (2, 500_001)):
+        ha, hb = _words(gen, cuda, B, S), _words(gen, cuda, B, S)
+        for k in (0, 1, 4, 8):
+            got = bloom.bloom_probe(ha, hb, bits, k=k, log2_m=log2_m)
+            want = bloom.bloom_probe(ha.cpu(), hb.cpu(), bits.cpu(), k=k,
+                                     log2_m=log2_m)
+            assert torch.equal(got.cpu(), want), (B, S, k)

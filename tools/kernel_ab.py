@@ -1,24 +1,37 @@
-"""Time this checkout's plan and CYCLIC kernels against another checkout's,
-in turns, in one process on one card.
+"""Time this checkout's kernels against another checkout's, in turns, in one
+process on one card.
 
   python3 tools/kernel_ab.py --base DIR
 
 DIR is the root of another checkout of the repository (for instance the
 parent commit unpacked with ``git archive`` into a directory that
-``.gitignore`` lists). Both versions of ``csrc/sketch_plan.cu`` and
-``csrc/rolling.cu`` are built with nvcc into ``build/ab/``, called through
-this checkout's wrappers (so the two C interfaces must agree: the wrappers
-load a kernel through ``_build``, whose table of loaded libraries this tool
-points at one build or the other), checked equal to the plain version, and
-timed with ``chip_smoke.py``'s own rule (:func:`chip_smoke.in_turns`: base,
-this, this, base, by torch.profiler device events) at the stats launch's
-shape (1024 rows of 512 windows, the stats instance's plans, warm
-registers) and at the Fig. 1 pair's (1024, 8192). A donated launch runs
-only on this checkout, timed in turns against the copied one. Each line
-names the card and its power limit.
+``.gitignore`` lists). Both versions of ``csrc/sketch_plan.cu``,
+``csrc/rolling.cu``, ``csrc/decode.cu`` and ``csrc/bloom.cu`` are built
+with nvcc into ``build/ab/``, called through this checkout's wrappers (the
+wrappers load a kernel through ``_build``, whose table of loaded libraries
+this tool points at one build or the other; so the two C interfaces must
+agree, except the decode kernel's, which the other checkout's own wrapper
+calls), checked equal to the plain version, and timed with
+``chip_smoke.py``'s own rule (:func:`chip_smoke.in_turns`: base, this,
+this, base, by torch.profiler device events, a call's every device event
+counted) at:
+
+- the stats launch's shape (1024 rows of 512 windows, the stats instance's
+  plans, warm registers); a donated launch runs only on this checkout,
+  timed in turns against the copied one;
+- the Fig. 1 pair's (1024, 8192), and the byte path's lookup kernel there;
+- the serve path's decode launch, (16, 152064) and (256, 152064): a pool
+  of 16 sessions (2^14-bit filters, k = 2, n = 4) primed with 128 random
+  prompt tokens and stepped 64 times, the 2^20-bit canary filter (k = 4)
+  of 1,000 random 4-grams, the rows repeated for 256;
+- the byte path's ``bloom_probe`` at (1, 4,299,993), k = 4, 2^22 bits, a
+  filter of 500,000 random pairs (fill about 0.38, as the path's).
+
+Each line names the card and its power limit.
 """
 import argparse
 import ctypes
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +42,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke  # noqa: E402  (one timing rule for both scripts)
 from repro_torch.kernels import _build  # noqa: E402
 
-SOURCES = ("sketch_plan", "rolling")
+SOURCES = ("sketch_plan", "rolling", "decode", "bloom")
 
 
 def build(root: Path, tag: str) -> dict:
@@ -48,6 +61,17 @@ def build(root: Path, tag: str) -> dict:
         if job.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tag} {name}.cu:\n{err}")
     return {name: ctypes.CDLL(str(out / f"lib{name}.so")) for name in SOURCES}
+
+
+def base_wrapper(root: Path, name: str):
+    """The other checkout's wrapper module ``kernels/<name>.py``, loaded
+    beside this checkout's under another name (its own imports resolve to
+    this checkout's package)."""
+    path = root / "src" / "repro_torch" / "kernels" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"base_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv=None):
@@ -138,11 +162,16 @@ def main(argv=None):
     btoks = torch.randint(0, 256, (1024, 8192), generator=gen, device=dev,
                           dtype=torch.int32)
     tab = u32(256)
-    from repro_torch.kernels import cyclic
+    from repro_torch.core import gf2
+    from repro_torch.kernels import cyclic, general
+    p32 = gf2.find_irreducible_host(32)
     rolls = {
         "cyclic_rolling (1024, 8192) n=8": (
             lambda: cyclic.cyclic_rolling(xr, n=8),
             lambda: ref.cyclic_ref(xr, 8)),
+        "general_rolling (1024, 8192) n=8": (
+            lambda: general.general_rolling(xr, n=8, p=p32),
+            lambda: ref.general_ref(xr, 8, p32, 32)),
         "cyclic_rolling_fused (1024, 8192) n=8": (
             lambda: sketch_fused.cyclic_rolling_fused(btoks, tab, n=8),
             lambda: ref.cyclic_fused_ref(btoks, tab, 8)),
@@ -155,6 +184,78 @@ def main(argv=None):
         this_ms, base_ms = ms(this, base)
         print(f"ab[{what}]: base {base_ms:.5f} ms, this {this_ms:.5f} ms "
               f"[{card}]")
+
+    # the serve path's decode launch, with a primed and stepped pool
+    from repro_torch.core import sketches
+    from repro_torch.core import u32 as u32m
+    from repro_torch.kernels import bloom, decode
+    from repro_torch.kernels.plan import DecodeSpec
+    from repro_torch.serve import sessions
+    spec = DecodeSpec(n=4, L=32, log2_m=14, k=2, canary_log2_m=20,
+                      canary_k=4)
+    V, vocab = 152064, 151936
+    h1 = u32(V)
+    rng = np.random.default_rng(11)
+    grams = torch.from_numpy(rng.integers(0, vocab, (1000, spec.n))).to(dev)
+    cbits = chip_smoke.canary_filter(torch, u32m, ref, sketches, spec, h1,
+                                     grams)
+    pool = sessions.SessionPool(spec, 16, h1, canary_bits=cbits, device=dev)
+    pool.admit(16)
+    pool.prime(rng.integers(0, vocab, (16, 128)))
+    for _ in range(64):
+        pool.step(torch.randn((16, V), generator=gen, device=dev),
+                  temperature=0.0)
+    st = pool.state
+    ready = (st["count"] >= spec.n - 1) & (st["active"] != 0)
+    rows16 = (torch.randn((16, V), generator=gen, device=dev), st["prefix"],
+              ready, st["bloom"])
+    base_decode = base_wrapper(args.base.resolve(), "decode")
+    for B in (16, 256):
+        rep = lambda t: (t.view(torch.int32) if t.dtype == torch.uint32
+                         else t).repeat((B // 16,) + (1,) * (t.dim() - 1))
+        cast = lambda t, like: (t.view(torch.uint32)
+                                if like.dtype == torch.uint32 else t)
+        a = tuple(cast(rep(t), t).contiguous() for t in rows16) + (pool.h1,)
+        plain = ref.decode_masks_ref(
+            *a, n=spec.n, L=spec.L, hash_mask=spec.hash_mask,
+            log2_m=spec.log2_m, k=spec.k, canary_bits=cbits,
+            canary_log2_m=spec.canary_log2_m, canary_k=spec.canary_k)
+        sides = {}
+        for tag, mod in (("base", base_decode), ("this", decode)):
+            kern = on(tag, "decode", lambda mod=mod: mod.decode_masks_fused(
+                *a, spec=spec, canary_bits=cbits))
+            got = kern()
+            for key in plain:
+                g, w = got[key], plain[key]
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{tag} decode ({B}, {V}): {key} "
+                                         f"!= plain")
+            sides[tag] = kern
+        this_ms, base_ms = ms(sides["this"], sides["base"])
+        print(f"ab[decode_masks ({B}, {V}) n=4 log2_m=14 k=2 canary 2^20 "
+              f"k=4, a stepped pool]: base {base_ms:.5f} ms, this "
+              f"{this_ms:.5f} ms [{card}]")
+
+    # the byte path's scan: bloom_probe at the path's shape and fill
+    from repro_torch.core import BloomFilter
+    N = 4_300_000 - 8 + 1
+    ha, hb = u32(1, N), u32(1, N)
+    bf = BloomFilter(log2_m=22, k=4)
+    bits = bf.add(bf.init(dev), u32(1, 500_000), u32(1, 500_000))
+    fill = float(bf.fill_fraction(bits))
+    want = ref.bloom_probe_ref(ha, hb, bits, k=4, log2_m=22)
+    sides = {}
+    for tag in ("base", "this"):
+        kern = on(tag, "bloom", lambda: bloom.bloom_probe(ha, hb, bits, k=4,
+                                                          log2_m=22))
+        if not torch.equal(kern(), want):
+            raise AssertionError(f"{tag} bloom_probe: kernel != plain")
+        sides[tag] = kern
+    this_ms, base_ms = ms(sides["this"], sides["base"])
+    print(f"ab[bloom_probe (1, {N}) k=4 log2_m=22, fill {fill:.4f}]: base "
+          f"{base_ms:.5f} ms, this {this_ms:.5f} ms [{card}]")
     return 0
 
 
