@@ -39,12 +39,16 @@
 // plain version.
 //
 // What the measurements said (H100 80GB HBM3, 700 W, chip_smoke.py and
-// tools/kernel_ab.py at the bytes path's shape): the first version's
-// 8.0 M random probes through L2 took most of its 0.058 ms; splitting the
-// 2^22-bit filter over a 4-block cluster's distributed shared memory
-// (map_shared_rank) was slower still, 0.081–0.098 ms: a remote 4-byte
-// read cost more than an L2 sector. So the filter's words go to shared
-// memory only where a block holds them itself.
+// tools/kernel_ab.py at the bytes path's shape; PERF.md section 6): the
+// first version's 8.0 M random probes through L2 took most of its 0.058
+// ms. Splitting the 2^22-bit filter over a 4-block cluster's distributed
+// shared memory (map_shared_rank) was slower still, 0.081–0.098 ms: a
+// remote 4-byte read cost more than an L2 sector. Four elements a thread
+// with the probes issued together, all through __ldg, measured the same
+// as the first version (0.0509 against 0.0510 ms): the probes are bound by
+// L2's request rate, not by latency. The staged prefix, which takes 44 % of
+// the requests off L2, is what moved it: 0.0455 ms, and 0.0504 against
+// 0.0586 on the path's own filter.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -79,11 +79,12 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-def sketch_groups(sketches, size: int = _MAX_SKETCHES) -> list:
+def sketch_groups(sketches) -> list:
     """A plan's ``(name, spec)`` sketches cut, in order, into consecutive
-    groups of at most ``size``: one plan launch each."""
+    groups of at most eight: one plan launch each."""
     sketches = tuple(sketches)
-    return [sketches[i : i + size] for i in range(0, len(sketches), size)]
+    return [sketches[i : i + _MAX_SKETCHES]
+            for i in range(0, len(sketches), _MAX_SKETCHES)]
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
@@ -156,8 +157,9 @@ def _epilogue(name: str, spec, ops: dict, plan: SketchPlan, B: int, dev,
 def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
                       operands, *, plan: SketchPlan, w_start=None,
                       donate: bool = False) -> dict:
-    """Execute every sketch in ``plan`` in ONE rolling-hash pass (one launch
-    for each group of up to eight sketches, :func:`sketch_groups`).
+    """Execute every sketch in ``plan``: one rolling-hash launch for each
+    group of up to eight sketches (:func:`sketch_groups`), so ONE for a
+    plan of eight or fewer.
 
     h1v and h1v_b (B, S) uint32 (h1v_b only for a plan with a Bloom
     sketch), n_windows (B,) int32 (at most S-n+1), w_start (B,) int32 or
