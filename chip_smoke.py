@@ -560,8 +560,8 @@ def check_past_limits(torch, gen, err) -> float:
             want = call(src[:, lo : hi + N - 1].contiguous(), "ref")
             d = (got[:, lo:hi].to(torch.int64) - want.to(torch.int64)).abs()
             e = int(d.max())
-            err["cyclic" if what != "general" else "general"] = max(
-                err["cyclic" if what != "general" else "general"], e)
+            fam = "general" if what == "general" else "cyclic"
+            err[fam] = max(err[fam], e)
             if not torch.equal(got[:, lo:hi], want):
                 raise AssertionError(f"{what}: kernel != plain over windows "
                                      f"[{lo}, {hi}) of a row of {segs} "

@@ -211,11 +211,12 @@ def main(argv=None):
               ready, st["bloom"])
     base_decode = base_wrapper(args.base.resolve(), "decode")
     for B in (16, 256):
-        rep = lambda t: (t.view(torch.int32) if t.dtype == torch.uint32
-                         else t).repeat((B // 16,) + (1,) * (t.dim() - 1))
-        cast = lambda t, like: (t.view(torch.uint32)
-                                if like.dtype == torch.uint32 else t)
-        a = tuple(cast(rep(t), t).contiguous() for t in rows16) + (pool.h1,)
+        def rep(t):     # B // 16 copies of the 16 rows (uint32 as int32)
+            u = t.dtype == torch.uint32
+            v = (t.view(torch.int32) if u else t).repeat(
+                (B // 16,) + (1,) * (t.dim() - 1))
+            return (v.view(torch.uint32) if u else v).contiguous()
+        a = tuple(rep(t) for t in rows16) + (pool.h1,)
         plain = ref.decode_masks_ref(
             *a, n=spec.n, L=spec.L, hash_mask=spec.hash_mask,
             log2_m=spec.log2_m, k=spec.k, canary_bits=cbits,
