@@ -34,40 +34,47 @@
 // canary probes (each ready candidate's first probe a random load through
 // the read-only cache into a 128 KiB filter), 0.0035 ms the session probes
 // and the rest, and 0.0070 ms the streams alone (a kernel with the same
-// grid and no probe, tools/decode_stream_floor.cu).
+// grid and no probe). Its grid of 1,056 short blocks (one word a warp an
+// iteration, nine iterations a warp) kept few bytes in flight behind each
+// dependent chain of loads.
 //
 // Design:
 //   - `ready` is read as the caller's bytes (1, 2, 4 or 8 a flag, nonzero
 //     = ready): no conversion kernel before the launch.
-//   - One warp per 32 consecutive candidates, so each packed word is one
-//     __ballot_sync and the logits move with coalesced 128-byte accesses.
-//     A block of 8 warps walks a span of one row's words (a whole number
-//     of words a warp); the launcher sizes the spans so that about 8
-//     blocks an SM are in flight, and the grid is one linear index of
-//     (row, span) tiles, so there is no limit on the rows.
-//   - Logits stream through with evict-first loads and stores (__ldcs,
-//     __stcs), so they do not push h1, which every row reads, and the
-//     canary filter's lines out of the caches.
+//   - The first version's blocks stay (8 warps, about 8 blocks an SM, each
+//     a span of one row's words), since many small blocks keep the SM busy
+//     while one of them stages its row's filter; the grid is one linear
+//     index of (row, span) tiles, so there is no limit on the rows. A span
+//     is whole steps of every warp.
+//   - A warp takes kWords = 4 consecutive words a step and loads all their
+//     logits and h1 entries before its first probe, then issues probe i of
+//     all its live candidates together, so a lane's random probes overlap
+//     (a probe loop still stops at its first unset bit).
 //   - A session's filter row up to 32 KiB (log2_m <= 18; the serving
 //     default is 2 KiB) is staged in shared memory once per block; a
 //     larger one (to 2^24 bits) is probed in place through __ldg. The
-//     shared canary filter (to 2^30 bits) is probed through __ldg. A probe
-//     loop stops at its first unset bit. A row that is not ready probes
-//     nothing: it copies its logits and writes zero words.
+//     shared canary filter (to 2^30 bits) is probed through __ldg.
+//   - A row that is not ready probes nothing: it copies its logits and
+//     writes zero words. Logits stream through with evict-first loads and
+//     stores; h1, which every row reads, stays cached.
 //
 // What the redesign measured (tools/kernel_ab.py and chip_smoke.py, H100
-// 80GB HBM3, 700 W; PERF.md section 6): a first try staged the 128 KiB
-// canary filter in shared memory in a resident grid of 1,024-thread
-// blocks, one an SM; it lost at (16, 152064) (0.0211 ms against 0.0195):
-// staging 17 MB from L2 a launch, and the whole SM draining at each
-// block-wide barrier, cost more than the canary probes' trips through the
-// caches. Four words a warp a step, with every load issued before the
-// first probe, measured the same as one word (within 0.3 % at both serve
-// shapes), so a warp takes one. Against the first version this one drops
-// the conversion kernels and streams the logits evict-first; at these
-// shapes its grid is the first version's, so those two changes are what
-// took (256, 152064) from 0.26–0.27 to 0.195 ms. The canary probes remain the
-// largest part above the stream.
+// 80GB HBM3, 700 W; PERF.md section 6):
+//   - a first try staged the 128 KiB canary filter in shared memory in a
+//     resident grid of 1,024-thread blocks, one an SM. It lost at (16,
+//     152064), 0.0211 ms against the parent's 0.0195: staging 17 MB from
+//     L2 a launch, and the whole SM draining at each block-wide barrier
+//     when a block's tiles moved to a new row, cost more than the canary
+//     probes' trips through the caches;
+//   - this design took (256, 152064) from 0.259 to 0.196 ms. With the
+//     same code at one word a step it measured the same; a plain loop of
+//     one word a step, with the same grid and the same evict-first
+//     streams, measured 0.245-0.249 ms in the same call. So the gain at
+//     B = 256 comes from a step's loads all issued before its probes and
+//     its stores after them, not from the number of words;
+//   - at (16, 152064) dropping the conversion kernels is most of the gain
+//     (0.0195 to 0.0187-0.0189 ms over three calls); the canary probes
+//     remain the largest part above the stream there.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,6 +83,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kWords = 4;                     // packed words a warp a step
 constexpr int kStageMaxWords = 8192;          // session rows up to 32 KiB
 constexpr int kBlocksWanted = 8 * 132;        // about 8 blocks an SM
 constexpr long long kMaxGrid = 0x7FFFFFFF;    // blocks a launch's grid.x holds
@@ -109,17 +117,34 @@ __device__ __forceinline__ bool is_ready(const void* ready, long long row,
   }
 }
 
-// all k probes of h set in the filter f (shared or global memory)
+// live[u] &= all k probes of h[u] set in the filter f (shared or global
+// memory). Probe i of every live candidate is loaded before any is tested.
 template <bool kLdg>
-__device__ __forceinline__ bool probes_set(const uint32_t* f, uint32_t h,
-                                           uint32_t mmask, int k) {
-  const uint32_t stride = (h * kStride) | 1u;
+__device__ __forceinline__ void probe(const uint32_t* f,
+                                      const uint32_t (&h)[kWords],
+                                      bool (&live)[kWords], uint32_t mmask,
+                                      int k) {
+  uint32_t stride[kWords];
+#pragma unroll
+  for (int u = 0; u < kWords; ++u) stride[u] = (h[u] * kStride) | 1u;
   for (int i = 0; i < k; ++i) {
-    const uint32_t p = (h + static_cast<uint32_t>(i) * stride) & mmask;
-    const uint32_t word = kLdg ? __ldg(f + (p >> 5)) : f[p >> 5];
-    if (!((word >> (p & 31u)) & 1u)) return false;
+    uint32_t word[kWords];
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      const uint32_t p = (h[u] + static_cast<uint32_t>(i) * stride[u]) &
+                         mmask;
+      word[u] = !live[u] ? 0u : kLdg ? __ldg(f + (p >> 5)) : f[p >> 5];
+    }
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      const uint32_t p = (h[u] + static_cast<uint32_t>(i) * stride[u]) &
+                         mmask;
+      live[u] = live[u] && ((word[u] >> (p & 31u)) & 1u);
+      any |= live[u];
+    }
+    if (!any) return;
   }
-  return true;
 }
 
 template <bool kStage, bool kCanary>
@@ -148,26 +173,44 @@ decode_kernel(const float* __restrict__ logits,
       p.L == 1 ? pf : (((pf << 1) | (pf >> (p.L - 1))) & p.lmask);
   const size_t rbase = static_cast<size_t>(row) * p.V;
   const size_t wbase = static_cast<size_t>(row) * p.W;
-  for (int w = w0 + warp; w < w1; w += kWarps) {   // uniform over the warp
-    const int v = w * 32 + lane;
-    const bool col = v < p.V;
-    bool ban = false, hit = false;
-    if (col) {
-      const float x = __ldcs(logits + rbase + v);
-      if (rdy) {
-        const uint32_t h = (rot ^ __ldg(h1 + v)) & p.hash_mask;
-        ban = kStage ? probes_set<false>(sfilt, h, p.m_mask, p.k)
-                     : probes_set<true>(filt, h, p.m_mask, p.k);
-        if (kCanary) hit = probes_set<true>(canary, h, p.c_mask, p.canary_k);
-      }
-      __stcs(out + rbase + v, ban ? kNegLogit : x);
+  // a warp takes kWords consecutive words a step (warp-uniform bounds)
+  for (int w = w0 + warp * kWords; w < w1; w += kWarps * kWords) {
+    float x[kWords];
+    uint32_t h[kWords];
+    bool col[kWords], ban[kWords], hit[kWords];
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {       // every load before any probe
+      const int v = (w + u) * 32 + lane;
+      col[u] = w + u < w1 && v < p.V;
+      x[u] = col[u] ? __ldcs(logits + rbase + v) : 0.f;
+      h[u] = col[u] && rdy ? __ldg(h1 + v) : 0u;
     }
-    const uint32_t bw = __ballot_sync(0xffffffffu, ban);
-    if (kCanary) {
-      const uint32_t cw = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) canary_out[wbase + w] = cw;
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      h[u] = (rot ^ h[u]) & p.hash_mask;
+      ban[u] = hit[u] = col[u] && rdy;
     }
-    if (lane == 0) banned_out[wbase + w] = bw;
+    if (rdy) {
+      if (kStage)
+        probe<false>(sfilt, h, ban, p.m_mask, p.k);
+      else
+        probe<true>(filt, h, ban, p.m_mask, p.k);
+      if (kCanary) probe<true>(canary, h, hit, p.c_mask, p.canary_k);
+    }
+    uint32_t bw = 0, cw = 0;
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      const int v = (w + u) * 32 + lane;
+      if (col[u]) __stcs(out + rbase + v, ban[u] ? kNegLogit : x[u]);
+      const uint32_t b = __ballot_sync(0xffffffffu, ban[u]);
+      const uint32_t c = kCanary ? __ballot_sync(0xffffffffu, hit[u]) : 0u;
+      if (lane == u) bw = b, cw = c;
+    }
+    // lanes 0..kWords-1 write the step's words (contiguous)
+    if (lane < kWords && w + lane < w1) {
+      banned_out[wbase + w + lane] = bw;
+      if (kCanary) canary_out[wbase + w + lane] = cw;
+    }
   }
 }
 
@@ -230,11 +273,11 @@ extern "C" int decode_masks(const void* logits, const void* prefix,
   p.canary_k = canary_k;
   p.ready_bytes = ready_bytes;
   if (B == 0 || p.W == 0) return static_cast<int>(cudaGetLastError());
-  // about kBlocksWanted blocks in all; a span is a word for every warp,
-  // or a whole multiple of that
+  // about kBlocksWanted blocks in all; a span is whole steps of every warp
   const int per_row = max(1, (kBlocksWanted + B - 1) / B);
+  const int step = kWarps * kWords;
   p.span = (p.W + per_row - 1) / per_row;
-  p.span = (p.span + kWarps - 1) / kWarps * kWarps;
+  p.span = (p.span + step - 1) / step * step;
   p.spans = (p.W + p.span - 1) / p.span;
   const long long tiles = static_cast<long long>(B) * p.spans;
   const bool stage = p.n_words <= kStageMaxWords;
