@@ -62,19 +62,18 @@
 // 80GB HBM3, 700 W; PERF.md section 6):
 //   - a first try staged the 128 KiB canary filter in shared memory in a
 //     resident grid of 1,024-thread blocks, one an SM. It lost at (16,
-//     152064), 0.0211 ms against the parent's 0.0195: staging 17 MB from
-//     L2 a launch, and the whole SM draining at each block-wide barrier
-//     when a block's tiles moved to a new row, cost more than the canary
-//     probes' trips through the caches;
-//   - this design took (256, 152064) from 0.259 to 0.196 ms. With the
-//     same code at one word a step it measured the same; a plain loop of
-//     one word a step, with the same grid and the same evict-first
-//     streams, measured 0.245-0.249 ms in the same call. So the gain at
-//     B = 256 comes from a step's loads all issued before its probes and
-//     its stores after them, not from the number of words;
-//   - at (16, 152064) dropping the conversion kernels is most of the gain
-//     (0.0195 to 0.0187-0.0189 ms over three calls); the canary probes
-//     remain the largest part above the stream there.
+//     152064), 0.0211 ms against the parent's 0.0195. The likely costs,
+//     not split: staging 17 MB from L2 a launch, and the whole SM
+//     draining at each block-wide barrier when a block's tiles moved to a
+//     new row;
+//   - this design, swept in one call at (16, 152064) and (256, 152064):
+//     four words a warp a step 0.0187 and 0.195 ms, two words 0.0190 and
+//     0.226, one word 0.0198 and 0.273, the first version 0.0195 and
+//     0.259. So at B = 256 the gain is the loads a warp keeps in flight
+//     (a step's logits and h1 entries all issued before its first probe);
+//     a plain loop of one word a step measured 0.245-0.249 ms again later.
+//     At B = 16 the four-word kernel gains 4 % and the canary probes
+//     remain the largest part above the stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
