@@ -6,9 +6,9 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
 
 1. prints the card's name and power limit;
 2. builds every kernel under ``src/repro_torch/kernels/csrc`` with nvcc,
-   and the measurement kernels ``tools/countmin_red_floor.cu`` and
-   ``tools/decode_stream_floor.cu``, one process per source, all started
-   together;
+   and the measurement kernels ``tools/countmin_red_floor.cu``,
+   ``tools/decode_stream_floor.cu`` and ``tools/hll_split.cu``, one process
+   per source, all started together;
 3. holds every kernel bit-exact against its plain PyTorch version on the
    card: the plan kernel (``api.run(impl="kernel")`` against
    ``impl="ref"``) for MinHash, HLL (b in {4, 12, 14} in shared memory,
@@ -25,7 +25,12 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    / ``ops.general`` at n in {1, 8, 25, 32}, L in {16, 32}, among other
    shapes at (1024, 64), the heavy-hitter query's,
    and (1024, 8192), the Fig. 1 pair's, and at n > L, (n, L) in {(9, 8),
-   (20, 16), (33, 32)}, and ``ops.cyclic``, ``ops.general`` and
+   (20, 16), (33, 32)}; ``ops.general`` on each of its product routes,
+   each printed by ``general.route`` (the fold and the chunk tables, every
+   count of terms and tables the kernel has), at (1024, 8192) and (3, 300):
+   n in {1, 8, 25, 26, 32, 33, 40} at L = 32 with find_irreducible_host's
+   p and with a dense one (weight 9, also n in {12, 20}), and L in {19,
+   20}; and ``ops.cyclic``, ``ops.general`` and
    ``ops.cyclic_fused`` over one row of 65,536 segments of the rolling
    launcher's own size (``rolling_block_windows``), the windows of the
    first 6 and of the last 6 segments against the plain version of their
@@ -82,9 +87,11 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    (n, L) in {(9, 8), (20, 16), (33, 32)} (n > L), at
    (1024, 8192) random bytes (where it also equals ``ops.cyclic`` of the
    looked-up values), at (3, 300) and on a row holding tokens -300, -1, 256
-   and 300; (b) ``hll_update`` kernel == plain at N in {1, 300, 5000,
-   4299996} x b in {2, 4, 10, 12, 16, 17} x rank_bits in {32-b, 32}, with 0 and
-   values below 2^b among the inputs; (c) the §2 count: the HLL (b=12,
+   and 300; (b) ``hll_update`` kernel == plain at N in {1, 7, 300, 5000,
+   16385 (just past a cluster's first sweep), 4299996} x b in {1, 2, 4, 10,
+   12, 14, 15, 16, 17, 23, 31} (clusters up to 14, the global registers
+   above) x rank_bits in {32-b, 32}, with 0 and values below 2^b among the
+   inputs, printing the blocks it launches; (c) the §2 count: the HLL (b=12,
    rank_bits=16) of the corpus's CYCLIC n=5 hashes kept to their 28
    pairwise bits is within 0.1 of the exact distinct 5-gram count, and its
    registers equal the plain version's; (d) ``bloom_probe`` kernel == plain
@@ -100,8 +107,11 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    hit below 2 x fill^4; (f) the three wrappers' launch counts rise on the
    path;
 9. times every path end to end with the card's idle share, every kernel per
-   launch at its main path's shape beside its plain version, and reckons
-   each kernel's bound; the plan kernel's stats launches with the carry
+   launch at its main path's shape beside its plain version (the Fig. 1
+   pair also at n = 25), and reckons each kernel's bound; the HLL call's
+   split (the call with its spread over 200 calls, the zero fill alone,
+   ``tools/hll_split.cu``'s kernel without its flush on the first design's
+   grid and on the clusters', and its stream floor); the plan kernel's stats launches with the carry
    copied in and donated (the ``kernels`` line holds the donated times of
    HLL and CountMin, named so), and ``countmin_red_floor``, CountMin's
    increments issued alone; for the serve path also tokens/s and the split
@@ -128,6 +138,8 @@ SRC = ROOT / "src"
 # and the decode plane's streams with no filter probe
 RED_FLOOR_SRC = ROOT / "tools" / "countmin_red_floor.cu"
 STREAM_FLOOR_SRC = ROOT / "tools" / "decode_stream_floor.cu"
+# and the HLL update's stream, raises and merge without its flush
+HLL_SPLIT_SRC = ROOT / "tools" / "hll_split.cu"
 GRID_DIM = 65535            # blocks a grid's y or z dimension holds
 
 # H100 SXM: 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper white
@@ -149,6 +161,7 @@ DECON_ROWS, SEQ = 512, 1024  # decontam batch
 EVAL_DOCS, PLANTED = 500, 8  # eval set; planted rows per decontam batch
 PREFIX_COLS = 2048          # HLL accuracy prefix: 1024 rows x 2048 tokens
 WIDE_NL = ((9, 8), (20, 16), (33, 32))   # window ops at n > L
+ROUTE_NS = (1, 8, 25, 26, 32, 33, 40)   # GENERAL's routes at L = 32
 
 
 def card_line() -> str:
@@ -232,23 +245,34 @@ def palindrome(torch, fns, iters=200):
     return out
 
 
-def hash_ops(hs) -> int:
-    """Fewest ALU-pipe instructions for one window hash in its rolling form,
-    one step per window: CYCLIC h' = rotl(h, 1) ^ rotl(out, n) ^ in is two
-    rotations (one funnel shift each at L = 32; two shifts below it, with
-    the OR and the mask folded into the XORs) and the XORs (one three-input
-    LOP3 at L = 32, two below); GENERAL h' = x*h ^ c*out ^ in with c = x^n
-    mod p is one shift-reduce step for x*h and one per further bit of c
-    (shift, sign spread, LOP3 at L = 32; two more below), one XOR per set
-    bit of c and one LOP3 to join the three."""
-    from repro_torch.core.gf2 import x_pow_mod_host
+def hash_ops(hs) -> tuple:
+    """Fewest instructions for one window hash in its rolling form, one
+    step per window, as (ALU-pipe, shared-load) counts. CYCLIC h' = rotl(h,
+    1) ^ rotl(out, n) ^ in is two rotations (one funnel shift each at L =
+    32; two shifts below it, with the OR and the mask folded into the XORs)
+    and the XORs (one three-input LOP3 at L = 32, two below). GENERAL h' =
+    x*h ^ c*out ^ in with c = x^n mod p is one shift-reduce step for x*h
+    (shift, sign spread, LOP3 at L = 32; two more below) and the product
+    by the cheapest form the port knows for (n, p, L), ``general.route``'s:
+    the fold (t = out >> (L - n), out << n and a shift for each set bit of
+    p_low but bit 0) or the tables (out << n for n < L, then a shift, an AND
+    and a shared load for each byte chunk); then the LOP3s that join the
+    terms, three at a time, with the mask of out << n below L = 32."""
+    from repro_torch.kernels import general
     full = hs.L == 32
     if hs.family == "cyclic":
         rots = sum(1 for r in (1 % hs.L, hs.n % hs.L) if r)
-        return rots * (1 if full else 2) + (1 if full else 2)
-    c = x_pow_mod_host(hs.n, hs.p, hs.L)
-    step = 3 if full else 5
-    return step * c.bit_length() + bin(c).count("1") + 1
+        return rots * (1 if full else 2) + (1 if full else 2), 0
+    r = general.route(hs.n, hs.p, hs.L)
+    low = 1 if hs.n < hs.L else 0          # out << n
+    if r.route == general.FOLD:
+        alu = 1 + low + sum(1 for j in r.shifts if j)
+        terms, lds = r.ways, 0
+    else:
+        alu, terms, lds = low + 2 * r.ways, r.ways, r.ways
+    # join x*h, out << n, the terms and x_in
+    joins = -(-(1 + low + terms) // 2)
+    return (3 if full else 5) + alu + joins + (0 if full else low), lds
 
 
 def window_ops(plan, probes: float = 0.0) -> tuple:
@@ -270,7 +294,8 @@ def window_ops(plan, probes: float = 0.0) -> tuple:
                                           MinHashSpec)
     hs = plan.hash
     streams = 2 if plan.needs_second_stream else 1
-    alu, fma, lsu = streams * (hash_ops(hs) + 1), 0, 0.0
+    alu, lds = hash_ops(hs)
+    alu, fma, lsu = streams * (alu + 1), 0, float(streams * lds)
     for _, spec in plan.sketches:
         if isinstance(spec, MinHashSpec):
             alu, fma = alu + spec.k, fma + spec.k
@@ -306,6 +331,76 @@ def roofline(items: int, nbytes: int, alu: float, fma: float, lsu: float,
 def bound(plan, windows: int, nbytes: int, probes: float = 0.0):
     """The plan kernel's roofline over ``windows`` valid windows."""
     return roofline(windows, nbytes, *window_ops(plan, probes))
+
+
+def launch_times(torch, fn, iters: int = 200) -> list:
+    """Run ``fn`` ``iters`` times under torch.profiler after a warm-up and
+    return every device event, in the order the card ran them, as (name,
+    us); a trace with no device event is taken again, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name,
+                         e.time_range.elapsed_us()) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        if events:
+            return [(name, us) for _, name, us in events]
+    raise RuntimeError("torch.profiler saw no device time in 3 traces")
+
+
+def spread(values) -> str:
+    """min / median / max of ``values`` (us) as ms."""
+    v = sorted(values)
+    return (f"{v[0] / 1e3:.5f} / {v[len(v) // 2] / 1e3:.5f} / "
+            f"{v[-1] / 1e3:.5f}")
+
+
+def hll_split(torch, hll, h, b, rank_bits, b_ms, card, iters=200) -> None:
+    """The HLL call at the byte path's shape, split: the whole call (every
+    device event) and its launches' spread; the wrapper's zero fill alone;
+    ``tools/hll_split.cu``'s variants on the kernel's grid: one register
+    file a block with no flush, the cluster merge with no flush, and the
+    stream floor (loads and ranks only)."""
+    from repro_torch.kernels import _build
+    fn = _build.load(str(HLL_SPLIT_SRC)).hll_split
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [vp, ctypes.c_longlong, i, i, vp, i, vp], i
+    h = h.reshape(-1).contiguous()
+    regs = torch.zeros((1 << b,), dtype=torch.int32, device=h.device)
+
+    def variant(mode):
+        def run():
+            err = fn(h.data_ptr(), h.numel(), b, rank_bits, regs.data_ptr(),
+                     mode, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"hll_split mode {mode}: CUDA error {err}")
+        return run
+
+    call = lambda: hll.hll_update(h, b=b, rank_bits=rank_bits)
+    fill = lambda: torch.zeros((1 << b,), dtype=torch.int32, device=h.device)
+    call_ms, fill_ms, noflush1, noflush2, floor = palindrome(
+        torch, [call, fill, variant(1), variant(2), variant(0)], iters)
+    events = launch_times(torch, call, iters)
+    kern = [us for name, us in events if "hll" in name]
+    # a call is its fill and the kernel after it (a trace can lose events)
+    per_call = [us + events[j - 1][1] for j, (name, us) in enumerate(events)
+                if "hll" in name and j and "hll" not in events[j - 1][0]]
+    print(f"kernel[hll split] N={h.numel()} b={b} rank_bits={rank_bits}, "
+          f"{hll.blocks(h.numel(), b)} blocks: the call {call_ms:.5f} ms "
+          f"(min / median / max over {len(per_call)} whole calls of "
+          f"{iters}: {spread(per_call)}; {len(events)} device events), the "
+          f"kernel's own event {spread(kern)}; the zero fill alone "
+          f"{fill_ms:.5f}; without the "
+          f"flush, one file a block {noflush1:.5f}, the cluster merge "
+          f"{noflush2:.5f}; the stream floor (loads and ranks) {floor:.5f}; "
+          f"bound {b_ms:.5f} [{card}]")
 
 
 def device_busy(torch, fn, card: str, what: str) -> float:
@@ -391,22 +486,35 @@ def check_plan(torch, api, plan, gen, B, S, full=False) -> int:
     return err
 
 
-def check_rolling(torch, ops, family, n, Lw, B, S, gen) -> int:
-    """ops.cyclic / ops.general kernel against plain on the card."""
+def dense_irreducible(gf2, L: int, weight: int = 9) -> int:
+    """The irreducible p of degree L and ``weight`` set bits (its top bit
+    among them) with the smallest low part: a modulus the GENERAL fold
+    does not take at any n."""
+    for low in range(1, 1 << L, 2):
+        if bin(low).count("1") == weight - 1 and \
+                gf2.is_irreducible_host((1 << L) | low):
+            return (1 << L) | low
+    raise ValueError(f"no irreducible p of degree {L} and weight {weight}")
+
+
+def check_rolling(torch, ops, family, n, Lw, B, S, gen, p=None) -> int:
+    """ops.cyclic / ops.general kernel against plain on the card (GENERAL
+    mod ``p``, by default find_irreducible_host's)."""
     from repro_torch.core import gf2
     x = rand_u32(torch, gen, (B, S), torch.device("cuda"))
     if family == "cyclic":
         got = ops.cyclic(x, n=n, L=Lw, impl="kernel")
         want = ops.cyclic(x, n=n, L=Lw, impl="ref")
     else:
-        p = gf2.find_irreducible_host(Lw)
+        p = p or gf2.find_irreducible_host(Lw)
         got = ops.general(x, n=n, p=p, L=Lw, impl="kernel")
         want = ops.general(x, n=n, p=p, L=Lw, impl="ref")
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"{family}_rolling != plain version: n={n} "
-                             f"L={Lw} B={B} S={S}, max |diff| {err}")
+                             f"L={Lw} B={B} S={S} p={p and hex(p)}, max "
+                             f"|diff| {err}")
     return err
 
 
@@ -1141,11 +1249,16 @@ def bytes_phase(torch, card, reset_counts, read_counts):
           f"looked-up values too), (3, 300), and a row with tokens -300, -1, "
           f"256, 300")
 
-    # (b) hll_update against its plain version
+    # (b) hll_update against its plain version: shared registers on
+    # clusters of 8 blocks up to b = 14, global ones above; N from one hash
+    # (one cluster, 7 blocks without one) to the corpus, and just past a
+    # cluster's first sweep (8 blocks x 512 threads x 4 loads)
     err_b = 0
-    for N in (1, 300, 5000, BYTES_CHARS - COUNT_N + 1):
+    hll_ns = (1, 7, 300, 5000, 8 * 2048 + 1, BYTES_CHARS - COUNT_N + 1)
+    hll_bs = (1, 2, 4, 10, 12, 14, 15, 16, 17, 23, 31)
+    for N in hll_ns:
         h = rand_hashes((N,))
-        for b in (2, 4, 10, 12, 16, 17):
+        for b in hll_bs:
             planted = torch.tensor([0, 1, (1 << b) - 1, 1 << b],
                                    dtype=torch.int64)[:N]
             hv = h.view(torch.int32).clone()
@@ -1155,15 +1268,18 @@ def bytes_phase(torch, card, reset_counts, read_counts):
                 got = hll.hll_update(hv, b=b, rank_bits=rb)
                 want = ref.hll_update_ref(hv, b=b, rank_bits=rb)
                 torch.cuda.synchronize()
-                err_b = max(err_b, int((got - want).abs().max()))
                 if not torch.equal(got, want):
+                    err_b = int((got - want).abs().max())
                     raise AssertionError(f"gate (b): hll_update != plain "
                                          f"version at N={N} b={b} "
-                                         f"rank_bits={rb}")
-    print("gate (b): hll_update == plain version on the card at N in (1, "
-          f"300, 5000, {BYTES_CHARS - COUNT_N + 1}) x b in (2, 4, 10, 12, 16, "
-          f"17) x "
-          "rank_bits in (32-b, 32), with 0, 1, 2^b - 1 and 2^b planted")
+                                         f"rank_bits={rb}, max |diff| "
+                                         f"{err_b}")
+                del got, want
+    grids = {N: hll.blocks(N, COUNT_B) for N in hll_ns}
+    print(f"gate (b): hll_update == plain version on the card at N in "
+          f"{hll_ns} x b in {hll_bs} x rank_bits in (32-b, 32), with 0, 1, "
+          f"2^b - 1 and 2^b planted; blocks at b={COUNT_B} by N: "
+          f"{json.dumps(grids)}")
 
     # (d) bloom_probe against its plain version, on each of its routes
     err_d = 0
@@ -1276,7 +1392,7 @@ def bytes_phase(torch, card, reset_counts, read_counts):
         W = S - n + 1
         b_ms, by, btext = roofline(
             B * W, 4 * B * (S + W) + 4 * 256,
-            hash_ops(HashSpec(family="cyclic", n=n, L=32)) + 3, 0, 1)
+            hash_ops(HashSpec(family="cyclic", n=n, L=32))[0] + 3, 0, 1)
         timed("cyclic_rolling_fused",
               lambda: sketch_fused.cyclic_rolling_fused(toks, table, n=n),
               lambda: ref.cyclic_fused_ref(toks, table, n), b_ms, by, btext,
@@ -1294,6 +1410,7 @@ def bytes_phase(torch, card, reset_counts, read_counts):
           lambda: ref.hll_update_ref(h28, b=COUNT_B, rank_bits=COUNT_RANK),
           b_ms, by, btext, f"N={N} b={COUNT_B} rank_bits={COUNT_RANK}",
           counts["hll"], err_b, "src/repro/kernels/hll.py:49", "hll.cu")
+    hll_split(torch, hll, h28, COUNT_B, COUNT_RANK, b_ms, card)
     # the Bloom kernel: 9 bytes an element and the filter once; per element
     # the odd stride (ALU), per probe one IMAD (FMA), mask, shift and bit
     # test (ALU) and one filter load, for the probes this data needs
@@ -1352,9 +1469,10 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     _build.build(_build.sources() + [str(RED_FLOOR_SRC),
-                                     str(STREAM_FLOOR_SRC)])
-    print(f"build: {_build.sources()}, {RED_FLOOR_SRC.name} and "
-          f"{STREAM_FLOOR_SRC.name} with "
+                                     str(STREAM_FLOOR_SRC),
+                                     str(HLL_SPLIT_SRC)])
+    print(f"build: {_build.sources()}, {RED_FLOOR_SRC.name}, "
+          f"{STREAM_FLOOR_SRC.name} and {HLL_SPLIT_SRC.name} with "
           f"{_build.nvcc()} into "
           f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.BUILD_LOG.items():
@@ -1430,6 +1548,26 @@ def main() -> int:
                     torch, ops, family, n, Lw, B, S, gen))
         print(f"check: ops.{family} at (n, L) in {WIDE_NL}: kernel == plain "
               f"version on the card")
+    # GENERAL's two routes (general.route: 1 the fold, 2 the tables, with
+    # their ways), with the default p and a dense one (weight 9), n past L;
+    # every count of terms and tables the kernel has
+    dense = dense_irreducible(gf2, 32)
+    routes = {}
+    for p, Lw, ns in ((gf2.find_irreducible_host(32), 32, ROUTE_NS),
+                      (dense, 32, ROUTE_NS + (12, 20)),
+                      (gf2.find_irreducible_host(19), 19, (1, 8, 19, 25)),
+                      (gf2.find_irreducible_host(20), 20, (1, 8, 20, 25))):
+        for n in ns:
+            r = general.route(n, p, Lw)
+            routes[f"{hex(p)} n={n}"] = f"{r.route}x{r.ways}"
+            for B, S in ((1024, 8192), (3, 300)):
+                err["general"] = max(err["general"], check_rolling(
+                    torch, ops, "general", n, Lw, B, S, gen, p=p))
+    if not {"1x2", "1x4", "2x1", "2x2", "2x3", "2x4"} <= set(routes.values()):
+        raise AssertionError(f"the GENERAL cases miss a route: {routes}")
+    print(f"check: ops.general on both routes at (1024, 8192) and (3, 300): "
+          f"kernel == plain version on the card; the route x ways of each "
+          f"(p, n): {json.dumps(routes)}")
     err_decode = check_decode_grid(torch, api, DecodeSpec)
     err_decode = max(err_decode, check_past_limits(torch, gen, err))
     print(f"checks: {time.perf_counter() - t0:.1f} s")
@@ -1835,43 +1973,54 @@ def main() -> int:
     print(f"kernel[sketch_plan_bloom]: the filter's data needs {probes:.4f} "
           f"probes a window (k={dc.cfg.k})")
 
-    # the Fig. 1 pair at (1024, 8192), n=8, L=32
+    # the Fig. 1 pair at (1024, 8192), L=32: n=8 (the path's, in the
+    # kernels line) and n=25
     xr = rand_u32(torch, gen, (1024, 8192), dev)
     p32 = gf2.find_irreducible_host(32)
-    Wr = 8192 - N + 1
-    fig, fig_frac = {}, {}
-    for family, kern, plain_fn, src_line in (
-            ("cyclic", lambda: cyclic.cyclic_rolling(xr, n=N, L=L),
-             lambda: ref.cyclic_ref(xr, N, L), "src/repro/kernels/cyclic.py:87"),
-            ("general", lambda: general.general_rolling(xr, n=N, p=p32, L=L),
-             lambda: ref.general_ref(xr, N, p32, L),
-             "src/repro/kernels/general.py:67")):
-        if not torch.equal(kern().to(torch.int64), plain_fn()):
-            raise AssertionError(f"{family}_rolling: kernel != plain at "
-                                 f"(1024, 8192)")
-        ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(torch, kern, plain_fn,
-                                                      k_iters=100, p_iters=5)
-        fig[family] = ms
-        b_ms, by, text = roofline(
-            1024 * Wr, 4 * 1024 * (8192 + Wr),
-            hash_ops(HashSpec(family=family, n=N, L=L)), 0, 0)
-        fig_frac[family] = b_ms / ms
-        print(f"kernel[{family}_rolling] (1024, 8192) n={N} L={L}: {ms:.5f} "
-              f"ms per launch ({k1:.5f}, {k2:.5f}); plain version "
-              f"{plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} ms "
-              f"by {by} ({text}); bound / time {b_ms / ms:.3f} [{card}]")
-        kernels.append({
-            "name": f"{family}_rolling", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rolling.cu",
-            "replaces": src_line, "launches": counts_dp[family],
-            "max_abs_err": err[family], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None})
-    print(f"fig1: GENERAL / CYCLIC time ratio "
-          f"{fig['general'] / fig['cyclic']:.3f} at (1024, 8192), n={N}, "
-          f"L={L}, of these kernels, which run at {fig_frac['cyclic']:.3f} "
-          f"(CYCLIC) and {fig_frac['general']:.3f} (GENERAL) of their bounds: "
-          f"a reading of these kernels, not yet of the families "
-          f"(the paper's claim: about 2) [{card}]")
+    for n in (N, 25):
+        Wr = 8192 - n + 1
+        fig, fig_frac = {}, {}
+        for family, kern, plain_fn, src_line in (
+                ("cyclic", lambda: cyclic.cyclic_rolling(xr, n=n, L=L),
+                 lambda: ref.cyclic_ref(xr, n, L),
+                 "src/repro/kernels/cyclic.py:87"),
+                ("general",
+                 lambda: general.general_rolling(xr, n=n, p=p32, L=L),
+                 lambda: ref.general_ref(xr, n, p32, L),
+                 "src/repro/kernels/general.py:67")):
+            if not torch.equal(kern().to(torch.int64), plain_fn()):
+                raise AssertionError(f"{family}_rolling: kernel != plain at "
+                                     f"(1024, 8192) n={n}")
+            ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(
+                torch, kern, plain_fn, k_iters=100, p_iters=5)
+            fig[family] = ms
+            hs = HashSpec(family=family, n=n, L=L)
+            alu, lds = hash_ops(hs)
+            b_ms, by, text = roofline(1024 * Wr, 4 * 1024 * (8192 + Wr),
+                                      alu, 0, lds)
+            fig_frac[family] = b_ms / ms
+            how = (f", route {general.route(n, p32, L)}"
+                   if family == "general" else "")
+            print(f"kernel[{family}_rolling] (1024, 8192) n={n} L={L}{how}: "
+                  f"{ms:.5f} ms per launch ({k1:.5f}, {k2:.5f}); plain "
+                  f"version {plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound "
+                  f"{b_ms:.5f} ms by {by} ({text}); bound / time "
+                  f"{b_ms / ms:.3f} [{card}]")
+            if n == N:
+                kernels.append({
+                    "name": f"{family}_rolling", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/rolling.cu",
+                    "replaces": src_line, "launches": counts_dp[family],
+                    "max_abs_err": err[family], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                    "library_ms": None})
+        print(f"fig1: GENERAL / CYCLIC time ratio "
+              f"{fig['general'] / fig['cyclic']:.3f} at (1024, 8192), n={n}, "
+              f"L={L}, of these kernels, which run at "
+              f"{fig_frac['cyclic']:.3f} (CYCLIC) and "
+              f"{fig_frac['general']:.3f} (GENERAL) of their bounds: a "
+              f"reading of these kernels, not yet of the families (the "
+              f"paper's claim: about 2) [{card}]")
     print(f"kernel times of the dedup and data-plane paths: "
           f"{time.perf_counter() - t_times:.1f} s")
     print(f"end to end: dedup add_batch {tokens / dt:.0f} tokens/s; stats "

@@ -33,7 +33,24 @@
 //   CYCLIC   h' = rotl(h, 1) ^ rotl(x_out, n mod L) ^ x_in  (Algorithm 4)
 //   GENERAL  h' = x * h ^ (x^n mod p) * x_out ^ x_in        (Algorithm 3)
 //
-// which gives the direct form's bits. Every rotation is taken mod L, so
+// which gives the direct form's bits. GENERAL's product x^n * v mod p has a
+// fixed cost a window, whatever n is, on one of two routes the wrapper picks
+// from (n, p, L) alone (kernels/general.py::route):
+//
+//   the fold    (n < L, n + deg(p_low) <= L, at most kFoldTerms set bits in
+//               p_low): with t = v >> (L - n), the top n bits of v,
+//               x^n * v = (v << n) ^ t * x^L = (v << n) ^ t * p_low, and
+//               t * p_low, of degree below L, is the XOR of t shifted by
+//               each set bit of p_low: no reduction is left. The shifts
+//               come by value; the term count is a template parameter.
+//   the tables  (any (n, p, L)): byte-wide chunk tables in shared memory,
+//               Lemma 2's split (gf2.build_shiftn_table_host) cut into
+//               bytes: for n < L, (v << n) ^ XOR_c T_c[byte c of the top n
+//               bits]; for n >= L, XOR_c T_c[byte c of v] with T_c[b] =
+//               (b << 8c) * x^n mod p. At most 4 x 256 words, built once by
+//               the wrapper and staged by each block.
+//
+// Every rotation is taken mod L, so
 // n > L gives the plain version's bits. A row of more segments than a grid
 // dimension holds (65,535, some 285 M windows) runs as one launch for each
 // group of 65,535 segments, each told its first segment. kRun is odd, so
@@ -45,11 +62,11 @@
 // What bounds it: 4 bytes read and 4 written per window, against three
 // integer instructions a window for CYCLIC at L = 32 (two funnel shifts
 // and a three-input XOR; the lookup adds a clamp and a shared-memory load)
-// and one shift-reduce step per bit of x^n mod p for GENERAL (29
-// instructions at n = 8). At n = 8, L = 32 all three are bound by bytes on
-// an H100, GENERAL with its integer work at about 0.7 of its byte time.
-// This first version does no more than the rolling recurrence and
-// coalesced staging about either bound.
+// and, for GENERAL at L = 32, one shift-reduce step for x * h, and the
+// fold's shifts and XORs (11 instructions a window at n = 8 with the
+// default p) or the tables' extracts, shared loads and XORs. All of them
+// are bound by bytes at n = 8, L = 32 on an H100; the kernel does no more
+// than the rolling recurrence and coalesced staging about that bound.
 
 #include <cstdint>
 #include <type_traits>
@@ -63,13 +80,19 @@ constexpr int kBlockWin = kThreads * kRun;   // windows a block covers
 constexpr int kMaxN = 32;                    // a fixed halo up to n = 32
 constexpr int kSigma = 256;                  // the byte path's alphabet
 constexpr long long kMaxSegs = 65535;        // segments a launch's grid.y holds
+constexpr int kFoldTerms = 4;   // most set bits of p_low the fold takes
+constexpr int kMaxChunks = 4;   // byte chunks of a 32-bit v
 
 struct RollParams {
   int n;
   int L;
   uint32_t lmask;        // the L low bits
   uint32_t p_low;        // GENERAL: modulus without its top bit
-  uint32_t c_out;        // GENERAL: x^n mod p
+  int low_shift;         // GENERAL: v << low_shift is x^n * v's low part;
+                         // 32 (none) when n >= L
+  int top_shift;         // GENERAL: the overflow's first bit in v (L - n),
+                         // 0 when n >= L (the tables read all of v)
+  int fold[kFoldTerms];  // the fold: the set bits of p_low, in order
 };
 
 __device__ __forceinline__ uint32_t rotl_l(uint32_t v, int r, int L,
@@ -83,15 +106,26 @@ __device__ __forceinline__ uint32_t xtimes(uint32_t v, const RollParams& rp) {
   return ((v << 1) & rp.lmask) ^ (msb * rp.p_low);
 }
 
-__device__ __forceinline__ uint32_t mul_const(uint32_t v, uint32_t c,
-                                              const RollParams& rp) {
-  uint32_t acc = 0;
-  while (c) {
-    if (c & 1u) acc ^= v;
-    c >>= 1;
-    if (c) v = xtimes(v, rp);
-  }
-  return acc;
+// x^n * v mod p by the fold, kTerms set bits in p_low (n < L)
+template <int kTerms>
+__device__ __forceinline__ uint32_t xn_fold(uint32_t v, const RollParams& rp) {
+  const uint32_t t = v >> rp.top_shift;
+  uint32_t m = (v << rp.n) & rp.lmask;
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) m ^= t << rp.fold[k];
+  return m;
+}
+
+// x^n * v mod p from kChunks byte-wide tables in shared memory
+template <int kChunks>
+__device__ __forceinline__ uint32_t xn_tables(uint32_t v, const RollParams& rp,
+                                              const uint32_t* tab) {
+  // a funnel shift clamps at 32: no low part when n >= L
+  uint32_t m = __funnelshift_lc(0u, v, rp.low_shift) & rp.lmask;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+    m ^= tab[c * kSigma + ((v >> (rp.top_shift + 8 * c)) & 0xffu)];
+  return m;
 }
 
 // The table entry a byte token reads (the JAX plain version's index rule).
@@ -100,15 +134,16 @@ __device__ __forceinline__ int byte_index(int t) {
   return min(max(t, 0), kSigma - 1);
 }
 
-// kFamily: 0 = CYCLIC, 1 = GENERAL, 2 = CYCLIC over int32 byte tokens
-// looked up in `table` (unused by the other two)
-template <int kFamily>
+// kFamily: 0 = CYCLIC, 1 = GENERAL by the fold (kWays terms), 2 = CYCLIC
+// over int32 byte tokens looked up in `table`, 3 = GENERAL by kWays chunk
+// tables read from `table` (unused by families 0 and 1)
+template <int kFamily, int kWays = 0>
 __global__ void __launch_bounds__(kThreads)
 rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
                    __restrict__ x,
                int S, int W, int seg0, uint32_t* __restrict__ out,
                RollParams rp, const uint32_t* __restrict__ table) {
-  constexpr bool kCyclic = kFamily != 1;
+  constexpr bool kCyclic = kFamily == 0 || kFamily == 2;
   __shared__ uint32_t hs[kBlockWin];
   // the symbols with their n-1 halo: a fixed array up to n = kMaxN, sized
   // at launch (dynamic shared memory) above it; with the dynamic array for
@@ -116,6 +151,9 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
   __shared__ uint32_t xs_fixed[kBlockWin + kMaxN - 1];
   extern __shared__ uint32_t xs_wide[];
   uint32_t* xs = rp.n <= kMaxN ? xs_fixed : xs_wide;
+  // GENERAL's chunk tables (family 3), read in the roll after the barrier
+  // that ends the staging
+  __shared__ uint32_t gtab[kFamily == 3 ? kWays * kSigma : 1];
 
   const int row = blockIdx.x;
   const int w0 = (seg0 + static_cast<int>(blockIdx.y)) * kBlockWin;
@@ -130,6 +168,10 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
     for (int i = threadIdx.x; i < nwin + n - 1; i += kThreads)
       xs[i] = tab[byte_index(xr[i])];
   } else {
+    if constexpr (kFamily == 3) {
+      for (int i = threadIdx.x; i < kWays * kSigma; i += kThreads)
+        gtab[i] = table[i];
+    }
     for (int i = threadIdx.x; i < nwin + n - 1; i += kThreads)
       xs[i] = xr[i] & rp.lmask;
   }
@@ -152,11 +194,13 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
     const int r_out = n % rp.L, r_one = 1 % rp.L;
     for (int j = j0 + 1; j < j1; ++j) {
       const uint32_t x_out = xs[j - 1], x_in = xs[j + n - 1];
-      if (kCyclic)
+      if constexpr (kCyclic)
         h = rotl_l(h, r_one, rp.L, rp.lmask) ^
             rotl_l(x_out, r_out, rp.L, rp.lmask) ^ x_in;
+      else if constexpr (kFamily == 1)
+        h = xtimes(h, rp) ^ xn_fold<kWays>(x_out, rp) ^ x_in;
       else
-        h = xtimes(h, rp) ^ mul_const(x_out, rp.c_out, rp) ^ x_in;
+        h = xtimes(h, rp) ^ xn_tables<kWays>(x_out, rp, gtab) ^ x_in;
       hs[j] = h;
     }
   }
@@ -165,9 +209,24 @@ rolling_kernel(const std::conditional_t<kFamily == 2, int32_t, uint32_t>*
   for (int i = threadIdx.x; i < nwin; i += kThreads) orow[i] = hs[i];
 }
 
+using U32Kernel = void (*)(const uint32_t*, int, int, int, uint32_t*,
+                          RollParams, const uint32_t*);
+
+// GENERAL's kernel for a route (1 the fold, 3 the tables) and its ways
+U32Kernel general_kernel(int family, int ways) {
+  static const U32Kernel fold[kFoldTerms] = {
+      rolling_kernel<1, 1>, rolling_kernel<1, 2>, rolling_kernel<1, 3>,
+      rolling_kernel<1, 4>};
+  static const U32Kernel tables[kMaxChunks] = {
+      rolling_kernel<3, 1>, rolling_kernel<3, 2>, rolling_kernel<3, 3>,
+      rolling_kernel<3, 4>};
+  return family == 1 ? fold[ways - 1] : tables[ways - 1];
+}
+
+// family as rolling_kernel's; ways: GENERAL's fold terms or chunk tables
 int launch(int family, const void* x, int B, int S, int n, int L,
            const RollParams& rp, void* out, void* stream,
-           const void* table = nullptr) {
+           const void* table = nullptr, int ways = 0) {
   if (B < 0 || n < 1 || L < 1 || L > 32 || S < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const int W = S - n + 1;
@@ -185,7 +244,8 @@ int launch(int family, const void* x, int B, int S, int n, int L,
     err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t fixed = (2 * kBlockWin + kMaxN - 1 + kSigma) * 4;
+  const size_t fixed =
+      (2 * kBlockWin + kMaxN - 1 + (family == 3 ? ways : 1) * kSigma) * 4;
   if (smem + fixed > static_cast<size_t>(most))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -208,10 +268,10 @@ int launch(int family, const void* x, int B, int S, int n, int L,
   };
   if (family == 0)
     go(rolling_kernel<0>, xp);
-  else if (family == 1)
-    go(rolling_kernel<1>, xp);
-  else
+  else if (family == 2)
     go(rolling_kernel<2>, static_cast<const int32_t*>(x));
+  else
+    go(general_kernel(family, ways), xp);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -240,15 +300,36 @@ extern "C" int cyclic_rolling(const void* x, int B, int S, int n, int L,
   return launch(0, x, B, S, n, L, params(n, L), out, stream);
 }
 
-// c_out = x^n mod p; p_low is the modulus without its top bit.
+// p_low is the modulus without its top bit. route 1, the fold: ways is
+// the number of set bits of p_low (1 to kFoldTerms), which are the fold's
+// shifts, and n + deg(p_low) <= L with n < L; tables is unused. route 2,
+// the tables: tables holds `ways` byte-wide chunk tables of 256 words
+// (device pointer), ways = ceil(n / 8) for n < L and ceil(L / 8) for
+// n >= L; kernels/general.py builds them. Any other combination is
+// refused: there is no fallback.
 extern "C" int general_rolling(const void* x, int B, int S, int n, int L,
-                               unsigned int p_low, unsigned int c_out,
-                               void* out, void* stream) {
-  if (L < 1 || L > 32) return static_cast<int>(cudaErrorInvalidValue);
+                               unsigned int p_low, int route, int ways,
+                               const void* tables, void* out, void* stream) {
+  if (L < 1 || L > 32 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   RollParams rp = params(n, L);
-  rp.p_low = p_low;
-  rp.c_out = c_out;
-  return launch(1, x, B, S, n, L, rp, out, stream);
+  rp.p_low = p_low & rp.lmask;
+  if (route == 1) {
+    const int deg = 31 - __builtin_clz(rp.p_low | 1u);
+    if (n >= L || n + deg > L || ways < 1 || ways > kFoldTerms ||
+        __builtin_popcount(rp.p_low) != ways)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rp.low_shift = n;
+    rp.top_shift = L - n;
+    for (int k = 0, bit = 0; bit < L; ++bit)
+      if ((rp.p_low >> bit) & 1u) rp.fold[k++] = bit;
+    return launch(1, x, B, S, n, L, rp, out, stream, nullptr, ways);
+  }
+  const int want = ((n < L ? n : L) + 7) / 8;
+  if (route != 2 || tables == nullptr || ways != want)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rp.low_shift = n < L ? n : 32;
+  rp.top_shift = n < L ? L - n : 0;
+  return launch(3, x, B, S, n, L, rp, out, stream, tables, ways);
 }
 
 // tokens (B, S) int32 byte tokens, table (256,) uint32 (device pointers);

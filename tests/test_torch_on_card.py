@@ -1,6 +1,8 @@
 """The port's kernels on the card past the limits they once had, the
-decode kernel's ready flags of every type, and ``bloom_probe`` through each
-of its filter routes, each against its plain version on the same card.
+decode kernel's ready flags of every type, ``bloom_probe`` through each of
+its filter routes, ``general_rolling`` through each of its product routes
+and ``hll_update`` on its cluster and global routes, each against its plain
+version on the same card.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.core import gf2
-from repro_torch.kernels import api, bloom, ops, sketch_fused
+from repro_torch.kernels import (api, bloom, general, hll, ops, ref,
+                                 sketch_fused)
 from repro_torch.kernels import plan as tplan
 
 # the suite runs test files side by side in worker processes: keep torch's
@@ -176,3 +179,55 @@ def test_bloom_probe_routes_on_card(cuda, log2_m, route):
             want = bloom.bloom_probe(ha.cpu(), hb.cpu(), bits.cpu(), k=k,
                                      log2_m=log2_m)
             assert torch.equal(got.cpu(), want), (B, S, k)
+
+
+def _dense32() -> int:
+    """The irreducible p of degree 32 and weight 9 with the smallest low
+    part (chip_smoke.dense_irreducible's): the tables route at any n."""
+    for low in range(1, 1 << 32, 2):
+        if bin(low).count("1") == 8 and gf2.is_irreducible_host(
+                (1 << 32) | low):
+            return (1 << 32) | low
+
+
+@pytest.mark.parametrize("kind", ["default", "dense", "fold 1 term",
+                                  "fold 3 terms", "L=19", "L=20"])
+def test_general_routes_on_card(cuda, kind):
+    """ops.general bit-equal to its plain version on each route and each
+    count of fold terms and chunk tables the kernel has: find_irreducible_
+    host's p at L = 32 (the fold to n = 25, then 4 tables), a dense p (the
+    tables at every n), x^32 + 1 and x^32 + x^3 + x + 1 (a fold of one
+    and of three terms: any p of degree L is taken), and L in {19, 20}."""
+    L = {"L=19": 19, "L=20": 20}.get(kind, 32)
+    p = {"dense": _dense32(), "fold 1 term": (1 << 32) | 1,
+         "fold 3 terms": (1 << 32) | 0b1011}.get(
+             kind, gf2.find_irreducible_host(L))
+    ns = (1, 8, 12, 20, 25, 26, 32, 33, 40) if L == 32 else (1, 8, L, 25)
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    for n in ns:
+        r = general.route(n, p, L)
+        for B, S in ((1024, 8192), (3, 300)):
+            x = _words(gen, cuda, B, S)
+            before = general.LAUNCHES
+            got = ops.general(x, n=n, p=p, L=L, impl="kernel")
+            assert general.LAUNCHES == before + 1
+            assert torch.equal(got, ops.general(x, n=n, p=p, L=L,
+                                                impl="ref")), (n, r, B)
+
+
+@pytest.mark.parametrize("b", [1, 4, 12, 14, 15, 17, 23, 31])
+def test_hll_update_on_card(cuda, b):
+    """hll_update bit-equal to the plain version from one hash to the byte
+    path's 4,299,996, and just past a cluster's first sweep (8 blocks x
+    512 threads x 4 loads); b <= 14 runs on clusters of 8 blocks in whole
+    clusters, above it on the global registers."""
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    for N in (1, 7, 300, 8 * 2048 + 1, 4_299_996):
+        h = _words(gen, cuda, N)
+        if b <= 14:
+            assert hll.blocks(N, b) % 8 == 0
+        for rb in (32 - b, 32):
+            got = hll.hll_update(h, b=b, rank_bits=rb)
+            assert torch.equal(got, ref.hll_update_ref(h, b=b,
+                                                       rank_bits=rb)), (N, rb)
+            del got
