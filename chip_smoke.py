@@ -88,10 +88,11 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    (1024, 8192) random bytes (where it also equals ``ops.cyclic`` of the
    looked-up values), at (3, 300) and on a row holding tokens -300, -1, 256
    and 300; (b) ``hll_update`` kernel == plain at N in {1, 7, 300, 5000,
-   16385 (just past a cluster's first sweep), 4299996} x b in {1, 2, 4, 10,
-   12, 14, 15, 16, 17, 23, 31} (clusters up to 14, the global registers
-   above) x rank_bits in {32-b, 32}, with 0 and values below 2^b among the
-   inputs, printing the blocks it launches; (c) the §2 count: the HLL (b=12,
+   4097 and 8193 (just past one and two blocks' first sweep), 4299996} x b
+   in {1, 2, 4, 10, 12, 14, 15, 16, 17, 23, 31} (shared registers up to 14,
+   the global registers above) x rank_bits in {32-b, 32}, with 0 and values
+   below 2^b among the inputs, printing the blocks it launches; (c) the §2
+   count: the HLL (b=12,
    rank_bits=16) of the corpus's CYCLIC n=5 hashes kept to their 28
    pairwise bits is within 0.1 of the exact distinct 5-gram count, and its
    registers equal the plain version's; (d) ``bloom_probe`` kernel == plain
@@ -110,8 +111,8 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    launch at its main path's shape beside its plain version (the Fig. 1
    pair also at n = 25), and reckons each kernel's bound; the HLL call's
    split (the call with its spread over 200 calls, the zero fill alone,
-   ``tools/hll_split.cu``'s kernel without its flush on the first design's
-   grid and on the clusters', and its stream floor); the plan kernel's stats launches with the carry
+   ``tools/hll_split.cu``'s kernel without its flush, and its stream
+   floor); the plan kernel's stats launches with the carry
    copied in and donated (the ``kernels`` line holds the donated times of
    HLL and CountMin, named so), and ``countmin_red_floor``, CountMin's
    increments issued alone; for the serve path also tokens/s and the split
@@ -365,9 +366,8 @@ def spread(values) -> str:
 def hll_split(torch, hll, h, b, rank_bits, b_ms, card, iters=200) -> None:
     """The HLL call at the byte path's shape, split: the whole call (every
     device event) and its launches' spread; the wrapper's zero fill alone;
-    ``tools/hll_split.cu``'s variants on the kernel's grid: one register
-    file a block with no flush, the cluster merge with no flush, and the
-    stream floor (loads and ranks only)."""
+    ``tools/hll_split.cu``'s variants on the kernel's grid: the kernel
+    without its flush, and the stream floor (loads and ranks only)."""
     from repro_torch.kernels import _build
     fn = _build.load(str(HLL_SPLIT_SRC)).hll_split
     vp, i = ctypes.c_void_p, ctypes.c_int
@@ -385,22 +385,20 @@ def hll_split(torch, hll, h, b, rank_bits, b_ms, card, iters=200) -> None:
 
     call = lambda: hll.hll_update(h, b=b, rank_bits=rank_bits)
     fill = lambda: torch.zeros((1 << b,), dtype=torch.int32, device=h.device)
-    call_ms, fill_ms, noflush1, noflush2, floor = palindrome(
-        torch, [call, fill, variant(1), variant(2), variant(0)], iters)
+    call_ms, fill_ms, noflush, floor = palindrome(
+        torch, [call, fill, variant(1), variant(0)], iters)
     events = launch_times(torch, call, iters)
     kern = [us for name, us in events if "hll" in name]
     # a call is its fill and the kernel after it (a trace can lose events)
     per_call = [us + events[j - 1][1] for j, (name, us) in enumerate(events)
                 if "hll" in name and j and "hll" not in events[j - 1][0]]
     print(f"kernel[hll split] N={h.numel()} b={b} rank_bits={rank_bits}, "
-          f"{hll.blocks(h.numel(), b)} blocks: the call {call_ms:.5f} ms "
+          f"{hll.blocks(h.numel())} blocks: the call {call_ms:.5f} ms "
           f"(min / median / max over {len(per_call)} whole calls of "
           f"{iters}: {spread(per_call)}; {len(events)} device events), the "
           f"kernel's own event {spread(kern)}; the zero fill alone "
-          f"{fill_ms:.5f}; without the "
-          f"flush, one file a block {noflush1:.5f}, the cluster merge "
-          f"{noflush2:.5f}; the stream floor (loads and ranks) {floor:.5f}; "
-          f"bound {b_ms:.5f} [{card}]")
+          f"{fill_ms:.5f}; without the flush {noflush:.5f}; the stream floor "
+          f"(loads and ranks) {floor:.5f}; bound {b_ms:.5f} [{card}]")
 
 
 def device_busy(torch, fn, card: str, what: str) -> float:
@@ -499,9 +497,13 @@ def dense_irreducible(gf2, L: int, weight: int = 9) -> int:
 
 def check_rolling(torch, ops, family, n, Lw, B, S, gen, p=None) -> int:
     """ops.cyclic / ops.general kernel against plain on the card (GENERAL
-    mod ``p``, by default find_irreducible_host's)."""
+    mod ``p``, by default find_irreducible_host's), on symbols drawn from
+    ``gen`` (on the host, or on the card if it is the card's)."""
     from repro_torch.core import gf2
-    x = rand_u32(torch, gen, (B, S), torch.device("cuda"))
+    dev = torch.device("cuda")
+    x = (rand_u32(torch, gen, (B, S), dev) if gen.device.type == "cpu" else
+         torch.randint(0, 1 << 32, (B, S), generator=gen, device=dev,
+                       dtype=torch.int64).to(torch.uint32))
     if family == "cyclic":
         got = ops.cyclic(x, n=n, L=Lw, impl="kernel")
         want = ops.cyclic(x, n=n, L=Lw, impl="ref")
@@ -1249,12 +1251,12 @@ def bytes_phase(torch, card, reset_counts, read_counts):
           f"looked-up values too), (3, 300), and a row with tokens -300, -1, "
           f"256, 300")
 
-    # (b) hll_update against its plain version: shared registers on
-    # clusters of 8 blocks up to b = 14, global ones above; N from one hash
-    # (one cluster, 7 blocks without one) to the corpus, and just past a
-    # cluster's first sweep (8 blocks x 512 threads x 4 loads)
+    # (b) hll_update against its plain version: shared registers up to
+    # b = 14, global ones above; N from one hash (one block) to the corpus,
+    # and just past a block's and two blocks' first sweep (1,024 threads x
+    # 4 loads)
     err_b = 0
-    hll_ns = (1, 7, 300, 5000, 8 * 2048 + 1, BYTES_CHARS - COUNT_N + 1)
+    hll_ns = (1, 7, 300, 4097, 8193, BYTES_CHARS - COUNT_N + 1)
     hll_bs = (1, 2, 4, 10, 12, 14, 15, 16, 17, 23, 31)
     for N in hll_ns:
         h = rand_hashes((N,))
@@ -1275,11 +1277,10 @@ def bytes_phase(torch, card, reset_counts, read_counts):
                                          f"rank_bits={rb}, max |diff| "
                                          f"{err_b}")
                 del got, want
-    grids = {N: hll.blocks(N, COUNT_B) for N in hll_ns}
+    grids = {N: hll.blocks(N) for N in hll_ns}
     print(f"gate (b): hll_update == plain version on the card at N in "
           f"{hll_ns} x b in {hll_bs} x rank_bits in (32-b, 32), with 0, 1, "
-          f"2^b - 1 and 2^b planted; blocks at b={COUNT_B} by N: "
-          f"{json.dumps(grids)}")
+          f"2^b - 1 and 2^b planted; blocks by N: {json.dumps(grids)}")
 
     # (d) bloom_probe against its plain version, on each of its routes
     err_d = 0
@@ -1535,8 +1536,11 @@ def main() -> int:
             for Lw in (16, 32):
                 if n > Lw:
                     continue
+                # GENERAL at (1024, 8192): with the route cases below
                 for B, S in ((64, 8192), (1024, 520), (1024, 64),
                              (1024, 8192), (3, n)):
+                    if family == "general" and (B, S) == (1024, 8192):
+                        continue
                     err[family] = max(err[family], check_rolling(
                         torch, ops, family, n, Lw, B, S, gen))
             print(f"check: ops.{family} n={n} L in (16, 32): kernel == "
@@ -1552,7 +1556,8 @@ def main() -> int:
     # their ways), with the default p and a dense one (weight 9), n past L;
     # every count of terms and tables the kernel has
     dense = dense_irreducible(gf2, 32)
-    routes = {}
+    routes, t1 = {}, time.perf_counter()
+    rgen = torch.Generator(device="cuda").manual_seed(18)
     for p, Lw, ns in ((gf2.find_irreducible_host(32), 32, ROUTE_NS),
                       (dense, 32, ROUTE_NS + (12, 20)),
                       (gf2.find_irreducible_host(19), 19, (1, 8, 19, 25)),
@@ -1562,12 +1567,12 @@ def main() -> int:
             routes[f"{hex(p)} n={n}"] = f"{r.route}x{r.ways}"
             for B, S in ((1024, 8192), (3, 300)):
                 err["general"] = max(err["general"], check_rolling(
-                    torch, ops, "general", n, Lw, B, S, gen, p=p))
+                    torch, ops, "general", n, Lw, B, S, rgen, p=p))
     if not {"1x2", "1x4", "2x1", "2x2", "2x3", "2x4"} <= set(routes.values()):
         raise AssertionError(f"the GENERAL cases miss a route: {routes}")
     print(f"check: ops.general on both routes at (1024, 8192) and (3, 300): "
           f"kernel == plain version on the card; the route x ways of each "
-          f"(p, n): {json.dumps(routes)}")
+          f"(p, n): {json.dumps(routes)}; {time.perf_counter() - t1:.1f} s")
     err_decode = check_decode_grid(torch, api, DecodeSpec)
     err_decode = max(err_decode, check_past_limits(torch, gen, err))
     print(f"checks: {time.perf_counter() - t0:.1f} s")
@@ -1974,38 +1979,47 @@ def main() -> int:
           f"probes a window (k={dc.cfg.k})")
 
     # the Fig. 1 pair at (1024, 8192), L=32: n=8 (the path's, in the
-    # kernels line) and n=25
+    # kernels line, timed beside its plain version) and n=25 (the two
+    # kernels alone, in turns)
     xr = rand_u32(torch, gen, (1024, 8192), dev)
     p32 = gf2.find_irreducible_host(32)
     for n in (N, 25):
         Wr = 8192 - n + 1
-        fig, fig_frac = {}, {}
-        for family, kern, plain_fn, src_line in (
-                ("cyclic", lambda: cyclic.cyclic_rolling(xr, n=n, L=L),
-                 lambda: ref.cyclic_ref(xr, n, L),
-                 "src/repro/kernels/cyclic.py:87"),
-                ("general",
-                 lambda: general.general_rolling(xr, n=n, p=p32, L=L),
-                 lambda: ref.general_ref(xr, n, p32, L),
-                 "src/repro/kernels/general.py:67")):
+        pair = {"cyclic": (lambda: cyclic.cyclic_rolling(xr, n=n, L=L),
+                           lambda: ref.cyclic_ref(xr, n, L),
+                           "src/repro/kernels/cyclic.py:87"),
+                "general": (lambda: general.general_rolling(xr, n=n, p=p32,
+                                                            L=L),
+                            lambda: ref.general_ref(xr, n, p32, L),
+                            "src/repro/kernels/general.py:67")}
+        for family, (kern, plain_fn, _) in pair.items():
             if not torch.equal(kern().to(torch.int64), plain_fn()):
                 raise AssertionError(f"{family}_rolling: kernel != plain at "
                                      f"(1024, 8192) n={n}")
-            ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(
-                torch, kern, plain_fn, k_iters=100, p_iters=5)
+        if n != N:
+            alone = dict(zip(pair, palindrome(
+                torch, [k for k, _, _ in pair.values()], iters=100)))
+        fig, fig_frac = {}, {}
+        for family, (kern, plain_fn, src_line) in pair.items():
+            if n == N:
+                ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(
+                    torch, kern, plain_fn, k_iters=100, p_iters=5)
+                plain = (f"; plain version {plain_ms:.5f} ms ({p1:.5f}, "
+                         f"{p2:.5f})")
+                ms_text = f"{ms:.5f} ms per launch ({k1:.5f}, {k2:.5f})"
+            else:
+                ms, plain = alone[family], ""
+                ms_text = f"{ms:.5f} ms per launch (in turns, kernels alone)"
             fig[family] = ms
-            hs = HashSpec(family=family, n=n, L=L)
-            alu, lds = hash_ops(hs)
+            alu, lds = hash_ops(HashSpec(family=family, n=n, L=L))
             b_ms, by, text = roofline(1024 * Wr, 4 * 1024 * (8192 + Wr),
                                       alu, 0, lds)
             fig_frac[family] = b_ms / ms
             how = (f", route {general.route(n, p32, L)}"
                    if family == "general" else "")
             print(f"kernel[{family}_rolling] (1024, 8192) n={n} L={L}{how}: "
-                  f"{ms:.5f} ms per launch ({k1:.5f}, {k2:.5f}); plain "
-                  f"version {plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound "
-                  f"{b_ms:.5f} ms by {by} ({text}); bound / time "
-                  f"{b_ms / ms:.3f} [{card}]")
+                  f"{ms_text}{plain}; bound {b_ms:.5f} ms by {by} ({text}); "
+                  f"bound / time {b_ms / ms:.3f} [{card}]")
             if n == N:
                 kernels.append({
                     "name": f"{family}_rolling", "route": "cuda",

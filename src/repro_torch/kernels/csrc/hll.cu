@@ -15,43 +15,38 @@
 // Design: registers only rise, so every update is "raise if larger": read
 // the register, and issue an atomicMax only when the rank is larger. For
 // b <= 14 (64 KiB of int32 registers) each block keeps its own register
-// file in shared memory and raises it there. The blocks run as clusters of
-// 8 (the portable size): when its stream is done, block r of a cluster
-// takes the max of slice r of the register index over the cluster's 8
-// files through distributed shared memory (coalesced reads of whole
-// slices, once a launch), and raises each global register of its slice
-// that the cluster raised: one global atomicMax each, skipped when an L2
-// read (__ldcg) shows the register high enough already. Each cluster starts
-// its slice at another offset, so that clusters do not queue on the same
-// L2 lines. The first design flushed every block's file: some 264 x 4,096
-// requests onto the 128 lines of b = 12's registers at the end of the
-// launch; the clusters flush 8 times fewer. A cluster's grid is a multiple
-// of 8, and a block with no hashes still joins its cluster's barriers and
-// merge; none exits while another may still read its file.
+// file in shared memory and raises it there, then flushes it: one global
+// atomicMax for each register the block raised, skipped when an L2 read
+// (__ldcg) shows the register high enough already. One 1,024-thread block
+// runs on each SM, so 132 files are flushed; each block starts its flush at
+// another line of the registers, so that blocks do not queue on the same
+// L2 lines; and a thread issues the reads of all its registers (four at
+// b = 12) before any of its atomics, so the flush waits on one L2 round
+// trip, not on one a register. The first design (two 512-thread blocks an
+// SM, one register a trip) spent 0.0034 ms of its 0.0108 in the flush; a
+// merge of 8 blocks' files through a cluster's distributed shared memory
+// before one flush a cluster cost more than it saved (PERF.md, PR 18).
 //
-// From b = 15 (128 KiB) a block's file would leave at most one block an
-// SM, or not fit in the 227 KB a block may use at all, so those raise the
-// global registers directly (up to b = 23 they stay in L2). Each thread
-// keeps four loads in flight (a grid-stride loop unrolled by four), so two
-// blocks an SM still read at the memory's rate.
+// From b = 15 (128 KiB) a block's file would leave the SM to one block of
+// registers, or not fit in the 227 KB a block may use at all, so those
+// raise the global registers directly (up to b = 23 they stay in L2). Each
+// thread keeps four loads in flight (a grid-stride loop unrolled by four),
+// so one 1,024-thread block an SM still reads at the memory's rate.
 //
 // What bounds it: 4 bytes read a hash and the registers written once,
 // against some six integer instructions and one register read a hash, and
 // the atomics, which the data decides (many while the registers are low,
 // few once they are high).
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 1024;
 constexpr int kUnroll = 4;
 constexpr int kMaxSharedB = 14;
-constexpr int kCluster = 8;        // blocks a cluster (the portable size)
+constexpr int kBatch = 4;          // registers a thread reads before raising
 constexpr int kLine = 32;          // int32 registers an L2 line
 
 __device__ __forceinline__ int rank_of(uint32_t h, int b, int rank_bits) {
@@ -87,40 +82,33 @@ __device__ __forceinline__ void raise_all(const uint32_t* __restrict__ h,
   }
 }
 
-// b <= 14: a register file a block in shared memory, merged and flushed
-// once a cluster (launched with a cluster dimension of kCluster)
+// b <= 14: a register file a block in shared memory, flushed once
 __global__ void __launch_bounds__(kThreads)
-hll_cluster_kernel(const uint32_t* __restrict__ h, long long N, int b,
-                   int rank_bits, int* regs) {
+hll_shared_kernel(const uint32_t* __restrict__ h, long long N, int b,
+                  int rank_bits, int* regs) {
   extern __shared__ int sregs[];
   const int R = 1 << b;
   for (int i = threadIdx.x; i < R; i += kThreads) sregs[i] = 0;
   __syncthreads();
   raise_all(h, N, b, rank_bits, sregs);
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();                  // every file of the cluster is complete
-  const int slice = (R + kCluster - 1) / kCluster;
-  const int lo = static_cast<int>(cluster.block_rank()) * slice;
-  const int len = min(lo + slice, R) - lo;
-  if (len > 0) {
-    // the cluster's own offset into the slice, in whole lines
-    const int lines = (len + kLine - 1) / kLine;
-    const int off = static_cast<int>((blockIdx.x / kCluster) % lines) * kLine;
-    const int* files[kCluster];
+  __syncthreads();
+  // this block's first line of the flush; R is a power of two
+  const int off = static_cast<int>(blockIdx.x) * kLine & (R - 1);
+  for (int i0 = threadIdx.x; i0 < R; i0 += kBatch * kThreads) {
+    int idx[kBatch], mine[kBatch], now[kBatch];
 #pragma unroll
-    for (int r = 0; r < kCluster; ++r)
-      files[r] = cluster.map_shared_rank(sregs, r);
-    for (int k = threadIdx.x; k < len; k += kThreads) {
-      int i = k + off;
-      if (i >= len) i -= len;
-      i += lo;
-      int m = 0;
-#pragma unroll
-      for (int r = 0; r < kCluster; ++r) m = max(m, files[r][i]);
-      if (m > 0 && m > __ldcg(regs + i)) atomicMax(regs + i, m);
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      idx[u] = (i + off) & (R - 1);
+      mine[u] = i < R ? sregs[idx[u]] : 0;
     }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      now[u] = mine[u] > 0 ? __ldcg(regs + idx[u]) : 0;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (mine[u] > now[u]) atomicMax(regs + idx[u], mine[u]);
   }
-  cluster.sync();                  // no file is read after its block exits
 }
 
 // b >= 15: the global registers raised directly
@@ -128,44 +116,6 @@ __global__ void __launch_bounds__(kThreads)
 hll_global_kernel(const uint32_t* __restrict__ h, long long N, int b,
                   int rank_bits, int* regs) {
   raise_all(h, N, b, rank_bits, regs);
-}
-
-// A launch of the cluster kernel: `grid` blocks in clusters of kCluster,
-// 2^b registers a block.
-struct ClusterLaunch {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  ClusterLaunch(long long grid, int b, cudaStream_t st) : cfg{} {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(static_cast<unsigned int>(grid));
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = sizeof(int) << b;
-    cfg.stream = st;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  ClusterLaunch(const ClusterLaunch&) = delete;   // cfg points at attr
-};
-
-// Clusters of the cluster kernel that the card holds at once with 2^b
-// registers a block (0 if it holds none, or on an error), asked once for
-// each b. The kernel is allowed its shared memory first.
-int max_clusters(int b) {
-  static int most[kMaxSharedB + 1] = {};
-  if (most[b] == 0) {
-    ClusterLaunch one(kCluster, b, nullptr);
-    if (cudaFuncSetAttribute(hll_cluster_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(one.cfg.dynamicSmemBytes)) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveClusters(&most[b], hll_cluster_kernel,
-                                       &one.cfg) != cudaSuccess)
-      most[b] = 0;
-  }
-  return most[b];
 }
 
 int sm_count() {
@@ -178,36 +128,28 @@ int sm_count() {
   return sms;
 }
 
-// Blocks of a launch over N >= 1 hashes into 2^b registers: at most two an
-// SM, as many as N needs; for b <= kMaxSharedB whole clusters, and no more
-// than the card holds at once (a cluster left for a second wave would
-// double the launch). 0 when the card holds no cluster.
-long long blocks(long long N, int b) {
+// Blocks of a launch over N >= 1 hashes: one an SM at most (each flushes
+// its file once: fewer, longer-lived blocks flush fewer atomics), as many
+// as N needs.
+long long blocks(long long N) {
   const long long need =
       (N + 1LL * kThreads * kUnroll - 1) / (1LL * kThreads * kUnroll);
-  const long long cap = 2LL * sm_count();
-  const long long grid = need < cap ? need : cap;
-  if (b > kMaxSharedB) return grid;
-  const long long clusters = (grid + kCluster - 1) / kCluster;
-  const int most = max_clusters(b);
-  return (clusters < most ? clusters : most) * kCluster;
+  const long long cap = sm_count();
+  return need < cap ? need : cap;
 }
 
 }  // namespace
 
-// The blocks hll_update launches for N hashes and 2^b registers (-1 for
-// arguments out of range, 0 when the card holds no cluster of its kernel).
-extern "C" long long hll_update_blocks(long long N, int b) {
-  if (N < 1 || b < 1 || b > 31) return -1;
-  return blocks(N, b);
+// The blocks hll_update launches for N hashes (-1 for N < 1).
+extern "C" long long hll_update_blocks(long long N) {
+  return N < 1 ? -1 : blocks(N);
 }
 
 // Plain C interface, bound with ctypes. Device pointers: hashes (N,)
 // uint32; regs (2^b,) int32, zeroed by the caller and raised in place.
 // Runs on `stream` and does not synchronise. Returns cudaGetLastError()
-// after the launch (0 = success), cudaErrorInvalidValue for arguments out
-// of range, or cudaErrorInvalidConfiguration if the card holds no cluster
-// of the kernel.
+// after the launch (0 = success), or cudaErrorInvalidValue for arguments
+// out of range.
 extern "C" int hll_update(const void* hashes, long long N, int b,
                           int rank_bits, void* regs, void* stream) {
   if (N < 0 || b < 1 || b > 31 || rank_bits < 0)
@@ -217,16 +159,16 @@ extern "C" int hll_update(const void* hashes, long long N, int b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* h = static_cast<const uint32_t*>(hashes);
   auto* r = static_cast<int*>(regs);
-  const long long grid = blocks(N, b);
-  if (b > kMaxSharedB) {
-    hll_global_kernel<<<static_cast<unsigned int>(grid), kThreads, 0, st>>>(
-        h, N, b, rank_bits, r);
-    return static_cast<int>(cudaGetLastError());
+  const unsigned int grid = static_cast<unsigned int>(blocks(N));
+  if (b <= kMaxSharedB) {
+    const size_t smem = sizeof(int) << b;
+    const cudaError_t err = cudaFuncSetAttribute(
+        hll_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hll_shared_kernel<<<grid, kThreads, smem, st>>>(h, N, b, rank_bits, r);
+  } else {
+    hll_global_kernel<<<grid, kThreads, 0, st>>>(h, N, b, rank_bits, r);
   }
-  if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  ClusterLaunch go(grid, b, st);
-  const cudaError_t err =
-      cudaLaunchKernelEx(&go.cfg, hll_cluster_kernel, h, N, b, rank_bits, r);
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

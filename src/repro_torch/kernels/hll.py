@@ -7,10 +7,9 @@ Replaces the JAX package's Pallas kernel ``repro/kernels/hll.py::hll_update``:
 zero. The paper's §2 distinct count reads its estimate from these
 registers.
 
-Up to b = 14 the kernel keeps a register file a block in shared memory and
-runs its blocks as clusters of 8, which merge their files through
-distributed shared memory and flush once a cluster; above it, it raises
-the global registers directly. :func:`blocks` gives its grid.
+Up to b = 14 the kernel keeps a register file a block in shared memory,
+one 1,024-thread block an SM, and flushes each file once; above it, it
+raises the global registers directly. :func:`blocks` gives its grid.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.hll_update_ref`. On a CUDA tensor it
@@ -29,22 +28,19 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES = 0
 
 
-def blocks(n: int, b: int) -> int:
-    """The blocks ``csrc/hll.cu`` launches for ``n`` hashes and 2^b
-    registers (whole clusters of 8 for b <= 14, no more than the card holds
-    at once). Loads (and on first use builds) the kernel's library."""
+def blocks(n: int) -> int:
+    """The blocks ``csrc/hll.cu`` launches for ``n`` >= 1 hashes: one an SM
+    at most. Loads (and on first use builds) the kernel's library."""
     fn = _build.load("hll").hll_update_blocks
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    fn.restype = ctypes.c_longlong
-    return fn(n, b)
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_longlong
+    return fn(n)
 
 
 def hll_update(hashes: torch.Tensor, *, b: int = 10,
                rank_bits: int = 32) -> torch.Tensor:
     """hashes (...) uint32 -> (2^b,) int32 HLL registers. Any b >= 1 on
     the CPU, as the reference takes; the kernel takes b <= 31 (b <= 14 in
-    shared memory on clusters of blocks, above it in the global
-    registers)."""
+    shared memory, above it in the global registers)."""
     global LAUNCHES
     if rank_bits < 0:
         raise ValueError(f"need rank_bits >= 0, got rank_bits={rank_bits}")

@@ -1,7 +1,7 @@
 """The port's kernels on the card past the limits they once had, the
 decode kernel's ready flags of every type, ``bloom_probe`` through each of
 its filter routes, ``general_rolling`` through each of its product routes
-and ``hll_update`` on its cluster and global routes, each against its plain
+and ``hll_update`` in shared and in global registers, each against its plain
 version on the same card.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
@@ -218,14 +218,14 @@ def test_general_routes_on_card(cuda, kind):
 @pytest.mark.parametrize("b", [1, 4, 12, 14, 15, 17, 23, 31])
 def test_hll_update_on_card(cuda, b):
     """hll_update bit-equal to the plain version from one hash to the byte
-    path's 4,299,996, and just past a cluster's first sweep (8 blocks x
-    512 threads x 4 loads); b <= 14 runs on clusters of 8 blocks in whole
-    clusters, above it on the global registers."""
+    path's 4,299,996, and just past one and two blocks' first sweep (1,024
+    threads x 4 loads); b <= 14 keeps a register file a block in shared
+    memory, above it the global registers are raised directly."""
     gen = torch.Generator(device=cuda).manual_seed(b)
-    for N in (1, 7, 300, 8 * 2048 + 1, 4_299_996):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for N in (1, 7, 300, 4097, 8193, 4_299_996):
         h = _words(gen, cuda, N)
-        if b <= 14:
-            assert hll.blocks(N, b) % 8 == 0
+        assert hll.blocks(N) == min(-(-N // 4096), sms)
         for rb in (32 - b, 32):
             got = hll.hll_update(h, b=b, rank_bits=rb)
             assert torch.equal(got, ref.hll_update_ref(h, b=b,

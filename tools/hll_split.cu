@@ -1,36 +1,27 @@
 // The HLL update's time split, built for Hopper (sm_90a). Measurement only:
 // chip_smoke.py builds it beside the port's kernels and times it against
 // csrc/hll.cu on the same hashes, so that the kernel's time splits into
-// the stream, the register raises, the merge and the flush.
+// the stream, the register raises and the flush.
 //
-// Three variants, each on its kernel's grid (at most two 512-thread blocks
-// an SM, each thread four loads in flight; for the clusters, no more whole
-// clusters than the card holds at once), for b <= 14:
+// Two variants, each on csrc/hll.cu's grid (one 1,024-thread block an SM,
+// each thread four loads in flight), for b <= 14:
 //
 //   mode 0  the stream floor: every hash loaded and ranked, no register
 //           touched;
 //   mode 1  one register file a block in shared memory, raised as the
-//           kernel raises it, and no flush (the first design's kernel
-//           with its end-of-launch flush cut out);
-//   mode 2  mode 1 on clusters of 8 blocks, then each block's slice of the
-//           register index merged across the cluster's 8 files through
-//           distributed shared memory, and no flush (the cluster design's
-//           kernel with its flush cut out).
+//           kernel raises it, and no flush (the kernel with its
+//           end-of-launch flush cut out).
 //
 // What each computes is kept live by a store that no rank can reach (a
 // rank is at most 33); the registers are left as they were.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 1024;
 constexpr int kUnroll = 4;
-constexpr int kCluster = 8;
 constexpr int kNever = 64;        // above any rank
 
 __device__ __forceinline__ int rank_of(uint32_t h, int b, int rank_bits) {
@@ -45,7 +36,7 @@ split_kernel(const uint32_t* __restrict__ h, long long N, int b,
              int rank_bits, int* regs) {
   extern __shared__ int sregs[];
   const uint32_t idx_mask = (1u << b) - 1u;
-  if constexpr (kMode > 0) {
+  if constexpr (kMode == 1) {
     for (int i = threadIdx.x; i <= static_cast<int>(idx_mask); i += kThreads)
       sregs[i] = 0;
     __syncthreads();
@@ -78,90 +69,40 @@ split_kernel(const uint32_t* __restrict__ h, long long N, int b,
     __syncthreads();
     for (int i = threadIdx.x; i <= static_cast<int>(idx_mask); i += kThreads)
       if (sregs[i] > kNever) regs[i] = sregs[i];
-  } else if constexpr (kMode == 2) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    const int R = static_cast<int>(idx_mask) + 1;
-    const int slice = (R + kCluster - 1) / kCluster;
-    const int lo = static_cast<int>(cluster.block_rank()) * slice;
-    const int len = min(lo + slice, R) - lo;
-    for (int k = threadIdx.x; k < len; k += kThreads) {
-      int m = 0;
-#pragma unroll
-      for (int r = 0; r < kCluster; ++r)
-        m = max(m, cluster.map_shared_rank(sregs, r)[lo + k]);
-      if (m > kNever) regs[lo + k] = m;
-    }
-    cluster.sync();
+  } else if (live > kNever) {
+    regs[where] = live;
   }
-  if (kMode == 0 && live > kNever) regs[where] = live;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
 }
 
 }  // namespace
 
 // hashes (N,) uint32 and regs (2^b,) int32, device pointers; b in [1, 14];
-// mode 0, 1 or 2 as above. Runs on `stream`; returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for arguments out of range.
+// mode 0 or 1 as above. Runs on `stream`; returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for arguments out of range.
 extern "C" int hll_split(const void* hashes, long long N, int b,
                          int rank_bits, void* regs, int mode, void* stream) {
-  if (N < 1 || b < 1 || b > 14 || rank_bits < 0 || mode < 0 || mode > 2)
+  if (N < 1 || b < 1 || b > 14 || rank_bits < 0 || mode < 0 || mode > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   rank_bits = rank_bits < 32 ? rank_bits : 32;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long need =
       (N + 1LL * kThreads * kUnroll - 1) / (1LL * kThreads * kUnroll);
-  const long long cap = 2LL * sm_count();
-  long long grid = need < cap ? need : cap;
-  const size_t smem = mode == 0 ? 0 : sizeof(int) << b;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(grid));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  const unsigned int grid =
+      static_cast<unsigned int>(need < sms ? need : sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* h = static_cast<const uint32_t*>(hashes);
   auto* r = static_cast<int*>(regs);
-  cudaError_t err = cudaSuccess;
-  auto go = [&](auto kernel) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, h, N, b,
-                                                     rank_bits, r);
-  };
   if (mode == 0) {
-    go(split_kernel<0>);
-  } else if (mode == 1) {
-    go(split_kernel<1>);
+    split_kernel<0><<<grid, kThreads, 0, st>>>(h, N, b, rank_bits, r);
   } else {
-    // csrc/hll.cu's cluster grid: whole clusters, no more than the card
-    // holds at once
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cfg.gridDim = dim3(kCluster);
-    int most = 0;
-    err = cudaFuncSetAttribute(split_kernel<2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&most, split_kernel<2>, &cfg);
+    const size_t smem = sizeof(int) << b;
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (most < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    grid = (grid + kCluster - 1) / kCluster;
-    cfg.gridDim = dim3(static_cast<unsigned int>(grid < most ? grid : most) *
-                       kCluster);
-    go(split_kernel<2>);
+    split_kernel<1><<<grid, kThreads, smem, st>>>(h, N, b, rank_bits, r);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

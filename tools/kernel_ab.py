@@ -308,7 +308,7 @@ def main(argv=None):
               f"ms, this {this_ms:.5f} ms (the call); the kernel's own "
               f"events, min / median / max over 200 calls: base "
               f"{spread['base']}, this {spread['this']}; blocks: this "
-              f"{hll.blocks(N, 12)} [{card}]")
+              f"{hll.blocks(N)} [{card}]")
     return 0
 
 
