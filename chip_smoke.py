@@ -24,7 +24,8 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    group of eight); ``ops.cyclic``
    / ``ops.general`` at n in {1, 8, 25, 32}, L in {16, 32}, among other
    shapes at (1024, 64), the heavy-hitter query's,
-   and (1024, 8192), the Fig. 1 pair's, and at n > L, (n, L) in {(9, 8),
+   and (1024, 8192), the Fig. 1 pair's (GENERAL's there with the route
+   cases below), and at n > L, (n, L) in {(9, 8),
    (20, 16), (33, 32)}; ``ops.general`` on each of its product routes,
    each printed by ``general.route`` (the fold and the chunk tables, every
    count of terms and tables the kernel has), at (1024, 8192) and (3, 300):
@@ -91,8 +92,7 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    4097 and 8193 (just past one and two blocks' first sweep), 4299996} x b
    in {1, 2, 4, 10, 12, 14, 15, 16, 17, 23, 31} (shared registers up to 14,
    the global registers above) x rank_bits in {32-b, 32}, with 0 and values
-   below 2^b among the inputs, printing the blocks it launches; (c) the §2
-   count: the HLL (b=12,
+   below 2^b among the inputs; (c) the §2 count: the HLL (b=12,
    rank_bits=16) of the corpus's CYCLIC n=5 hashes kept to their 28
    pairwise bits is within 0.1 of the exact distinct 5-gram count, and its
    registers equal the plain version's; (d) ``bloom_probe`` kernel == plain
@@ -139,7 +139,7 @@ SRC = ROOT / "src"
 # and the decode plane's streams with no filter probe
 RED_FLOOR_SRC = ROOT / "tools" / "countmin_red_floor.cu"
 STREAM_FLOOR_SRC = ROOT / "tools" / "decode_stream_floor.cu"
-# and the HLL update's stream, raises and merge without its flush
+# and the HLL update's stream and raises without its flush
 HLL_SPLIT_SRC = ROOT / "tools" / "hll_split.cu"
 GRID_DIM = 65535            # blocks a grid's y or z dimension holds
 
@@ -393,7 +393,7 @@ def hll_split(torch, hll, h, b, rank_bits, b_ms, card, iters=200) -> None:
     per_call = [us + events[j - 1][1] for j, (name, us) in enumerate(events)
                 if "hll" in name and j and "hll" not in events[j - 1][0]]
     print(f"kernel[hll split] N={h.numel()} b={b} rank_bits={rank_bits}, "
-          f"{hll.blocks(h.numel())} blocks: the call {call_ms:.5f} ms "
+          f"the call {call_ms:.5f} ms "
           f"(min / median / max over {len(per_call)} whole calls of "
           f"{iters}: {spread(per_call)}; {len(events)} device events), the "
           f"kernel's own event {spread(kern)}; the zero fill alone "
@@ -482,17 +482,6 @@ def check_plan(torch, api, plan, gen, B, S, full=False) -> int:
                 f"kernel != plain version: {plan.hash.family} {plan.names} "
                 f"sketch {name!r} B={B} S={S}, max |diff| {err}")
     return err
-
-
-def dense_irreducible(gf2, L: int, weight: int = 9) -> int:
-    """The irreducible p of degree L and ``weight`` set bits (its top bit
-    among them) with the smallest low part: a modulus the GENERAL fold
-    does not take at any n."""
-    for low in range(1, 1 << L, 2):
-        if bin(low).count("1") == weight - 1 and \
-                gf2.is_irreducible_host((1 << L) | low):
-            return (1 << L) | low
-    raise ValueError(f"no irreducible p of degree {L} and weight {weight}")
 
 
 def check_rolling(torch, ops, family, n, Lw, B, S, gen, p=None) -> int:
@@ -1256,7 +1245,7 @@ def bytes_phase(torch, card, reset_counts, read_counts):
     # and just past a block's and two blocks' first sweep (1,024 threads x
     # 4 loads)
     err_b = 0
-    hll_ns = (1, 7, 300, 4097, 8193, BYTES_CHARS - COUNT_N + 1)
+    hll_ns = (1, 7, 300, 4097, 5000, 8193, BYTES_CHARS - COUNT_N + 1)
     hll_bs = (1, 2, 4, 10, 12, 14, 15, 16, 17, 23, 31)
     for N in hll_ns:
         h = rand_hashes((N,))
@@ -1277,10 +1266,9 @@ def bytes_phase(torch, card, reset_counts, read_counts):
                                          f"rank_bits={rb}, max |diff| "
                                          f"{err_b}")
                 del got, want
-    grids = {N: hll.blocks(N) for N in hll_ns}
     print(f"gate (b): hll_update == plain version on the card at N in "
           f"{hll_ns} x b in {hll_bs} x rank_bits in (32-b, 32), with 0, 1, "
-          f"2^b - 1 and 2^b planted; blocks by N: {json.dumps(grids)}")
+          f"2^b - 1 and 2^b planted")
 
     # (d) bloom_probe against its plain version, on each of its routes
     err_d = 0
@@ -1555,7 +1543,7 @@ def main() -> int:
     # GENERAL's two routes (general.route: 1 the fold, 2 the tables, with
     # their ways), with the default p and a dense one (weight 9), n past L;
     # every count of terms and tables the kernel has
-    dense = dense_irreducible(gf2, 32)
+    dense = gf2.find_dense_irreducible_host(32)
     routes, t1 = {}, time.perf_counter()
     rgen = torch.Generator(device="cuda").manual_seed(18)
     for p, Lw, ns in ((gf2.find_irreducible_host(32), 32, ROUTE_NS),

@@ -22,16 +22,15 @@
 // another line of the registers, so that blocks do not queue on the same
 // L2 lines; and a thread issues the reads of all its registers (four at
 // b = 12) before any of its atomics, so the flush waits on one L2 round
-// trip, not on one a register. The first design (two 512-thread blocks an
-// SM, one register a trip) spent 0.0034 ms of its 0.0108 in the flush; a
-// merge of 8 blocks' files through a cluster's distributed shared memory
-// before one flush a cluster cost more than it saved (PERF.md, PR 18).
+// trip, not on one a register. (Merging 8 blocks' files through a
+// cluster's distributed shared memory before one flush a cluster was
+// slower: PERF.md.)
 //
-// From b = 15 (128 KiB) a block's file would leave the SM to one block of
-// registers, or not fit in the 227 KB a block may use at all, so those
-// raise the global registers directly (up to b = 23 they stay in L2). Each
-// thread keeps four loads in flight (a grid-stride loop unrolled by four),
-// so one 1,024-thread block an SM still reads at the memory's rate.
+// From b = 15 (128 KiB; from b = 16 a file does not fit in the 227 KB a
+// block may use) the kernel raises the global registers directly (up to
+// b = 23 they stay in L2). Each thread keeps four loads in flight (a
+// grid-stride loop unrolled by four), so one 1,024-thread block an SM
+// still reads at the memory's rate.
 //
 // What bounds it: 4 bytes read a hash and the registers written once,
 // against some six integer instructions and one register read a hash, and
@@ -128,22 +127,7 @@ int sm_count() {
   return sms;
 }
 
-// Blocks of a launch over N >= 1 hashes: one an SM at most (each flushes
-// its file once: fewer, longer-lived blocks flush fewer atomics), as many
-// as N needs.
-long long blocks(long long N) {
-  const long long need =
-      (N + 1LL * kThreads * kUnroll - 1) / (1LL * kThreads * kUnroll);
-  const long long cap = sm_count();
-  return need < cap ? need : cap;
-}
-
 }  // namespace
-
-// The blocks hll_update launches for N hashes (-1 for N < 1).
-extern "C" long long hll_update_blocks(long long N) {
-  return N < 1 ? -1 : blocks(N);
-}
 
 // Plain C interface, bound with ctypes. Device pointers: hashes (N,)
 // uint32; regs (2^b,) int32, zeroed by the caller and raised in place.
@@ -159,7 +143,12 @@ extern "C" int hll_update(const void* hashes, long long N, int b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* h = static_cast<const uint32_t*>(hashes);
   auto* r = static_cast<int*>(regs);
-  const unsigned int grid = static_cast<unsigned int>(blocks(N));
+  // one block an SM at most (each flushes its file once: fewer,
+  // longer-lived blocks flush fewer atomics), as many as N needs
+  const long long need =
+      (N + 1LL * kThreads * kUnroll - 1) / (1LL * kThreads * kUnroll);
+  const unsigned int grid =
+      static_cast<unsigned int>(need < sm_count() ? need : sm_count());
   if (b <= kMaxSharedB) {
     const size_t smem = sizeof(int) << b;
     const cudaError_t err = cudaFuncSetAttribute(

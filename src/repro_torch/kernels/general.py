@@ -9,8 +9,7 @@ windows with the paper's Algorithm 3 update, ``h' = x*h ^ x^n*x_out ^
 x_in``, and takes the product ``x^n * x_out mod p`` on one of two routes
 that :func:`route` picks from (n, p, L) alone: the fold (a few shifts and
 XORs) or byte-wide chunk tables in shared memory (any n, p, L), which
-:func:`chunk_tables` builds. :func:`route_product` is either route's
-arithmetic on int64 lanes, for the tests.
+:func:`chunk_tables` builds.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.general_ref`. On a CUDA tensor it launches
@@ -38,9 +37,6 @@ LAUNCHES = 0
 # gf2.find_irreducible_host returns, and the paper's Table 2, has at most 4
 FOLD_TERMS = 4
 FOLD, TABLES = 1, 2
-
-# the chunk tables on each device, by (n, p, L, device)
-_DEVICE_TABLES: dict = {}
 
 
 class Route(NamedTuple):
@@ -92,38 +88,11 @@ def chunk_tables(n: int, p: int, L: int) -> np.ndarray:
     return out.reshape(-1).astype(np.uint32)
 
 
-def route_product(v: torch.Tensor, n: int, p: int, L: int,
-                  which: int | None = None) -> torch.Tensor:
-    """x^n * v mod p on int64 lanes (v below 2^L) as route ``which`` (default
-    :func:`route`'s) computes it on the card."""
-    r = route(n, p, L)
-    which = r.route if which is None else which
-    v = v.to(torch.int64)
-    if which == FOLD:
-        if r.route != FOLD:
-            raise ValueError(f"the fold does not take n={n}, L={L}, "
-                             f"p={bin(p)}")
-        t = v >> (L - n)
-        m = (v << n) & gf2.mask(L)
-        for j in r.shifts:
-            m = m ^ (t << j)
-        return m
-    tab = torch.from_numpy(chunk_tables(n, p, L).astype(np.int64)).to(
-        v.device)
-    top = L - n if n < L else 0
-    m = (v << n) & gf2.mask(L) if n < L else torch.zeros_like(v)
-    for c in range(len(tab) // 256):
-        m = m ^ tab[c * 256 + ((v >> (top + 8 * c)) & 0xFF)]
-    return m
-
-
+@functools.lru_cache(maxsize=None)
 def _device_tables(n: int, p: int, L: int, device) -> torch.Tensor:
-    key = (n, p, L, device)
-    if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES[key] = torch.from_numpy(
-            chunk_tables(n, p, L).view(np.int32)).to(device).view(
-                torch.uint32)
-    return _DEVICE_TABLES[key]
+    """:func:`chunk_tables` on ``device``, built once."""
+    return torch.from_numpy(chunk_tables(n, p, L).view(np.int32)).to(
+        device).view(torch.uint32)
 
 
 def general_rolling(x: torch.Tensor, *, n: int, p: int,
@@ -134,8 +103,6 @@ def general_rolling(x: torch.Tensor, *, n: int, p: int,
     if x.device.type == "cpu":
         return _ref.general_ref(x, n, p, L).to(torch.uint32)
     check_input(x, n, L)
-    if p.bit_length() - 1 != L:
-        raise ValueError(f"p must have degree exactly L={L}, got {bin(p)}")
     r = route(n, p, L)
     tabs = _device_tables(n, p, L, x.device) if r.route == TABLES else None
     B, S = x.shape

@@ -9,7 +9,7 @@ registers.
 
 Up to b = 14 the kernel keeps a register file a block in shared memory,
 one 1,024-thread block an SM, and flushes each file once; above it, it
-raises the global registers directly. :func:`blocks` gives its grid.
+raises the global registers directly.
 
 On a CPU tensor the wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.hll_update_ref`. On a CUDA tensor it
@@ -26,14 +26,6 @@ from repro_torch.kernels import ref as _ref
 
 # kernel launches made by this wrapper; the smoke run resets and reads it
 LAUNCHES = 0
-
-
-def blocks(n: int) -> int:
-    """The blocks ``csrc/hll.cu`` launches for ``n`` >= 1 hashes: one an SM
-    at most. Loads (and on first use builds) the kernel's library."""
-    fn = _build.load("hll").hll_update_blocks
-    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_longlong
-    return fn(n)
 
 
 def hll_update(hashes: torch.Tensor, *, b: int = 10,

@@ -3,8 +3,9 @@
 
 The card's ``csrc/rolling.cu`` takes the product by the fold (a few shifts
 and XORs) or from byte-wide chunk tables; ``general.route`` picks one from
-(n, p, L). Here each route's arithmetic on int64 lanes
-(``general.route_product``) is held against the reference's
+(n, p, L). Here each route's arithmetic on int64 lanes, as the kernel does
+it with the route's constants and ``general.chunk_tables``, is held
+against the reference's
 ``repro.kernels.general._mul_const`` over n in 1..40 and L in {8, 16, 19,
 20, 32}, with find_irreducible_host's modulus and a dense one; the route
 choice against its condition; the tables against Lemma 2's
@@ -35,15 +36,32 @@ NS = range(1, 41)
 
 @functools.lru_cache(maxsize=None)
 def _dense(L: int) -> int:
-    """The irreducible p of degree L of the highest weight up to 9 (with
-    its top bit; 9 at L >= 9, where such a p exists) and the smallest low
-    part: the fold takes it at no n."""
-    for weight in range(min(9, L + 1), 2, -1):
-        for low in range(1, 1 << L, 2):
-            if bin(low).count("1") == weight - 1 and \
-                    gf2.is_irreducible_host((1 << L) | low):
-                return (1 << L) | low
-    raise AssertionError(f"no dense irreducible p of degree {L}")
+    """A dense irreducible p of degree L, which the fold takes at no n:
+    weight 9 with its top bit, and 7 at L = 8 (x^8 + ... + 1, of weight 9,
+    is divisible by x^2 + x + 1)."""
+    return gf2.find_dense_irreducible_host(L, 9 if L > 8 else 7)
+
+
+def _product(v: torch.Tensor, n: int, p: int, L: int,
+             which: int) -> torch.Tensor:
+    """x^n * v mod p on int64 lanes (v below 2^L) as route ``which`` of
+    csrc/rolling.cu computes it: the fold, (v << n) ^ the overflow t =
+    v >> (L - n) shifted by each set bit of p_low; or the tables, (v << n
+    for n < L) ^ a table entry for each byte chunk of the top min(n, L)
+    bits of v."""
+    r = general.route(n, p, L)
+    if which == general.FOLD:
+        t = v >> (L - n)
+        m = (v << n) & gf2.mask(L)
+        for j in r.shifts:
+            m = m ^ (t << j)
+        return m
+    tab = torch.from_numpy(general.chunk_tables(n, p, L).astype(np.int64))
+    top = L - n if n < L else 0
+    m = (v << n) & gf2.mask(L) if n < L else torch.zeros_like(v)
+    for c in range(len(tab) // 256):
+        m = m ^ tab[c * 256 + ((v >> (top + 8 * c)) & 0xFF)]
+    return m
 
 
 def _poly(kind: str, L: int) -> int:
@@ -82,7 +100,7 @@ def test_route_products_match_reference_mul_const(L, kind):
             routes.append(general.FOLD)
             folds += 1
         for which in routes:
-            got = general.route_product(vt, n, p, L, which).numpy()
+            got = _product(vt, n, p, L, which).numpy()
             np.testing.assert_array_equal(got, want, err_msg=f"n={n} "
                                           f"route={which}")
     # the default moduli take the fold below L - deg(p_low) + 1; the dense
@@ -155,7 +173,8 @@ def test_rolling_on_either_route_matches_plain(L, kind, n):
     got = [h]
     for j in range(1, x.shape[1] - n + 1):
         h = (gf2.xtimes(h, p_low, L)
-             ^ general.route_product(x[:, j - 1], n, p, L) ^ x[:, j + n - 1])
+             ^ _product(x[:, j - 1], n, p, L, general.route(n, p, L).route)
+             ^ x[:, j + n - 1])
         got.append(h)
     assert torch.equal(torch.stack(got, dim=1), want)
 

@@ -181,15 +181,6 @@ def test_bloom_probe_routes_on_card(cuda, log2_m, route):
             assert torch.equal(got.cpu(), want), (B, S, k)
 
 
-def _dense32() -> int:
-    """The irreducible p of degree 32 and weight 9 with the smallest low
-    part (chip_smoke.dense_irreducible's): the tables route at any n."""
-    for low in range(1, 1 << 32, 2):
-        if bin(low).count("1") == 8 and gf2.is_irreducible_host(
-                (1 << 32) | low):
-            return (1 << 32) | low
-
-
 @pytest.mark.parametrize("kind", ["default", "dense", "fold 1 term",
                                   "fold 3 terms", "L=19", "L=20"])
 def test_general_routes_on_card(cuda, kind):
@@ -199,7 +190,8 @@ def test_general_routes_on_card(cuda, kind):
     tables at every n), x^32 + 1 and x^32 + x^3 + x + 1 (a fold of one
     and of three terms: any p of degree L is taken), and L in {19, 20}."""
     L = {"L=19": 19, "L=20": 20}.get(kind, 32)
-    p = {"dense": _dense32(), "fold 1 term": (1 << 32) | 1,
+    p = {"dense": gf2.find_dense_irreducible_host(32),
+         "fold 1 term": (1 << 32) | 1,
          "fold 3 terms": (1 << 32) | 0b1011}.get(
              kind, gf2.find_irreducible_host(L))
     ns = (1, 8, 12, 20, 25, 26, 32, 33, 40) if L == 32 else (1, 8, L, 25)
@@ -222,10 +214,8 @@ def test_hll_update_on_card(cuda, b):
     threads x 4 loads); b <= 14 keeps a register file a block in shared
     memory, above it the global registers are raised directly."""
     gen = torch.Generator(device=cuda).manual_seed(b)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for N in (1, 7, 300, 4097, 8193, 4_299_996):
         h = _words(gen, cuda, N)
-        assert hll.blocks(N) == min(-(-N // 4096), sms)
         for rb in (32 - b, 32):
             got = hll.hll_update(h, b=b, rank_bits=rb)
             assert torch.equal(got, ref.hll_update_ref(h, b=b,

@@ -307,8 +307,7 @@ def main(argv=None):
         print(f"ab[hll_update N={N} b=12 rank_bits=16]: base {base_ms:.5f} "
               f"ms, this {this_ms:.5f} ms (the call); the kernel's own "
               f"events, min / median / max over 200 calls: base "
-              f"{spread['base']}, this {spread['this']}; blocks: this "
-              f"{hll.blocks(N)} [{card}]")
+              f"{spread['base']}, this {spread['this']} [{card}]")
     return 0
 
 

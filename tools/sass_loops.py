@@ -9,7 +9,7 @@ and, for every kernel whose mangled name holds ``--match``, lists each loop
 its instruction count and its opcodes by count. An inner loop is listed
 inside the loops that hold it, so a loop's count per trip is its own
 count less those of the loops it holds, times their trips. The whole SASS
-goes to ``DIR/<name>.sass`` (default ``chiprun_out/sass``). Needs the CUDA
+goes to ``DIR/<name>.sass`` (default ``build/sass``). Needs the CUDA
 toolkit; exits 2 without ``nvcc``.
 """
 import argparse
@@ -77,7 +77,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("name")
     ap.add_argument("--match", default="")
-    ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sass")
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "sass")
     args = ap.parse_args(argv)
     try:
         nvcc = _build.nvcc()
