@@ -30,8 +30,9 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    each printed by ``general.route`` (the fold and the chunk tables, every
    count of terms and tables the kernel has), at (1024, 8192) and (3, 300):
    n in {1, 8, 25, 26, 32, 33, 40} at L = 32 with find_irreducible_host's
-   p and with a dense one (weight 9, also n in {12, 20}), and L in {19,
-   20}; and ``ops.cyclic``, ``ops.general`` and
+   p and with a dense one (``DENSE_P32``, weight 9, also n in {12, 20}),
+   L in {19, 20}, and n in {1, 8, 25, 32} at L = 16; and ``ops.cyclic``,
+   ``ops.general`` and
    ``ops.cyclic_fused`` over one row of 65,536 segments of the rolling
    launcher's own size (``rolling_block_windows``), the windows of the
    first 6 and of the last 6 segments against the plain version of their
@@ -163,6 +164,9 @@ EVAL_DOCS, PLANTED = 500, 8  # eval set; planted rows per decontam batch
 PREFIX_COLS = 2048          # HLL accuracy prefix: 1024 rows x 2048 tokens
 WIDE_NL = ((9, 8), (20, 16), (33, 32))   # window ops at n > L
 ROUTE_NS = (1, 8, 25, 26, 32, 33, 40)   # GENERAL's routes at L = 32
+# a dense modulus of degree 32, which the fold takes at no n: the
+# irreducible one of weight 9 with the smallest low part
+DENSE_P32 = 0x10000033F
 
 
 def card_line() -> str:
@@ -1524,7 +1528,8 @@ def main() -> int:
             for Lw in (16, 32):
                 if n > Lw:
                     continue
-                # GENERAL at (1024, 8192): with the route cases below
+                # GENERAL at (1024, 8192): with the route cases below, at
+                # L = 16 and 32 for these n
                 for B, S in ((64, 8192), (1024, 520), (1024, 64),
                              (1024, 8192), (3, n)):
                     if family == "general" and (B, S) == (1024, 8192):
@@ -1543,13 +1548,15 @@ def main() -> int:
     # GENERAL's two routes (general.route: 1 the fold, 2 the tables, with
     # their ways), with the default p and a dense one (weight 9), n past L;
     # every count of terms and tables the kernel has
-    dense = gf2.find_dense_irreducible_host(32)
+    if not gf2.is_irreducible_host(DENSE_P32):
+        raise AssertionError(f"DENSE_P32 {hex(DENSE_P32)} is reducible")
     routes, t1 = {}, time.perf_counter()
     rgen = torch.Generator(device="cuda").manual_seed(18)
     for p, Lw, ns in ((gf2.find_irreducible_host(32), 32, ROUTE_NS),
-                      (dense, 32, ROUTE_NS + (12, 20)),
+                      (DENSE_P32, 32, ROUTE_NS + (12, 20)),
                       (gf2.find_irreducible_host(19), 19, (1, 8, 19, 25)),
-                      (gf2.find_irreducible_host(20), 20, (1, 8, 20, 25))):
+                      (gf2.find_irreducible_host(20), 20, (1, 8, 20, 25)),
+                      (gf2.find_irreducible_host(16), 16, (1, 8, 25, 32))):
         for n in ns:
             r = general.route(n, p, Lw)
             routes[f"{hex(p)} n={n}"] = f"{r.route}x{r.ways}"

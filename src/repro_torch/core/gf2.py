@@ -25,7 +25,6 @@ __all__ = [
     "x_pow_mod_host",
     "is_irreducible_host",
     "find_irreducible_host",
-    "find_dense_irreducible_host",
     "build_shiftn_table_host",
     "PAPER_TABLE2",
     "GENERAL_L19",
@@ -139,18 +138,6 @@ def find_irreducible_host(L: int) -> int:
         if is_irreducible_host(top | low):
             return top | low
     raise RuntimeError(f"no irreducible polynomial found for L={L}")
-
-
-def find_dense_irreducible_host(L: int, weight: int = 9) -> int:
-    """The irreducible polynomial of degree L with ``weight`` set bits (its
-    top bit among them) and the smallest low part, WITH the top bit: a
-    dense modulus, for the GENERAL kernel's table route."""
-    for low in range(1, 1 << L, 2):
-        if bin(low).count("1") == weight - 1 and \
-                is_irreducible_host((1 << L) | low):
-            return (1 << L) | low
-    raise ValueError(f"no irreducible polynomial of degree {L} and weight "
-                     f"{weight}")
 
 
 def build_shiftn_table_host(n: int, p: int, L: int,

@@ -36,10 +36,15 @@ NS = range(1, 41)
 
 @functools.lru_cache(maxsize=None)
 def _dense(L: int) -> int:
-    """A dense irreducible p of degree L, which the fold takes at no n:
-    weight 9 with its top bit, and 7 at L = 8 (x^8 + ... + 1, of weight 9,
-    is divisible by x^2 + x + 1)."""
-    return gf2.find_dense_irreducible_host(L, 9 if L > 8 else 7)
+    """A dense irreducible p of degree L, which the fold takes at no n: the
+    one of weight 9 with its top bit (7 at L = 8: x^8 + ... + 1, of weight
+    9, is divisible by x^2 + x + 1) and the smallest low part."""
+    weight = 9 if L > 8 else 7
+    for low in range(1, 1 << L, 2):
+        if bin(low).count("1") == weight - 1 and \
+                gf2.is_irreducible_host((1 << L) | low):
+            return (1 << L) | low
+    raise ValueError(f"no irreducible p of degree {L} and weight {weight}")
 
 
 def _product(v: torch.Tensor, n: int, p: int, L: int,

@@ -23,6 +23,10 @@ from repro_torch.kernels import plan as tplan
 torch.set_num_threads(1)
 
 GRID_DIM = 65535   # blocks a grid's y or z dimension holds
+# a dense modulus of degree 32, which the fold takes at no n: the
+# irreducible one of weight 9 with the smallest low part (chip_smoke.py's
+# DENSE_P32)
+DENSE_P32 = 0x10000033F
 
 
 @pytest.fixture
@@ -190,10 +194,12 @@ def test_general_routes_on_card(cuda, kind):
     tables at every n), x^32 + 1 and x^32 + x^3 + x + 1 (a fold of one
     and of three terms: any p of degree L is taken), and L in {19, 20}."""
     L = {"L=19": 19, "L=20": 20}.get(kind, 32)
-    p = {"dense": gf2.find_dense_irreducible_host(32),
+    p = {"dense": DENSE_P32,
          "fold 1 term": (1 << 32) | 1,
          "fold 3 terms": (1 << 32) | 0b1011}.get(
              kind, gf2.find_irreducible_host(L))
+    if kind == "dense":
+        assert gf2.is_irreducible_host(p) and bin(p).count("1") == 9
     ns = (1, 8, 12, 20, 25, 26, 32, 33, 40) if L == 32 else (1, 8, L, 25)
     gen = torch.Generator(device=cuda).manual_seed(L)
     for n in ns:
