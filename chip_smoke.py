@@ -119,6 +119,29 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    increments issued alone; for the serve path also tokens/s and the split
    of a decode step between ``lm.decode_step`` and ``SessionPool.step``.
 
+10. the durable phase (after item 5, before item 9's times), its launch
+   counts read on their own: (a) ``stream.run_stream`` with the
+   executors ``host``, ``grid`` and ``scan`` on the stats plan and on the
+   decontam plan over the deduplicated corpus's rows (1024 x 8192, and
+   cut to a ragged tail of 300 symbols with an eighth of the rows idle and
+   the rest of random length), each bit-equal to one-shot ``api.run`` with
+   the kernel and with the plain version, with one dispatch for ``grid``
+   and for ``scan`` (one CUDA-graph replay); (b) one (8, 1024, 512) stats
+   block through the graph replay and through the eager loop, in turns:
+   device ms, host ms and idle share of each; (c) 60 ``DataPlane`` steps
+   with a snapshot every 25 into a temporary directory, the one at 50
+   interrupted by a ``FailureInjector``, then a fresh plane of another
+   stats seed restores and runs to step 100: its registers, table and
+   telemetry must equal item 5's uninterrupted run (snapshot bytes, save
+   and restore ms); (d) ``run_dedup_job`` on a ``DedupService`` of 4
+   workers at replication 2 over ``SERVICE_DOCS`` of the dedup corpus in
+   batches of 1,000, a snapshot every 10, under a seeded chaos storm with
+   job kills: flags equal ``add_batch``'s; an elastic restore onto 3
+   workers at replication 1 gives them again; worker 1 killed while 2,000
+   fresh documents are probed keeps recall loss at 0.0, its revival
+   drains the repair queue (docs/s beside ``add_batch``'s); (e) THREEWISE
+   signing and stats on the card equal the CPU's.
+
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
 device line.
@@ -1159,6 +1182,340 @@ def serve_phase(torch, card, reset_counts, read_counts, err_grid):
     return entry, SERVE_B * SERVE_NEW / t_gen
 
 
+# -- the durable phase: executors, the graph, snapshots, the service -------------
+
+# run_dedup_job's corpus: the first 20,000 of the dedup phase's documents
+# (all 100,000 took 241.7 s on the card, past the phase's 60 s; PERF.md)
+SERVICE_DOCS = 20_000
+RAGGED = 300                # the ragged tail of the executor checks
+
+
+def same_outputs(torch, got, want) -> bool:
+    return set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                         for k in want)
+
+
+def executor_checks(torch, api, stream, plan, x, xb, ops, card, what):
+    """run_stream's three executors at chunk_s = CHUNK_S, over ``x`` (a
+    whole number of chunks) and over ``x`` cut to a ragged tail with some
+    rows idle or short: each bit-equal to one-shot ``api.run`` with the
+    kernel and with the plain version. Prints each executor's dispatches
+    for the ragged stream."""
+    B, S = x.shape
+    cases = [(x, xb, None)]
+    Sr = S - CHUNK_S + RAGGED
+    nw = torch.randint(0, Sr - N + 2, (B,), device=x.device,
+                       generator=torch.Generator(x.device).manual_seed(3))
+    nw[: B // 8] = 0
+    cases.append((x[:, :Sr].contiguous(),
+                  None if xb is None else xb[:, :Sr].contiguous(), nw))
+    for xc, xbc, nwc in cases:
+        want = api.run(plan, xc, h1v_b=xbc, n_windows=nwc, operands=ops,
+                       impl="kernel")
+        plain = api.run(plan, xc, h1v_b=xbc, n_windows=nwc, operands=ops,
+                        impl="ref")
+        if not same_outputs(torch, want, plain):
+            raise AssertionError(f"executors[{what}]: one-shot kernel != "
+                                 f"plain at S={xc.shape[1]}")
+        counts = {}
+        for executor in ("host", "grid", "scan"):
+            before = stream.dispatch_count()
+            got = stream.run_stream(plan, xc, h1v_b=xbc, n_windows=nwc,
+                                    operands=ops, chunk_s=CHUNK_S,
+                                    executor=executor)
+            counts[executor] = stream.dispatch_count() - before
+            if not same_outputs(torch, got, want):
+                raise AssertionError(f"executors[{what}]: {executor} != "
+                                     f"one shot at S={xc.shape[1]}")
+        chunks = -(-xc.shape[1] // CHUNK_S)
+        if counts != {"host": chunks, "grid": 1, "scan": 1}:
+            raise AssertionError(f"executors[{what}]: dispatches {counts}, "
+                                 f"expected host {chunks}, grid 1, scan 1")
+        print(f"executors[{what}] B={B} S={xc.shape[1]} chunk_s={CHUNK_S}"
+              f"{' ragged, ' + str(int((nwc == 0).sum())) + ' idle rows' if nwc is not None else ''}: "
+              f"host, grid and scan each equal one-shot api.run (kernel and "
+              f"plain); dispatches {json.dumps(counts)} [{card}]")
+
+
+def graph_vs_eager(torch, api, stream, ngc, tok_block, card):
+    """One (T, B, C) stats block through the CUDA-graph replay and through
+    the eager loop, in turns (eager, graph, graph, eager): device ms and
+    host ms a block, then each one's idle share over 10 blocks."""
+    T, B, C = tok_block.shape
+    plan = ngc.plan
+    dev = torch.device("cuda")
+    chunks = ngc._lookup(tok_block)
+    lens = torch.full((T, B), C, dtype=torch.int32, device=dev)
+    ops = api._check_operands(plan, {"cms": ngc._cms_ops()}, None, dev)
+    s0 = stream.init_state(plan, B, device=dev)
+    graph = lambda: stream._graph_block(plan, s0, chunks, None, lens, ops)
+    eager = lambda: stream._eager_block(plan, s0, chunks, None, lens, ops,
+                                        False)
+    g, e = graph(), eager()
+    for name in ("hll", "cms"):
+        if not torch.equal(g["sketch"][name], e["sketch"][name]):
+            raise AssertionError(f"graph[{name}]: replay != eager loop")
+    if not (torch.equal(g["tail"], e["tail"])
+            and torch.equal(g["seen"], e["seen"])):
+        raise AssertionError("graph: replay tail/seen != eager loop")
+    (e1, eh1), (g1, gh1), (g2, gh2), (e2, eh2) = (
+        device_ms(torch, eager, 20), device_ms(torch, graph, 20),
+        device_ms(torch, graph, 20), device_ms(torch, eager, 20))
+    ten = lambda fn: (lambda: [fn() for _ in range(10)])
+    g_idle = device_busy(torch, ten(graph), card,
+                         f"graph replay, 10 blocks ({T}, {B}, {C})")
+    e_idle = device_busy(torch, ten(eager), card,
+                         f"eager loop, 10 blocks ({T}, {B}, {C})")
+    gd, gh = min(g1, g2), min(gh1, gh2)
+    ed, eh = min(e1, e2), min(eh1, eh2)
+    print(f"graph[stats block ({T}, {B}, {C})]: replay {gd:.5f} ms on the "
+          f"card ({g1:.5f}, {g2:.5f}), host {gh:.5f} ms ({gh1:.5f}, "
+          f"{gh2:.5f}), idle {g_idle:.4f}; eager loop {ed:.5f} ms on the "
+          f"card ({e1:.5f}, {e2:.5f}), host {eh:.5f} ms ({eh1:.5f}, "
+          f"{eh2:.5f}), idle {e_idle:.4f}; replay / eager: card "
+          f"{gd / ed:.3f}, host {gh / eh:.3f}, card + host "
+          f"{(gd + gh) / (ed + eh):.3f}; update_many replays the graph "
+          f"[{card}]")
+
+
+def stats_rates(torch, stream, ngc, rows, card):
+    """``update_stream_many`` over every block of ``rows``, warm, with
+    ``update_many``'s graph replay and, for this measurement only, with
+    the eager loop in its place, in turns (eager, graph, graph, eager):
+    tokens/s of each (the faster of its two runs) and each one's idle
+    share over two blocks."""
+    replay = stream._graph_block
+
+    def eager(plan, state, chunks, chunk_b, lengths, ops):
+        return stream._eager_block(plan, state, chunks, chunk_b, lengths,
+                                   ops, False)
+
+    def run(block, fn):
+        stream._graph_block = block
+        try:
+            return fn()
+        finally:
+            stream._graph_block = replay
+
+    def seconds():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats_run(ngc, rows)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    e1, g1, g2, e2 = (run(eager, seconds), run(replay, seconds),
+                      run(replay, seconds), run(eager, seconds))
+    two = rows[:, : 2 * BLOCK_T * CHUNK_S]
+    g_idle = run(replay, lambda: device_busy(
+        torch, lambda: stats_run(ngc, two), card,
+        f"stats cyclic, graph replay, 2 blocks ({two.size} tokens)"))
+    e_idle = run(eager, lambda: device_busy(
+        torch, lambda: stats_run(ngc, two), card,
+        f"stats cyclic, eager loop, 2 blocks ({two.size} tokens)"))
+    g, e = rows.size / min(g1, g2), rows.size / min(e1, e2)
+    print(f"stats[cyclic] warm, update_stream_many over {rows.size} tokens: "
+          f"graph replay {g:.0f} tokens/s ({min(g1, g2):.4f} s, "
+          f"{max(g1, g2):.4f} s), idle {g_idle:.4f}; eager loop {e:.0f} "
+          f"tokens/s ({min(e1, e2):.4f} s, {max(e1, e2):.4f} s), idle "
+          f"{e_idle:.4f}; graph / eager {g / e:.3f} [{card}]")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def dataplane_durability(torch, pipeline, stats, durable, fault, dp_ref, dc,
+                         tmp: Path, card, steps=100, every=25, kill=60,
+                         interrupt=50):
+    """``DataPlane`` for ``kill`` steps with a snapshot every ``every``
+    (the one at ``interrupt`` killed mid-write by a FailureInjector), then
+    a fresh plane of another stats seed restores and runs to ``steps``: its
+    registers, table and token count must equal ``dp_ref``'s uninterrupted
+    run."""
+    cfg = dp_ref.corpus.cfg
+    inj = fault.FailureInjector(fail_kinds={interrupt: fault.SnapshotInterrupt})
+    a = pipeline.DataPlane(cfg, decontam=dc)
+    saves, lost = [], 0
+    for step in range(kill):
+        a.next_batch(step)
+        if (step + 1) % every == 0:
+            t0 = time.perf_counter()
+            try:
+                a.snapshot(str(tmp), step + 1, injector=inj)
+                saves.append(time.perf_counter() - t0)
+            except fault.SnapshotInterrupt:
+                lost += 1
+    if lost != 1 or durable.latest_epoch(str(tmp)) != every:
+        raise AssertionError(f"dataplane: {lost} interrupted snapshots, "
+                             f"latest {durable.latest_epoch(str(tmp))}")
+    b = pipeline.DataPlane(cfg, stats=stats.NgramStats(stats.StatsConfig(
+        seed=12345, device=cfg.device)), decontam=dc)
+    t0 = time.perf_counter()
+    epoch = b.restore(str(tmp))
+    restore_s = time.perf_counter() - t0
+    for step in range(epoch, steps):
+        b.next_batch(step)
+        if (step + 1) % every == 0:
+            t0 = time.perf_counter()
+            b.snapshot(str(tmp), step + 1)
+            saves.append(time.perf_counter() - t0)
+    for key in ("hll", "cms"):
+        diff = int((b.stats_state[key] != dp_ref.stats_state[key]).sum())
+        if diff:
+            raise AssertionError(f"dataplane: restored {key} differs from "
+                                 f"the uninterrupted run at {diff} entries")
+    if b.telemetry() != dp_ref.telemetry():
+        raise AssertionError(f"dataplane: telemetry {b.telemetry()} != "
+                             f"{dp_ref.telemetry()}")
+    nbytes = dir_bytes(tmp / f"step_{steps:08d}")
+    save_ms, restore_ms = 1e3 * float(np.median(saves)), 1e3 * restore_s
+    print(f"dataplane durability: {kill} steps, a snapshot every {every} "
+          f"(the one at {interrupt} interrupted), a fresh plane restored "
+          f"epoch {epoch} and ran to {steps}: registers, table and telemetry "
+          f"equal the uninterrupted run; snapshot {nbytes} bytes, save "
+          f"{save_ms:.3f} ms (median of {len(saves)}), restore "
+          f"{restore_ms:.3f} ms [{card}]")
+
+
+def service_checks(torch, dedup, service, fault, dd, docs, want_flags,
+                   add_batch_dps, tmp: Path, card, n_docs=SERVICE_DOCS,
+                   seed=0):
+    """run_dedup_job on a 4-worker, 2-way replicated DedupService under a
+    seeded chaos storm with job kills: flags equal ``want_flags`` (the
+    in-process deduper's add_batch); an elastic restore onto 3 workers at
+    replication 1 gives them again; a killed worker costs no recall and
+    its revival drains the repair queue."""
+    docs = docs[:n_docs]
+    n_batches = -(-len(docs) // 1000)
+    chaos = fault.ChaosSchedule(seed, n_batches, n_workers=4, replication=2,
+                                job_kill_rate=0.5)
+    params = dd.export_state()["params"]
+    svc = service.DedupService(dd.cfg, service.ServiceConfig(
+        n_workers=4, replication=2))
+    svc.dd.import_params(params)
+    t0 = time.perf_counter()
+    res = service.run_dedup_job(svc, docs, directory=str(tmp),
+                                batch_docs=1000, snapshot_every=10,
+                                chaos=chaos, max_restarts=n_batches)
+    dt = time.perf_counter() - t0
+    bad = int((res["flags"] != want_flags[: len(docs)]).sum())
+    if bad:
+        raise AssertionError(f"service: {bad} flags differ from add_batch")
+    other = service.DedupService(dd.cfg, service.ServiceConfig(
+        n_workers=3, replication=1))
+    res2 = service.run_dedup_job(other, docs, directory=str(tmp),
+                                 batch_docs=1000, snapshot_every=10)
+    bad = int((res2["flags"] != want_flags[: len(docs)]).sum())
+    if bad or len(other) != len(svc):
+        raise AssertionError(f"service: elastic restore: {bad} flags differ, "
+                             f"{len(other)} != {len(svc)} docs indexed")
+    other.close()
+    # fresh documents probed with worker 1 down, then worker 1 revived;
+    # the oracle is the deduper that flagged the same documents
+    fresh, _ = corpus_docs(2000)
+    oracle = dd
+    if len(docs) < len(want_flags):
+        oracle = dedup.MinHashDeduper(dd.cfg)
+        oracle.import_params(params)
+        oracle.add_batch(docs)
+    svc.kill_worker(1)
+    got = svc.add_batch(fresh)
+    tele = svc.telemetry()
+    if not np.array_equal(got, oracle.add_batch(fresh)):
+        raise AssertionError("service: flags with worker 1 down != oracle")
+    if tele["recall_loss"] != 0.0 or tele["repair_queue_pairs"] == 0:
+        raise AssertionError(f"service: worker 1 down: recall_loss "
+                             f"{tele['recall_loss']}, repair queue "
+                             f"{tele['repair_queue_pairs']}")
+    queued = tele["repair_queue_pairs"]
+    svc.revive_worker(1)
+    tele = svc.telemetry()
+    if tele["repair_queue_pairs"] != 0 or tele["dead_replicas"] != 0:
+        raise AssertionError(f"service: revive left {tele}")
+    svc.close()
+    counts = chaos.counts()
+    print(f"service: run_dedup_job over {len(docs)} docs in batches of 1000, "
+          f"a snapshot every 10, chaos seed {seed} ({json.dumps(counts)}): "
+          f"{res['restarts']} restarts, flags equal add_batch's; elastic "
+          f"restore on 3 workers at replication 1 equal; worker 1 killed: "
+          f"recall_loss 0.0, {queued} pairs queued, revived: queue 0; "
+          f"{dt:.3f} s = {len(docs) / dt:.0f} docs/s against add_batch's "
+          f"{add_batch_dps:.0f} docs/s [{card}]")
+
+
+def corpus_docs(n: int, seed: int = 4242):
+    """``n`` documents of the dedup corpus's kind, from another seed."""
+    from repro_torch.data import corpus
+    return corpus.documents(corpus.CorpusSpec(
+        n_docs=n, dup_rate=0.25, mutate_frac=0.015, vocab=8192, seed=seed))
+
+
+def unfused_checks(torch, dedup, stats, docs, rows, card):
+    """THREEWISE signing and stats on the card equal the same run of the
+    plain path on the CPU, bit for bit."""
+    kw = dict(family="threewise", vocab=8192)
+    sig = {}
+    for dev in ("cuda", "cpu"):
+        d = dedup.MinHashDeduper(dedup.DedupConfig(device=dev, **kw))
+        sig[dev] = d.signature_many(docs[:300])
+    if not np.array_equal(sig["cuda"], sig["cpu"]):
+        raise AssertionError("unfused: THREEWISE signatures on the card != "
+                             "the CPU's")
+    st = {}
+    for dev in ("cuda", "cpu"):
+        ng = stats.NgramStats(stats.StatsConfig(device=dev, **kw))
+        s = ng.update(ng.init_state(), rows[:64, :1024])
+        st[dev] = {k: s[k].cpu() for k in ("hll", "cms")}
+    for key in ("hll", "cms"):
+        if not torch.equal(st["cuda"][key], st["cpu"][key]):
+            raise AssertionError(f"unfused: THREEWISE stats {key} on the "
+                                 f"card != the CPU's")
+    print(f"unfused: THREEWISE signatures of 300 docs and stats of 64 x 1024 "
+          f"tokens on the card equal the CPU's [{card}]")
+
+
+def durable_phase(torch, card, reset_counts, read_counts, ng, dc, dp, dd,
+                  docs, flags, rows, add_batch_dps):
+    """The streaming executors, the graph against the eager loop, the data
+    plane's snapshots and the replicated dedup service, on the card."""
+    import tempfile
+    from repro_torch.data import durable, pipeline, service, stats
+    from repro_torch.data import dedup as dedup_mod
+    from repro_torch.kernels import api, stream
+    from repro_torch.train import fault
+    ngc = ng["cyclic"]
+    S = 16 * CHUNK_S
+    toks = rows[:, :S]
+    x = ngc._lookup(toks)
+    xa, xb = dc._lookups(toks)
+    reset_counts()
+    # (a) the executors on the stats and the decontam plans
+    executor_checks(torch, api, stream, ngc.plan, x, None,
+                    {"cms": ngc._cms_ops()}, card, "stats")
+    executor_checks(torch, api, stream, dc.plan, xa, xb,
+                    {"bloom": {"bits": dc.bits}}, card, "decontam")
+    # (b) one stats block, graph against eager
+    block = next(stats_blocks(rows[:, : BLOCK_T * CHUNK_S]))[0]
+    graph_vs_eager(torch, api, stream, ngc, block, card)
+    stats_rates(torch, stream, ngc, rows, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the data plane's snapshots
+        dataplane_durability(torch, pipeline, stats, durable, fault, dp, dc,
+                             Path(tmp) / "dataplane", card)
+        # (d) the service
+        service_checks(torch, dedup_mod, service, fault, dd, docs, flags,
+                       add_batch_dps, Path(tmp) / "service", card,
+                       n_docs=SERVICE_DOCS)
+    counts = read_counts()
+    print(f"launches[durable phase]: {json.dumps(counts)}")
+    for kind in ("MinHashSpec", "HLLSpec", "CountMinSpec", "BloomSpec"):
+        if counts[kind] < 1:
+            raise AssertionError(f"durable phase launched no {kind} plan")
+    # (e) the unfused paths
+    unfused_checks(torch, dedup_mod, stats, docs, rows, card)
+
+
 # -- the paper's byte-level path ------------------------------------------------
 
 BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
@@ -1763,6 +2120,12 @@ def main() -> int:
             raise AssertionError(f"decontam batch {bi}: kernel != plain")
     print(f"decontam: {len(batches)} batches re-scanned by the plain version "
           f"on the card: equal")
+
+    # -- 10. the durable phase -----------------------------------------------
+    t0 = time.perf_counter()
+    durable_phase(torch, card, reset_counts, read_counts, ng, dc, dp, dd, docs,
+                  flags, rows, len(docs) / dt)
+    print(f"durable phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
     # -- 9. times of the dedup and data-plane paths ---------------------------------
     t_times = time.perf_counter()

@@ -37,7 +37,8 @@ _LAYOUT = {"fam": ("h1",), "mh": ("a", "b")}
 
 def params_from_jax(tree: Dict, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """``{"fam": {"h1": (vocab,)}, "mh": {"a": (k,), "b": (k,)}}`` uint32
-    numpy arrays -> the same tree of uint32 tensors on ``device``."""
+    numpy arrays (THREEWISE's ``h1`` is ``(n, vocab)``) -> the same tree
+    of uint32 tensors on ``device``."""
     out = {}
     for group, names in _LAYOUT.items():
         if set(tree.get(group, {})) != set(names):
@@ -46,8 +47,11 @@ def params_from_jax(tree: Dict, device="cuda") -> Dict[str, Dict[str, torch.Tens
         out[group] = {}
         for name in names:
             arr = np.asarray(tree[group][name])
-            if arr.dtype != np.uint32 or arr.ndim != 1:
-                raise ValueError(f"params[{group!r}][{name!r}] must be a 1-D "
+            # THREEWISE's table is (n, vocab): one row per position
+            ndims = (1, 2) if (group, name) == ("fam", "h1") else (1,)
+            if arr.dtype != np.uint32 or arr.ndim not in ndims:
+                raise ValueError(f"params[{group!r}][{name!r}] must be a "
+                                 f"{'-D or '.join(map(str, ndims))}-D "
                                  f"uint32 array, got {arr.dtype} {arr.shape}")
             # a copy: exported arrays may be read-only views
             out[group][name] = torch.from_numpy(arr.copy()).to(device)

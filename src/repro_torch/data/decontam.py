@@ -12,9 +12,12 @@ probes against the filter and the per-row hit counts, so only a (B,)
 count vector leaves the kernel. The eval-set add is a plain torch
 OR-scatter (it runs once per eval set, not per batch).
 
-Not ported yet: multi-device scans (``data_shards``, ``mesh``) and
-``export_stream`` / ``import_stream``, which wait for
-``stream.export_state`` (ROADMAP.md, Queue 1).
+:meth:`Decontaminator.export_stream` / :meth:`~Decontaminator.import_stream`
+snapshot an open stream scan with both family draws and the filter, in
+the JAX package's layout.
+
+Not ported yet: multi-device scans (``data_shards``, ``mesh``; ROADMAP.md,
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -126,8 +129,8 @@ class Decontaminator:
 
     def update_stream_many(self, sstate: dict, tokens, lengths=None) -> dict:
         """Fold a (T, B, C) block of T token chunks into the stream scan:
-        T plan launches on CUDA, bit-identical to T :meth:`update_stream`
-        calls."""
+        on CUDA one graph replay of T plan launches, bit-identical to T
+        :meth:`update_stream` calls."""
         return self._step(sstate, tokens, lengths, many=True)
 
     def finalize_stream(self, sstate: dict) -> np.ndarray:
@@ -150,3 +153,24 @@ class Decontaminator:
         self.pb = {k: api.as_u32(v, self.device).contiguous()
                    for k, v in params["pb"].items()}
         self.bits = api.as_u32(params["bits"], self.device).contiguous()
+
+    def export_stream(self, sstate: dict) -> dict:
+        """Snapshot an open stream scan and everything its verdicts depend
+        on, as one host numpy tree (the JAX package's layout): both family
+        draws and the eval-set filter (``params``), the carry (hit counts,
+        both rolling tails) and the per-row symbol totals (``seen``)."""
+        host = lambda tree: {k: v.cpu().numpy() for k, v in tree.items()}
+        return {"params": {"pa": host(self.pa), "pb": host(self.pb),
+                           "bits": self.bits.cpu().numpy()},
+                "stream": stream.export_state(self.plan, sstate["stream"],
+                                              batch=len(sstate["seen"])),
+                "seen": np.asarray(sstate["seen"], np.int64).copy()}
+
+    def import_stream(self, tree: dict) -> dict:
+        """Rebuild a live stream scan on this instance's device from
+        :meth:`export_stream`'s tree (this package's or the JAX
+        package's): the params are re-bound first, then the carry."""
+        self.rebind_params(tree["params"])
+        return {"stream": stream.import_state(self.plan, tree["stream"],
+                                              device=self.device),
+                "seen": np.asarray(tree["seen"], np.int64).copy()}

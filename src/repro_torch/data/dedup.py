@@ -19,11 +19,17 @@ band id; candidate pairs are Jaccard-verified sequentially in document
 order, so :meth:`MinHashDeduper.add_batch` reproduces the streaming
 per-document path (:meth:`MinHashDeduper.check_and_add`) exactly.
 
-Not ported yet: multi-device signing (``data_shards``, ``mesh``), the
-bucketed signing fallback for the families outside the fused engine
-(THREEWISE and ID37: the deduper raises for them; BUFFERED-GENERAL gives
-GENERAL's bits and signs on its plan), and ``exact_duplicate_mask``
-(ROADMAP.md, Queue 1).
+The families outside the fused engine (THREEWISE, ID37) sign through the
+bucketed path (:meth:`MinHashDeduper._signature_many_bucketed`): documents
+grouped by power-of-two length bucket, the family's window hashes
+materialised and folded by the plain masked-min reduction, as the JAX
+package does. BUFFERED-GENERAL gives GENERAL's bits and signs on its plan.
+:meth:`MinHashDeduper.signature_unfused`, :func:`signature_batch` (the
+unfused parity oracles) and :func:`exact_duplicate_mask` (a k=4 MinHash
+plan: one plan launch on CUDA) complete the module.
+
+Not ported yet: multi-device signing (``data_shards``, ``mesh``; ROADMAP.md,
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import Cyclic, General, MinHash, make_family
+from repro_torch.core import Cyclic, General, MinHash, make_family, u32
 from repro_torch.kernels import api, stream
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
 
 
@@ -72,6 +79,14 @@ class DedupConfig:
     stream_chunk_s: int = 512
     stream_block_chunks: int = 8
     device: str = "cuda"
+
+
+_SENTINEL = 0xFFFFFFFF
+
+
+def _bucket(n: int) -> int:
+    """Next power-of-two length >= n (the bucketed path's shapes)."""
+    return 1 << int(np.ceil(np.log2(max(n, 2))))
 
 
 def pack_band(shard: Dict[bytes, List[int]]) -> Dict[str, np.ndarray]:
@@ -227,13 +242,10 @@ class MinHashDeduper:
         self.rows = cfg.n_signatures // cfg.lsh_bands
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)
-        if _plan_for_family(self.fam, cfg.n_signatures) is None:
-            raise NotImplementedError(
-                f"family {cfg.family!r} has no fused plan; the unfused "
-                f"signing path is not ported (ROADMAP.md, Queue 1 item 6)")
         self.fam_params = self.fam.init(gen, cfg.vocab, self.device)
         self.mh = MinHash(k=cfg.n_signatures)
         self.mh_params = self.mh.init(gen, self.device)
+        # None for the families the fused engine does not cover
         self.plan = _plan_for_family(self.fam, cfg.n_signatures)
         self._index = BandShardedLSHIndex(cfg.lsh_bands,
                                           workers=cfg.lsh_workers)
@@ -303,7 +315,11 @@ class MinHashDeduper:
         card through pinned memory and are mapped through h1 there; a row
         that runs out of symbols submits 0-length chunks, and a document
         shorter than the n-gram window signs to the sentinel signature.
+        A family without a fused plan signs through
+        :meth:`_signature_many_bucketed`.
         """
+        if self.plan is None:
+            return self._signature_many_bucketed(docs)
         cfg = self.cfg
         D = len(docs)
         out = np.empty((D, cfg.n_signatures), np.uint32)
@@ -346,8 +362,74 @@ class MinHashDeduper:
             out[sel] = sigs[: len(group)]
         return out
 
+    def _signature_batch(self, tokens: torch.Tensor,
+                         n_windows: torch.Tensor) -> torch.Tensor:
+        """(D, S) bucket-padded tokens + (D,) valid-window counts -> (D, k)
+        uint32: the family's window hashes through the plain masked-min
+        reduction."""
+        h = self.fam.hash_windows_batched(self.fam_params, tokens)
+        if hasattr(self.fam, "pairwise_bits"):
+            h = self.fam.pairwise_bits(h)
+        h = u32.lanes(h)
+        idx = torch.arange(h.shape[-1], device=h.device)
+        valid = idx[None, :] < n_windows.to(torch.int64)[:, None]
+        return kref.minhash_reduce(h, valid, self.mh_params["a"],
+                                   self.mh_params["b"]).to(torch.uint32)
+
+    def _signature_many_bucketed(self, docs: Sequence[np.ndarray]) -> np.ndarray:
+        """Signing by (length bucket, row bucket) shape: one call of
+        :meth:`_signature_batch` per shape. The path of the families
+        without a fused plan."""
+        D = len(docs)
+        out = np.empty((D, self.cfg.n_signatures), np.uint32)
+        groups: Dict[int, List[int]] = {}
+        for i, d in enumerate(docs):
+            groups.setdefault(_bucket(len(d)), []).append(i)
+        for bucket, idxs in sorted(groups.items()):
+            # the unfused families roll over the padded width directly, so
+            # it must admit at least one physical window
+            width = max(bucket, self.cfg.ngram_n)
+            # rows capped so the plain (rows, bucket, k_chunk) remix tile
+            # stays bounded whatever the bucket
+            max_rows = max(8, (1 << 20) // bucket)
+            for s in range(0, len(idxs), max_rows):
+                chunk = idxs[s : s + max_rows]
+                Dp = max(8, 1 << int(np.ceil(np.log2(len(chunk)))))
+                toks = np.zeros((Dp, width), np.int32)
+                nw = np.zeros((Dp,), np.int32)
+                for r, i in enumerate(chunk):
+                    d = np.asarray(docs[i])
+                    toks[r, : len(d)] = d
+                    nw[r] = max(0, len(d) - self.cfg.ngram_n + 1)
+                sigs = self._signature_batch(
+                    torch.from_numpy(toks).to(self.device),
+                    torch.from_numpy(nw).to(self.device))
+                out[np.asarray(chunk)] = sigs.cpu().numpy()[: len(chunk)]
+        return out
+
     def signature(self, tokens: np.ndarray) -> np.ndarray:
         return self.signature_many([tokens])[0]
+
+    def signature_unfused(self, tokens: np.ndarray) -> np.ndarray:
+        """One document's signature the unfused way — window hashes
+        materialised, remixed, masked and reduced — bit-identical to
+        :meth:`signature`."""
+        n = len(tokens)
+        # the unfused hash needs at least one physical window to roll over
+        padded = np.zeros(max(_bucket(n), self.cfg.ngram_n), np.int32)
+        padded[:n] = tokens
+        n_windows = max(0, n - self.cfg.ngram_n + 1)
+        h = self.fam.hash_windows(self.fam_params,
+                                  torch.from_numpy(padded).to(self.device))
+        if hasattr(self.fam, "pairwise_bits"):
+            h = self.fam.pairwise_bits(h)
+        h = u32.lanes(h)
+        a = u32.lanes(self.mh_params["a"])[:, None]
+        b = u32.lanes(self.mh_params["b"])[:, None]
+        mixed = (u32.mulmod32(a, h[None, :]) + b) & u32.MASK32
+        idx = torch.arange(h.shape[-1], device=h.device)
+        mixed = torch.where(idx[None, :] < n_windows, mixed, _SENTINEL)
+        return mixed.min(dim=-1).values.to(torch.uint32).cpu().numpy()
 
     # -- LSH band index -----------------------------------------------------
 
@@ -420,18 +502,54 @@ class MinHashDeduper:
         return len(self._sigs)
 
 
+def signature_batch(fam, fam_params, mh: MinHash, mh_params,
+                    tokens) -> torch.Tensor:
+    """The unfused reference: (B, S) tokens -> (B, k) uint32, each row's
+    window hashes materialised and remixed (the parity oracle of the fused
+    paths)."""
+    rows = []
+    for t in torch.as_tensor(tokens):
+        h = fam.hash_windows(fam_params, t)
+        if hasattr(fam, "pairwise_bits"):
+            h = fam.pairwise_bits(h)
+        rows.append(mh.signature(mh_params, h))
+    return torch.stack(rows)
+
+
 def signature_batch_fused(fam, fam_params, mh: MinHash, mh_params, tokens,
                           n_windows=None, impl: str = "auto") -> torch.Tensor:
-    """Fused batched signatures: (B, S) tokens -> (B, k) uint32 on the
-    parameters' device, through the plan engine (one kernel launch on
-    CUDA). Families outside the fused engine are not ported."""
+    """Batched signatures: (B, S) tokens -> (B, k) uint32 on the
+    parameters' device. CYCLIC and GENERAL run the plan engine (one kernel
+    launch on CUDA); the other families fall back to
+    :func:`signature_batch` (which takes no ``n_windows``)."""
     plan = _plan_for_family(fam, mh.k)
     if plan is None:
-        raise NotImplementedError(
-            f"{type(fam).__name__} has no fused plan; the unfused "
-            f"signature path is not ported (ROADMAP.md, Queue 1 item 6)")
+        return signature_batch(fam, fam_params, mh, mh_params, tokens)
     h1v = fam._lookup(fam_params, tokens)
     return api.run(plan, h1v, n_windows=n_windows,
                    operands={"sig": {"a": mh_params["a"],
                                      "b": mh_params["b"]}},
                    impl=impl)["sig"]
+
+
+_EXACT_MH = MinHash(k=4)
+
+
+def exact_duplicate_mask(fam, fam_params, tokens, *, mh_params=None,
+                         impl: str = "auto") -> torch.Tensor:
+    """(B, S) batch -> (B,) bool: True where a sequence's k=4 MinHash of
+    its whole content equals an earlier sequence's in the batch (the exact
+    dedup pass). ``mh_params`` are the four remix lanes (default: drawn
+    from ``torch.Generator().manual_seed(0)`` on the parameters' device;
+    the JAX package draws its own from ``PRNGKey(0)``, so parity carries
+    those across)."""
+    dev = fam_params["h1"].device
+    if mh_params is None:
+        mh_params = _EXACT_MH.init(torch.Generator().manual_seed(0), dev)
+    tokens = torch.as_tensor(tokens, device=dev)
+    sigs = u32.lanes(signature_batch_fused(fam, fam_params, _EXACT_MH,
+                                           mh_params, tokens, impl=impl))
+    B = sigs.shape[0]
+    eq = (sigs[:, None, :] == sigs[None, :, :]).all(dim=-1)
+    earlier = torch.ones((B, B), dtype=torch.bool, device=dev).tril(-1)
+    return (eq & earlier).any(dim=1)

@@ -5,8 +5,13 @@
 * dedup, decontamination and n-gram statistics run per batch on the card;
 * packing: documents are packed into fixed-length rows with EOS separators.
 
-Not ported yet: ``DataPlane.snapshot`` and ``restore``, which need the
-durable store ``data/durable.py`` (ROADMAP.md, Queue 1 item 10).
+* durability: :meth:`DataPlane.snapshot` / :meth:`DataPlane.restore` write
+  and read the stats state with its draw through ``data/durable.py``, in
+  the JAX package's format (a snapshot of either package restores in the
+  other).
+
+Not ported yet: multi-device signing (``data_shards``; ROADMAP.md, Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -14,7 +19,9 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.data import durable
 from repro_torch.data.corpus import CorpusSpec, documents
 from repro_torch.data.decontam import Decontaminator
 from repro_torch.data.dedup import DedupConfig, MinHashDeduper
@@ -113,12 +120,34 @@ class DataPlane:
             "docs_deduped": self.corpus.n_duplicates,
         }
 
-    def snapshot(self, directory: str, step: int, **kw):
-        raise NotImplementedError(
-            "DataPlane.snapshot needs the durable store (data/durable.py), "
-            "not ported to repro_torch yet (ROADMAP.md, Queue 1 item 10)")
+    # -- durability ---------------------------------------------------------
+    # The corpus is stateless-resumable (batch_for_step is pure), so the
+    # only state a restart must carry is the stats accumulator and the
+    # draw it was accumulated under.
+
+    def snapshot(self, directory: str, step: int, *, keep: int = 3,
+                 async_: bool = False, injector=None):
+        """Epoch-tagged atomic snapshot of the per-step data-plane state:
+        ``{"params": the stats draw, "stats": {"hll", "cms", "tokens"}}``.
+        Every leaf is copied to the host before this returns, also with
+        ``async_`` (``train/checkpoint.py``)."""
+        tree = {"params": self.stats.export_params(),
+                "stats": self.stats_state}
+        return durable.save(tree, directory, step, keep=keep, async_=async_,
+                            injector=injector)
 
     def restore(self, directory: str, epoch: Optional[int] = None) -> int:
-        raise NotImplementedError(
-            "DataPlane.restore needs the durable store (data/durable.py), "
-            "not ported to repro_torch yet (ROADMAP.md, Queue 1 item 10)")
+        """Adopt the newest (or given) snapshot: the draw re-bound before
+        the state it produced. Returns the step restored from (feed it
+        back to :meth:`next_batch`)."""
+        tree, epoch = durable.load(directory, epoch)
+        self.stats.rebind_params(tree["params"])
+        dev = self.stats.device
+        st = tree["stats"]
+        self.stats_state = {
+            "hll": torch.from_numpy(np.asarray(st["hll"], np.int32).copy()
+                                    ).to(dev),
+            "cms": torch.from_numpy(np.asarray(st["cms"], np.int32).copy()
+                                    ).to(dev),
+            "tokens": np.asarray(st["tokens"], np.uint32).copy()}
+        return epoch

@@ -14,14 +14,19 @@ CountMin counts, with the running state carried in as each sketch's
 window-hash kernels (``ops.cyclic`` / ``ops.general``) with the same hash
 spec, so query columns cannot drift from update columns.
 
-The token counter accumulates as a uint32 (lo, hi) pair on the host, exact
-past 2^32 tokens.
+The families outside the fused engine (THREEWISE, ID37, BUFFERED-GENERAL)
+take the unfused path, as the JAX package's do: the window hashes are
+materialised by the family itself and folded by the plain
+``HyperLogLog.update`` and ``CountMinSketch.add`` (no plan, no kernel); the
+stream API needs a fused family.
 
-Not ported yet: multi-device updates (``data_shards``, ``mesh``),
-``export_stream`` and ``import_stream`` (they wait for
-``stream.export_state``), and the unfused path for the families outside
-the fused engine (THREEWISE, ID37, BUFFERED-GENERAL: the constructor
-raises for them) (ROADMAP.md, Queue 1).
+The token counter accumulates as a uint32 (lo, hi) pair on the host, exact
+past 2^32 tokens. :meth:`NgramStats.export_stream` /
+:meth:`~NgramStats.import_stream` snapshot an open stream together with
+the draw it was accumulated under, in the JAX package's layout.
+
+Not ported yet: multi-device updates (``data_shards``, ``mesh``; ROADMAP.md,
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -45,17 +50,21 @@ class StatsConfig:
     cms_log2_width: int = 16
     vocab: int = 1 << 17
     seed: int = 11
-    family: str = "cyclic"       # rolling family: cyclic | general
+    family: str = "cyclic"       # rolling family: cyclic | general (fused);
+                                 # other paper families take the unfused path
     impl: str = "auto"           # kernel dispatch: auto | kernel | ref
     # multi-device updates are not ported: None or 1
     data_shards: Optional[int] = None
     device: str = "cuda"
 
 
-def _hash_spec(family: str, n: int, L: int) -> HashSpec:
+def _hash_spec(family: str, n: int, L: int) -> Optional[HashSpec]:
+    """The fused engine's HashSpec for the family, or None (unfused)."""
     if family == "cyclic":
         return HashSpec(family="cyclic", n=n, L=L, discard=True)
-    return HashSpec(family="general", n=n, L=L)
+    if family == "general":
+        return HashSpec(family="general", n=n, L=L)
+    return None
 
 
 def device_tokens(tokens, device) -> torch.Tensor:
@@ -89,10 +98,6 @@ class NgramStats:
             raise NotImplementedError(
                 "multi-device stats (mesh / data_shards) is not ported to "
                 "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
-        if cfg.family not in ("cyclic", "general"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} has no fused stats plan; the unfused "
-                f"stats path is not ported (ROADMAP.md, Queue 1 item 8)")
         self.device = torch.device(cfg.device)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)
@@ -102,16 +107,18 @@ class NgramStats:
                                   log2_width=cfg.cms_log2_width)
         self._cms_params = self.cms.init(gen, self.device)
         # the fused HLL + CountMin plan, built once: one plan execution per
-        # batch is the whole sketch data plane
-        self.plan = SketchPlan(
-            _hash_spec(cfg.family, cfg.ngram_n, cfg.L),
-            (("hll", HLLSpec(b=cfg.hll_b)),
-             ("cms", CountMinSpec(depth=cfg.cms_depth,
-                                  log2_width=cfg.cms_log2_width))))
-        # Theorem-1 consistency: the plan's post-discard width is the
-        # hash_bits the HLL's rank extraction assumes
-        assert self.plan.hash.out_bits == self.hll.hash_bits, (
-            self.plan.hash.out_bits, self.hll.hash_bits)
+        # batch is the whole sketch data plane (None: the unfused path)
+        hs = _hash_spec(cfg.family, cfg.ngram_n, cfg.L)
+        self.plan = None
+        if hs is not None:
+            self.plan = SketchPlan(
+                hs, (("hll", HLLSpec(b=cfg.hll_b)),
+                     ("cms", CountMinSpec(depth=cfg.cms_depth,
+                                          log2_width=cfg.cms_log2_width))))
+            # Theorem-1 consistency: the plan's post-discard width is the
+            # hash_bits the HLL's rank extraction assumes
+            assert self.plan.hash.out_bits == self.hll.hash_bits, (
+                self.plan.hash.out_bits, self.hll.hash_bits)
 
     def _lookup(self, tokens) -> torch.Tensor:
         return lookup(self.fam, self.fp, tokens, self.device)
@@ -130,10 +137,27 @@ class NgramStats:
         t = np.asarray(state["tokens"], np.uint32)
         return (int(t[1]) << 32) | int(t[0])
 
+    def _unfused_hashes(self, tokens) -> torch.Tensor:
+        """The unfused families' masked window hashes — the one definition
+        the update and the query share, so the two cannot drift."""
+        t = device_tokens(tokens, self.device)
+        h = self.fam.hash_windows_batched(self.fp, t)
+        if hasattr(self.fam, "pairwise_bits"):
+            h = self.fam.pairwise_bits(h)
+        return h
+
     def update(self, state: Dict, tokens) -> Dict:
         """Fold a (B, S) token batch into the state: ONE plan execution
         (one kernel launch on CUDA) with the registers and table carried
-        in."""
+        in; for an unfused family the plain HLL and CountMin updates of
+        the family's window hashes."""
+        n_tok = int(np.prod(tuple(tokens.shape)))
+        if self.plan is None:
+            h = self._unfused_hashes(tokens).reshape(-1)
+            cms = self.cms.add({**self._cms_params, "table": state["cms"]},
+                               h)["table"]
+            return {"hll": self.hll.update(state["hll"], h), "cms": cms,
+                    "tokens": _add_tokens(state["tokens"], n_tok)}
         h1v = self._lookup(tokens)
         out = api.run(self.plan, h1v,
                       operands={"hll": {"init": state["hll"]},
@@ -141,7 +165,7 @@ class NgramStats:
                                         "init": state["cms"]}},
                       impl=self.cfg.impl)
         return {"hll": out["hll"], "cms": out["cms"],
-                "tokens": _add_tokens(state["tokens"], h1v.numel())}
+                "tokens": _add_tokens(state["tokens"], n_tok)}
 
     # -- streaming (unbounded token streams, fixed chunk shape) ------------
 
@@ -149,7 +173,11 @@ class NgramStats:
         """Open ``batch`` parallel token streams, continuing from ``state``
         (default: a fresh :meth:`init_state`). The rolling-hash tail and
         the sketch states carry across chunks, so an n-gram spanning two
-        chunks of a stream is still counted."""
+        chunks of a stream is still counted. Fused families only."""
+        if self.plan is None:
+            raise ValueError(
+                f"streaming stats needs a fused family (cyclic|general), "
+                f"not {self.cfg.family!r}")
         state = state or self.init_state()
         sstate = stream.init_state(
             self.plan, batch, carry={"hll": state["hll"],
@@ -176,8 +204,9 @@ class NgramStats:
                                       self._added(tokens, lengths))}
 
     def update_stream_many(self, sstate: Dict, tokens, lengths=None) -> Dict:
-        """Fold a (T, B, C) block of T chunks into the stream: T plan
-        launches on CUDA, bit-identical to T :meth:`update_stream` calls."""
+        """Fold a (T, B, C) block of T chunks into the stream: on CUDA one
+        graph replay of T plan launches (``stream.update_many``),
+        bit-identical to T :meth:`update_stream` calls."""
         st = stream.update_many(self.plan, sstate["stream"],
                                 self._lookup(tokens), lengths=lengths,
                                 operands={"cms": self._cms_ops()},
@@ -214,6 +243,28 @@ class NgramStats:
             "b": api.as_u32(cms["b"], self.device).contiguous(),
             "table": api.as_i32(cms["table"], self.device).contiguous()}
 
+    def export_stream(self, sstate: Dict) -> Dict:
+        """Snapshot an open stream and the draw it was accumulated under as
+        one host numpy tree (the JAX package's layout): ``params``,
+        ``stream`` (``stream.export_state``) and ``tokens``. The params
+        must persist with the state: register indices and table columns
+        are functions of this draw."""
+        return {"params": self.export_params(),
+                "stream": stream.export_state(self.plan, sstate["stream"],
+                                              batch=sstate.get("batch")),
+                "tokens": np.asarray(sstate["tokens"], np.uint32).copy()}
+
+    def import_stream(self, tree: Dict) -> Dict:
+        """Rebuild a live stream state on this instance's device from
+        :meth:`export_stream`'s tree (this package's or the JAX
+        package's): the params are re-bound first, then the carry."""
+        self.rebind_params(tree["params"])
+        sstate = stream.import_state(self.plan, tree["stream"],
+                                     device=self.device)
+        return {"stream": sstate,
+                "tokens": np.asarray(tree["tokens"], np.uint32).copy(),
+                "batch": int(np.asarray(tree["stream"]["seen"]).shape[0])}
+
     # -- queries ------------------------------------------------------------
 
     def distinct_ngrams(self, state: Dict) -> float:
@@ -221,8 +272,10 @@ class NgramStats:
 
     def query_hashes(self, tokens) -> torch.Tensor:
         """(..., S) tokens -> (..., S-n+1) masked window hashes, the ones
-        the fused update feeds to CountMin, through the plain window-hash
-        kernels."""
+        the update feeds to CountMin: through the plain window-hash
+        kernels for a fused family, the family's own hashes otherwise."""
+        if self.plan is None:
+            return self._unfused_hashes(tokens)
         h1v = self._lookup(tokens)
         hs = self.plan.hash
         if hs.family == "cyclic":

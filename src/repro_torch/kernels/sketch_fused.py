@@ -79,6 +79,22 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
+def launch_counts() -> dict:
+    """``LAUNCHES`` and ``EPILOGUE_LAUNCHES`` as one dict (key ``"plan"``
+    for the former)."""
+    return {"plan": LAUNCHES, **EPILOGUE_LAUNCHES}
+
+
+def add_launch_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times a :func:`launch_counts`-shaped ``delta`` to the
+    counters: a CUDA-graph replay launches what its capture recorded, and
+    a capture launches nothing (``kernels/stream.py``)."""
+    global LAUNCHES
+    LAUNCHES += sign * delta["plan"]
+    for kind in EPILOGUE_LAUNCHES:
+        EPILOGUE_LAUNCHES[kind] += sign * delta[kind]
+
+
 def sketch_groups(sketches) -> list:
     """A plan's ``(name, spec)`` sketches cut, in order, into consecutive
     groups of at most eight: one plan launch each."""

@@ -29,25 +29,70 @@ Rows advance independently: per-chunk ``lengths`` mark how many of a row's
 chunk symbols are real, a finished row submits 0, and an idle row's tail is
 preserved verbatim.
 
-The JAX package folds a block of chunks into one ``lax.scan`` dispatch.
-Here :func:`update_many` is a Python loop over the block's chunks, one
-kernel launch per chunk, with the loop's own carry donated from the second
-chunk on (the kernel folds into it in place); all launches are
-asynchronous, so the host runs ahead of the card. :func:`feed` overlaps
-the next block's host->device copy (pinned memory, ``non_blocking``) with
-the current block's kernels. There is no mesh: multi-device streaming,
-``export_state``, ``import_state`` and ``run_stream`` are not ported yet
-(ROADMAP.md, Queue 1).
+Executors. The JAX package folds a block of chunks into one ``lax.scan``
+dispatch; here a block is either
+
+* the **eager loop** — one plan launch per chunk issued from Python, the
+  loop's own carry donated from the second chunk on (the kernel folds into
+  it in place); or
+* one **CUDA-graph replay** (:class:`_BlockGraph`) — the same loop captured
+  once for a fixed ``(T, B, C)`` block shape, its operands and its chunk
+  and carry buffers at fixed addresses, and replayed as one dispatch: the
+  caller's carry and chunks are copied into the graph's static inputs and
+  the carry out is copied out, so neither the caller's state nor a
+  returned state is ever overwritten by a later replay.
+
+:func:`update_many` replays the graph on CUDA (the card measurement that
+chose it is in PERF.md) and runs the eager loop through the plain versions
+on the CPU. :func:`run_stream` takes ``executor="host"`` (one
+:func:`update` per chunk), ``"grid"`` (one :func:`update` over the whole
+stream: the plan kernel's own tile loop is the chunk loop) or ``"scan"``
+(the graph replay). :func:`dispatch_count` counts the dispatches of all of
+them. :func:`feed` overlaps the next block's host->device copy (pinned
+memory, ``non_blocking``) with the current block's kernels.
+
+:func:`export_state` / :func:`import_state` move a carry to host numpy
+trees and back, in the JAX package's layout, so a stream checkpointed by
+either package resumes in the other. There is no mesh: ``mesh`` /
+``data_shards`` raise (ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
+import collections
+import contextvars
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import api
+from repro_torch.kernels import sketch_fused as _sf
 from repro_torch.kernels.plan import SketchPlan
+
+_EXECUTORS = ("scan", "grid", "host")
+
+# dispatches issued by this module's executors: one per update (one plan
+# launch), one per graph replay (a whole block) and one per "grid" stream.
+# Context-local, as the JAX package's counter: concurrent streams each see
+# only their own
+_dispatches = contextvars.ContextVar("repro_torch.kernels.stream._dispatches",
+                                     default=0)
+
+
+def dispatch_count() -> int:
+    """Chunk-executor dispatches issued in this context."""
+    return _dispatches.get()
+
+
+def _dispatched() -> None:
+    _dispatches.set(_dispatches.get() + 1)
+
+
+def _no_mesh(mesh, data_shards) -> None:
+    if mesh is not None or data_shards not in (None, 1):
+        raise NotImplementedError(
+            "multi-device streaming (mesh / data_shards) is not ported to "
+            "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
 
 
 def _cat_u32(parts, dim: int) -> torch.Tensor:
@@ -174,7 +219,12 @@ def _block(plan, state, chunks, lengths, operands, impl, fn):
     # out-of-range lengths silently corrupt the carry: a negative one drives
     # `seen` backwards and re-gathers the tail at wrong columns
     api.check_row_counts(lengths, "lengths", upper=C)
-    return api.as_i32(lengths, dev), operands, ref_path
+    if isinstance(lengths, torch.Tensor):
+        return lengths.to(dev).to(torch.int32), operands, ref_path
+    # host counts go over through pinned memory, without waiting for the
+    # kernels already queued
+    return (_to_device(np.ascontiguousarray(lengths, np.int32), dev),
+            operands, ref_path)
 
 
 def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
@@ -211,6 +261,7 @@ def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
         lengths = lengths[None]
     lengths, operands, ref_path = _block(plan, state, chunk[None], lengths,
                                          operands, impl, "update")
+    _dispatched()
     return _update_body(plan, ref_path, state, chunk, chunk_b, lengths[0],
                         operands)
 
@@ -219,19 +270,21 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
                 lengths=None, operands=None, impl: str = "auto") -> Dict:
     """Fold a ``(T, B, C)`` block of T chunks into the carry: exactly T
     successive :func:`update` calls (bit-identical carry out), validated
-    once for the block, one kernel launch per chunk on CUDA.
+    once for the block.
 
-    The carry of chunks 1..T-1 is the loop's own, so its sketch tensors are
-    donated to the kernel (folded in place, no fill a launch), as the JAX
-    package donates its steady-state carry. Chunk 0 reads the caller's
-    ``state``, which is never donated and stays unchanged.
+    On CUDA the block is one replay of the CUDA graph captured for its
+    ``(T, B, C)`` shape (:class:`_BlockGraph`): one dispatch, T plan
+    launches. With ``impl="ref"`` or on the CPU it is the eager loop of
+    plain versions. Either way the caller's ``state`` stays unchanged and
+    the returned state is the caller's own (no later call writes it).
 
     Args mirror :func:`update` with a leading chunk axis:
       chunks: (T, B, C) h1 chunk stack, folded in order.
       chunk_b: (T, B, C) second family draw, iff the plan has a BloomSpec.
       lengths: (T, B) real-symbol counts per chunk (default: all C). A
         finished row submits 0 from some chunk on, so ragged streams pad
-        with zero-length chunks.
+        with zero-length chunks. Checked on the host (a CUDA tensor is
+        read back once), never inside a capture.
     """
     dev = state["seen"].device
     chunks = api.as_u32(chunks, dev)
@@ -247,12 +300,140 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
                              f"stack {tuple(chunks.shape[:2])}")
     lengths, operands, ref_path = _block(plan, state, chunks, lengths,
                                          operands, impl, "update_many")
+    if ref_path:
+        return _eager_block(plan, state, chunks, chunk_b, lengths, operands,
+                            ref_path)
+    return _graph_block(plan, state, chunks, chunk_b, lengths, operands)
+
+
+def _eager_block(plan, state, chunks, chunk_b, lengths, operands,
+                 ref_path: bool) -> Dict:
+    """The block as a Python loop: one :func:`update` body (one plan launch
+    on the kernel path) per chunk, the loop's own carry donated from the
+    second chunk on. Inputs already validated."""
     for t in range(chunks.shape[0]):
+        _dispatched()
         state = _update_body(plan, ref_path, state, chunks[t].contiguous(),
                              None if chunk_b is None
                              else chunk_b[t].contiguous(),
                              lengths[t], operands, donate=t > 0)
     return state
+
+
+def _flat(state: Dict) -> list:
+    """A carry's tensors in a fixed order: tail(s), seen, then the
+    sketches in plan order."""
+    return ([state[k] for k in ("tail", "tail_b", "seen") if k in state]
+            + list(state["sketch"].values()))
+
+
+def _unflat(like: Dict, flat) -> Dict:
+    """Inverse of :func:`_flat` against a carry of the same layout."""
+    flat = list(flat)
+    out = {k: flat.pop(0) for k in ("tail", "tail_b", "seen") if k in like}
+    out["sketch"] = {name: flat.pop(0) for name in like["sketch"]}
+    return out
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for 32-bit tensors, uint32 through its int32 view."""
+    dst.view(torch.int32).copy_(src.view(torch.int32))
+
+
+def _clone(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32).clone().view(t.dtype)
+
+
+class _BlockGraph:
+    """One CUDA-graph capture of the eager loop over a fixed ``(T, B, C)``
+    block, for one plan and one set of operand tensors.
+
+    The capture reads its carry in, chunks and lengths from static buffers
+    and leaves the carry out in static tensors; :meth:`replay` copies the
+    caller's inputs in, replays, and returns copies of the carry out. The
+    operands are read at the addresses they had at capture time, so the
+    cache key holds their ``data_ptr`` values and the entry holds the tensors
+    themselves (an address cannot be reused while its graph lives):
+    re-bound parameters get a new capture, never the old draw.
+
+    The plan kernel's wrapper counts its launches when it issues them;
+    during the capture it issues none, so the counts it took then are
+    taken back and added again at every replay, with one dispatch.
+    """
+
+    def __init__(self, plan, state, chunks, chunk_b, lengths, operands):
+        self.plan = plan
+        self.operands = operands          # held: their addresses are baked in
+        self.state_in = [_clone(t) for t in _flat(state)]
+        self.like = _unflat(state, self.state_in)
+        self.chunks = _clone(chunks.contiguous())
+        self.chunk_b = None if chunk_b is None else _clone(chunk_b.contiguous())
+        self.lengths = lengths.clone()
+        dev = chunks.device
+        # warm-up on a side stream: the library is built and loaded, its
+        # residency cached and the allocator primed before the capture
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = _sf.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.state_out = _flat(self._body())
+        after = _sf.launch_counts()
+        self.counts = {k: after[k] - before[k] for k in after}
+        _sf.add_launch_counts(self.counts, -1)
+
+    def _body(self) -> Dict:
+        state = _unflat(self.like, self.state_in)
+        for t in range(self.chunks.shape[0]):
+            state = _update_body(
+                self.plan, False, state, self.chunks[t],
+                None if self.chunk_b is None else self.chunk_b[t],
+                self.lengths[t], self.operands, donate=t > 0)
+        return state
+
+    def replay(self, state, chunks, chunk_b, lengths) -> Dict:
+        for dst, src in zip(self.state_in, _flat(state)):
+            _copy_into(dst, src)
+        _copy_into(self.chunks, chunks)
+        if chunk_b is not None:
+            _copy_into(self.chunk_b, chunk_b)
+        self.lengths.copy_(lengths)
+        self.graph.replay()
+        _sf.add_launch_counts(self.counts)
+        _dispatched()
+        return _unflat(self.like, [_clone(t) for t in self.state_out])
+
+
+# captures by (plan, device, block shape, second stream, operand addresses);
+# the least recently replayed goes first past _GRAPHS_KEPT
+_GRAPHS_KEPT = 16
+_graphs: "collections.OrderedDict[tuple, _BlockGraph]" = \
+    collections.OrderedDict()
+
+
+def _graph_key(plan, chunks, chunk_b, operands) -> tuple:
+    ptrs = tuple((name, op, t.data_ptr())
+                 for name in sorted(operands)
+                 for op, t in sorted(operands[name].items()))
+    return (plan, str(chunks.device), tuple(chunks.shape),
+            chunk_b is not None, ptrs)
+
+
+def _graph_block(plan, state, chunks, chunk_b, lengths, operands) -> Dict:
+    """The block as one replay of its cached :class:`_BlockGraph` (captured
+    on first use). Inputs already validated on the host."""
+    key = _graph_key(plan, chunks, chunk_b, operands)
+    graph = _graphs.get(key)
+    if graph is None:
+        graph = _BlockGraph(plan, state, chunks, chunk_b, lengths, operands)
+        _graphs[key] = graph
+        while len(_graphs) > _GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+    _graphs.move_to_end(key)
+    return graph.replay(state, chunks, chunk_b, lengths)
 
 
 def _to_device(a, dev: torch.device):
@@ -304,3 +485,170 @@ def finalize(plan: SketchPlan, state: Dict) -> Dict[str, torch.Tensor]:
     outputs one-shot ``api.run`` would have produced over the concatenated
     stream (a Bloom sketch's counts per row)."""
     return {name: state["sketch"][name] for name, _ in plan.sketches}
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def export_state(plan: SketchPlan, state: Dict,
+                 batch: Optional[int] = None) -> Dict:
+    """Snapshot a stream carry as a host numpy tree in the JAX package's
+    layout: ``tail`` (B, n-1) uint32 (and ``tail_b``), ``seen`` (B,) int32
+    and ``sketch`` ``{name: state}``. ``batch`` keeps the first ``batch``
+    rows of the per-row leaves (global sketch states pass whole). Every
+    leaf is a host copy, safe to hand to a writer thread while the live
+    carry keeps changing."""
+    if batch is None:
+        batch = state_batch(plan, state)
+    out = {k: _host(state[k][:batch]).copy()
+           for k in ("tail", "tail_b", "seen") if k in state}
+    out["sketch"] = {
+        name: _host(state["sketch"][name][:batch] if spec.state_kind == "row"
+                    else state["sketch"][name]).copy()
+        for name, spec in plan.sketches}
+    return out
+
+
+def import_state(plan: SketchPlan, tree: Dict, *, device="cuda", mesh=None,
+                 data_shards: Optional[int] = None) -> Dict:
+    """Rebuild a live carry on ``device`` from an :func:`export_state`
+    tree (this package's or the JAX package's), checked against ``plan``:
+    the tail's width, ``tail_b`` present exactly when the plan has a Bloom
+    sketch, every sketch present in its state shape."""
+    if not isinstance(plan, SketchPlan):
+        raise TypeError(f"plan must be a SketchPlan, got {type(plan)}")
+    _no_mesh(mesh, data_shards)
+    n = plan.hash.n
+    seen = _host(tree["seen"])
+    batch = int(seen.shape[0])
+    tail = _host(tree["tail"])
+    if tail.shape != (batch, n - 1):
+        raise ValueError(f"tail shape {tail.shape} != ({batch}, {n - 1}) — "
+                         f"was this state exported under a different plan?")
+    state = {"tail": api.as_u32(tail, device).contiguous(),
+             "seen": api.as_i32(seen, device).contiguous()}
+    if plan.needs_second_stream:
+        if "tail_b" not in tree:
+            raise ValueError("plan contains a BloomSpec but the exported "
+                             "state has no tail_b — family mismatch")
+        state["tail_b"] = api.as_u32(_host(tree["tail_b"]),
+                                     device).contiguous()
+    elif "tail_b" in tree:
+        raise ValueError("exported state has tail_b but the plan has no "
+                         "BloomSpec — family mismatch")
+    missing = set(plan.names) - set(tree["sketch"])
+    if missing:
+        raise ValueError(f"exported state lacks sketches {sorted(missing)}")
+    sketch = {}
+    for name, spec in plan.sketches:
+        shape, dtype_name, _ = spec.state_struct(batch)
+        got = _host(tree["sketch"][name])
+        if got.shape != shape:
+            raise ValueError(f"sketch {name!r} state shape {got.shape} != "
+                             f"{shape}")
+        sketch[name] = api.as_state(got, dtype_name, device).contiguous()
+    state["sketch"] = sketch
+    return state
+
+
+def _symbol_budget(n_windows, B: int, S: int, n: int) -> np.ndarray:
+    """``api.run``'s n_windows (valid windows a row) -> (B,) int64 symbols
+    a row consumes on the host: nw valid windows take nw + n - 1 leading
+    symbols."""
+    W = max(0, S - n + 1)
+    if n_windows is None:
+        nw = np.full((B,), W, np.int64)
+    else:
+        api.check_row_counts(n_windows, "n_windows")
+        nw = _host(n_windows).astype(np.int64).reshape(-1)
+        if nw.shape != (B,):
+            raise ValueError(f"n_windows shape {nw.shape} != batch ({B},)")
+        nw = np.minimum(nw, W)
+    return np.where(nw > 0, nw + n - 1, 0)
+
+
+def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
+               n_windows=None, operands=None, impl: str = "auto",
+               executor: str = "scan", n_chunks: Optional[int] = None,
+               device=None, mesh=None,
+               data_shards: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Chunked drop-in for :func:`repro_torch.kernels.api.run`: the same
+    arguments (plus ``chunk_s``) and bit-identical outputs, the stream
+    consumed in ``chunk_s``-symbol steps with the cross-chunk carry.
+
+    ``executor``:
+
+    * ``"scan"`` (default) — the whole stream as one ``(n_chunks, B,
+      chunk_s)`` block: on CUDA one replay of the block's CUDA graph (one
+      dispatch), elsewhere the same chunk loop through the plain versions.
+      ``n_chunks`` >= ``ceil(S / chunk_s)`` pins the chunk count (shorter
+      streams pad with zero-length chunks), so streams of other lengths
+      share one capture.
+    * ``"grid"`` — one :func:`update` over the whole stream: on CUDA one
+      plan launch, whose tile loop over (row, segment) keeps every
+      sketch's accumulator resident for the launch. ``chunk_s`` is not
+      used.
+    * ``"host"`` — a host loop of one-chunk :func:`update` calls, the
+      ragged last chunk padded to ``chunk_s``.
+
+    ``device``: as ``api.run`` (``h1v``'s device for a tensor, else
+    ``cuda``).
+    """
+    if executor not in _EXECUTORS:
+        raise ValueError(f"unknown executor={executor!r}; expected one of "
+                         f"{_EXECUTORS}")
+    if chunk_s < 1:
+        raise ValueError(f"chunk_s must be >= 1, got {chunk_s}")
+    if not isinstance(plan, SketchPlan):
+        raise TypeError(f"plan must be a SketchPlan, got {type(plan)}")
+    _no_mesh(mesh, data_shards)
+    for name in (operands or {}):
+        if "init" in (operands[name] or {}):
+            raise ValueError(
+                f"sketch {name!r}: do not pass 'init' to run_stream — the "
+                f"stream carry supplies every sketch's state")
+    n = plan.hash.n
+    dev = api.resolve_device(h1v, device)
+    api.use_ref(impl, dev)                    # validates impl up front
+    x, lead = api.flatten(api.as_u32(h1v, dev))
+    B, S = x.shape
+    xb = None
+    if api.needs_second_stream(plan, h1v_b, "h1v_b"):
+        xb, _ = api.flatten(api.as_u32(h1v_b, dev))
+        if tuple(xb.shape) != (B, S):
+            raise ValueError(f"h1v_b shape {tuple(xb.shape)} != h1v shape "
+                             f"{(B, S)}")
+    sym = _symbol_budget(n_windows, B, S, n)
+    nc = max(1, -(-S // chunk_s))
+    if n_chunks is not None:
+        if n_chunks < nc:
+            raise ValueError(f"n_chunks={n_chunks} < ceil(S/chunk_s)={nc}")
+        nc = n_chunks
+    state = init_state(plan, B, device=dev)
+
+    if executor == "grid":
+        state = update(plan, state, x, chunk_b=xb,
+                       lengths=sym.astype(np.int32), operands=operands,
+                       impl=impl)
+    else:
+        width = nc * chunk_s
+        if width > S:            # the ragged tail (and pinned chunks) padded
+            x = api._pad_cols(x, width)
+            xb = None if xb is None else api._pad_cols(xb, width)
+        lens = np.clip(sym[None, :] - np.arange(nc)[:, None] * chunk_s, 0,
+                       chunk_s).astype(np.int32)
+        if executor == "host":
+            for c in range(nc):
+                cols = slice(c * chunk_s, (c + 1) * chunk_s)
+                state = update(plan, state, x[:, cols],
+                               chunk_b=None if xb is None else xb[:, cols],
+                               lengths=lens[c], operands=operands, impl=impl)
+        else:
+            tile = lambda t: (t.view(torch.int32).reshape(B, nc, chunk_s)
+                              .transpose(0, 1).contiguous()
+                              .view(torch.uint32))
+            state = update_many(plan, state, tile(x),
+                                chunk_b=None if xb is None else tile(xb),
+                                lengths=lens, operands=operands, impl=impl)
+    return api.shape_outputs(plan, finalize(plan, state), lead)

@@ -137,18 +137,38 @@ def test_own_draws_are_seeded_and_well_formed():
 
 @pytest.mark.parametrize("name", ["threewise", "id37", "buffered_general"])
 def test_unported_families_raise(name):
-    # the families themselves are ported (tests/test_torch_families.py);
-    # what stays unported for them is the data paths' unfused fallback,
-    # which raises and names ROADMAP. BUFFERED-GENERAL gives GENERAL's bits,
-    # so the deduper signs it on the fused GENERAL plan, as the reference's
+    # the families and their data paths' unfused fallback are ported: the
+    # deduper signs THREEWISE and ID37 by the bucketed path and the stats
+    # fold their hashes unfused, each equal to the reference's.
+    # BUFFERED-GENERAL gives GENERAL's bits, so the deduper signs it on the
+    # fused GENERAL plan, as the reference's (its stats are unfused)
+    from repro.data.dedup import DedupConfig as JDedupConfig
+    from repro.data.dedup import MinHashDeduper as JMinHashDeduper
+    from repro.data.stats import NgramStats as JNgramStats
+    from repro.data.stats import StatsConfig as JStatsConfig
     from repro_torch.data.dedup import DedupConfig, MinHashDeduper
     from repro_torch.data.stats import NgramStats, StatsConfig
     assert make_family(name, 4).name == name.upper().replace("_", "")
-    cfg = DedupConfig(family=name, ngram_n=4, device="cpu")
+    kw = dict(family=name, ngram_n=4, vocab=300, n_signatures=8,
+              lsh_bands=2)
+    jdd = JMinHashDeduper(JDedupConfig(**kw))
+    dd = MinHashDeduper(DedupConfig(device="cpu", **kw))
+    dd.import_params(jdd.export_state()["params"])
     if name == "buffered_general":
-        assert MinHashDeduper(cfg).plan.hash.family == "general"
+        assert dd.plan.hash.family == "general"
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MinHashDeduper(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NgramStats(StatsConfig(family=name, ngram_n=4, device="cpu"))
+        assert dd.plan is None
+    rng = np.random.default_rng(5)
+    docs = [rng.integers(0, 300, size=m) for m in (3, 20, 41)]
+    np.testing.assert_array_equal(dd.signature_many(docs),
+                                  jdd.signature_many(docs))
+    skw = dict(family=name, ngram_n=4, vocab=300, hll_b=5,
+               cms_log2_width=6)
+    jst = JNgramStats(JStatsConfig(**skw))
+    st = NgramStats(StatsConfig(device="cpu", **skw))
+    st.rebind_params(jst.export_params())
+    toks = rng.integers(0, 300, (2, 25))
+    got = st.update(st.init_state(), toks)
+    want = jst.update(jst.init_state(), toks)
+    for key in ("hll", "cms"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))

@@ -165,7 +165,7 @@ def test_stream_validates_the_second_stream():
         stream.update(plan, st, chunk, chunk_b=chunk[:, :8], operands=ops)
 
 
-def test_dataplane_telemetry_matches_reference(monkeypatch):
+def test_dataplane_telemetry_matches_reference(monkeypatch, tmp_path):
     cfg = dict(seq_len=128, batch_size=4, vocab=VOCAB, seed=1)
 
     class Carried(pipeline.MinHashDeduper):
@@ -201,5 +201,17 @@ def test_dataplane_telemetry_matches_reference(monkeypatch):
     assert got["docs_deduped"] > 0
     np.testing.assert_allclose(got["distinct_ngrams"],
                                want["distinct_ngrams"], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdp.snapshot("unused", 0)
+    # the snapshots of both planes hold the same tree
+    from repro.data import durable as jdurable
+    from repro_torch.data import durable
+    tdp.snapshot(str(tmp_path / "port"), 5)
+    jdp.snapshot(str(tmp_path / "ref"), 5)
+    got_tree, _ = durable.load(str(tmp_path / "port"))
+    want_tree, _ = jdurable.load(str(tmp_path / "ref"))
+    for part in ("params", "stats"):
+        for key, sub in want_tree[part].items():
+            if isinstance(sub, dict):
+                for k, v in sub.items():
+                    np.testing.assert_array_equal(got_tree[part][key][k], v)
+            else:
+                np.testing.assert_array_equal(got_tree[part][key], sub)

@@ -143,9 +143,15 @@ def test_band_packing_round_trip_matches_reference():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="multi-device"):
         dedup.MinHashDeduper(dedup.DedupConfig(data_shards=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="threewise"):
-        dedup.MinHashDeduper(dedup.DedupConfig(family="threewise",
-                                               device="cpu"))
+    # THREEWISE is ported: it signs by the bucketed path, as the reference
+    kw = dict(family="threewise", vocab=8192, n_signatures=16, lsh_bands=4)
+    ref = jdedup.MinHashDeduper(jdedup.DedupConfig(**kw))
+    port = dedup.MinHashDeduper(dedup.DedupConfig(device="cpu", **kw))
+    port.import_params(convert.params_from_jax(ref.export_state()["params"],
+                                               "cpu"))
+    docs, _ = _docs()
+    np.testing.assert_array_equal(port.add_batch(docs[:40]),
+                                  ref.add_batch(docs[:40]))
 
 
 def test_deduper_kernel_matches_plain_on_card(cuda):

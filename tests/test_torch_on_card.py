@@ -2,7 +2,9 @@
 decode kernel's ready flags of every type, ``bloom_probe`` through each of
 its filter routes, ``general_rolling`` through each of its product routes
 and ``hll_update`` in shared and in global registers, each against its plain
-version on the same card.
+version on the same card; and the streaming executor's CUDA-graph replay
+against its eager loop and the plain versions: one dispatch a block, the
+caller's state unchanged, a restore after a capture bit-identical.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -13,9 +15,12 @@ package on the CPU; ``chip_smoke.py`` makes the same checks at its sizes.
 import pytest
 import torch
 
+import numpy as np
+
 from repro_torch.core import gf2
+from repro_torch.data import stats
 from repro_torch.kernels import (api, bloom, general, hll, ops, ref,
-                                 sketch_fused)
+                                 sketch_fused, stream)
 from repro_torch.kernels import plan as tplan
 
 # the suite runs test files side by side in worker processes: keep torch's
@@ -227,3 +232,126 @@ def test_hll_update_on_card(cuda, b):
             assert torch.equal(got, ref.hll_update_ref(h, b=b,
                                                        rank_bits=rb)), (N, rb)
             del got
+
+
+def _stream_plans():
+    hs = tplan.HashSpec(family="cyclic", n=8, L=32, discard=True)
+    return (tplan.SketchPlan(hs, (("hll", tplan.HLLSpec(b=12)),
+                                  ("cms", tplan.CountMinSpec(
+                                      depth=4, log2_width=16)))),
+            tplan.SketchPlan(hs, (("sig", tplan.MinHashSpec(k=16)),
+                                  ("bl", tplan.BloomSpec(k=4, log2_m=20)))))
+
+
+def _stream_ops(plan, gen, dev):
+    ops_ = {}
+    for name, spec in plan.sketches:
+        ops_[name] = {k: _words(gen, dev, *shape) for k, shape in
+                      sketch_fused.operand_shapes(spec).items()}
+    return ops_
+
+
+def test_update_many_graph_replay_on_card(cuda):
+    """The replay equals the eager loop and the plain version, is one
+    dispatch and T plan launches, and leaves the caller's state and every
+    state it returned unchanged by later replays."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    T, B, C = 4, 64, 96
+    for plan in _stream_plans():
+        ops_ = _stream_ops(plan, gen, cuda)
+        chunks = [_words(gen, cuda, T, B, C) for _ in range(3)]
+        second = ([_words(gen, cuda, T, B, C) for _ in range(3)]
+                  if plan.needs_second_stream else [None] * 3)
+        lens = np.random.default_rng(0).integers(0, C + 1, (T, B))
+        lens[:, :3] = 0                              # idle rows
+        s0 = stream.init_state(plan, B, device=cuda)
+        states, plain = [s0], [s0]
+        for t in range(3):
+            before = (stream.dispatch_count(), sketch_fused.LAUNCHES)
+            states.append(stream.update_many(plan, states[-1], chunks[t],
+                                             chunk_b=second[t], lengths=lens,
+                                             operands=ops_))
+            assert stream.dispatch_count() == before[0] + 1
+            # the first call warms up (T launches) and captures the graph
+            # (none) before its replay
+            assert sketch_fused.LAUNCHES == before[1] + T * (1 + (t == 0))
+            plain.append(stream.update_many(plan, plain[-1], chunks[t],
+                                            chunk_b=second[t], lengths=lens,
+                                            operands=ops_, impl="ref"))
+        snaps = [stream.export_state(plan, st) for st in states]
+        # a fourth replay of the same graph changes none of them
+        stream.update_many(plan, states[-1], chunks[0], chunk_b=second[0],
+                           lengths=lens, operands=ops_)
+        for st, snap, want in zip(states, snaps, plain):
+            again = stream.export_state(plan, st)
+            expect = stream.export_state(plan, want)
+            for key in ("tail", "seen"):
+                assert np.array_equal(again[key], snap[key])
+                assert np.array_equal(again[key], expect[key])
+            for name in snap["sketch"]:
+                assert np.array_equal(again["sketch"][name],
+                                      snap["sketch"][name])
+                assert np.array_equal(again["sketch"][name],
+                                      expect["sketch"][name])
+
+
+def test_run_stream_executors_on_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, S = 32, 1000
+    for plan in _stream_plans():
+        ops_ = _stream_ops(plan, gen, cuda)
+        x = _words(gen, cuda, B, S)
+        xb = _words(gen, cuda, B, S) if plan.needs_second_stream else None
+        nw = torch.randint(0, S - 7, (B,), generator=gen, device=cuda)
+        nw[:2] = 0
+        want = api.run(plan, x, h1v_b=xb, n_windows=nw, operands=ops_,
+                       impl="ref")
+        for executor, chunk_s, n_chunks, dispatches in (
+                ("host", 128, None, 8), ("grid", 128, None, 1),
+                ("scan", 128, None, 1), ("scan", 128, 10, 1),
+                ("scan", 8, None, 1)):
+            before = stream.dispatch_count()
+            got = stream.run_stream(plan, x, h1v_b=xb, n_windows=nw,
+                                    operands=ops_, chunk_s=chunk_s,
+                                    executor=executor, n_chunks=n_chunks)
+            assert stream.dispatch_count() - before == dispatches, executor
+            for name in want:
+                assert torch.equal(got[name], want[name]), (executor, name)
+
+
+def test_restore_after_capture_on_card(cuda, tmp_path):
+    """A stream captured and replayed, exported, imported into a fresh
+    NgramStats of another seed (its params re-bound: new addresses, a new
+    capture) and continued equals the uninterrupted run; re-binding the
+    running instance to another draw is never served the old one."""
+    from repro_torch.data import durable
+    cfg = dict(hll_b=12, cms_log2_width=16, vocab=8192)
+    ng = stats.NgramStats(stats.StatsConfig(device="cuda", **cfg))
+    rng = np.random.default_rng(1)
+    blocks = [rng.integers(0, 8192, (4, 128, 256)) for _ in range(4)]
+    whole = ng.init_stream(128)
+    for blk in blocks:
+        whole = ng.update_stream_many(whole, blk)
+    half = ng.init_stream(128)
+    for blk in blocks[:2]:
+        half = ng.update_stream_many(half, blk)
+    durable.save_stats_stream(ng, half, str(tmp_path), 2)
+    fresh = stats.NgramStats(stats.StatsConfig(device="cuda", seed=77, **cfg))
+    fresh.update_stream_many(fresh.init_stream(128), blocks[0])  # a capture
+    resumed, _ = durable.restore_stats_stream(fresh, str(tmp_path))
+    for blk in blocks[2:]:
+        resumed = fresh.update_stream_many(resumed, blk)
+    for key in ("hll", "cms"):
+        assert torch.equal(fresh.finalize_stream(resumed)[key],
+                           ng.finalize_stream(whole)[key]), key
+    # the same instance re-bound to another draw gives that draw's bits
+    other = stats.NgramStats(stats.StatsConfig(device="cuda", seed=78, **cfg))
+    ng.rebind_params(other.export_params())
+    got = ng.update_stream_many(ng.init_stream(128), blocks[0])
+    plain = stats.NgramStats(stats.StatsConfig(device="cuda", impl="ref",
+                                               **cfg))
+    plain.rebind_params(other.export_params())
+    want = plain.update_stream_many(plain.init_stream(128), blocks[0])
+    for key in ("hll", "cms"):
+        assert torch.equal(ng.finalize_stream(got)[key],
+                           plain.finalize_stream(want)[key]), key

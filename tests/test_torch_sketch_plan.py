@@ -140,18 +140,35 @@ def test_run_validation():
                 operands={"sig": ops}, device="cpu")
 
 
-def test_unported_epilogues_raise():
-    # every sketch epilogue is ported; what stays unported raises and
-    # names ROADMAP: the families outside the fused engine, multi-device
-    # stats and the data plane's snapshot
-    from repro_torch.data.pipeline import DataPlane
+def test_unported_epilogues_raise(tmp_path):
+    # every sketch epilogue is ported, and so are the families outside the
+    # fused engine (their stats equal the reference's) and the data plane's
+    # snapshot (a round trip restores the state); what stays unported
+    # raises and names ROADMAP: multi-device stats
+    from repro.data.stats import NgramStats as JNgramStats
+    from repro.data.stats import StatsConfig as JStatsConfig
+    from repro_torch.data.pipeline import DataPlane, PipelineConfig
     from repro_torch.data.stats import NgramStats, StatsConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NgramStats(StatsConfig(family="threewise", device="cpu"))
+    jst = JNgramStats(JStatsConfig(family="threewise", vocab=512, hll_b=6))
+    st = NgramStats(StatsConfig(family="threewise", vocab=512, hll_b=6,
+                                device="cpu"))
+    st.rebind_params(jst.export_params())
+    toks = np.random.default_rng(8).integers(0, 512, (3, 40))
+    got = st.update(st.init_state(), toks)
+    want = jst.update(jst.init_state(), toks)
+    for key in ("hll", "cms"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NgramStats(StatsConfig(data_shards=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataPlane.snapshot(None, "unused", 0)
+    dp = DataPlane(PipelineConfig(seq_len=64, batch_size=2, vocab=512,
+                                  dedup=False, device="cpu"))
+    dp.next_batch(0)
+    dp.snapshot(str(tmp_path), 1)
+    other = DataPlane(PipelineConfig(seq_len=64, batch_size=2, vocab=512,
+                                     dedup=False, device="cpu"),
+                      stats=NgramStats(StatsConfig(seed=5, device="cpu")))
+    assert other.restore(str(tmp_path)) == 1
+    assert other.telemetry() == dp.telemetry()
     plan = tplan.SketchPlan(tplan.HashSpec(family="cyclic", n=8),
                             (("card", tplan.HLLSpec(b=8)),))
     out = api.run(plan, np.zeros((2, 40), np.uint32), device="cpu")
