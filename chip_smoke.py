@@ -140,7 +140,29 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    workers at replication 1 gives them again; worker 1 killed while 2,000
    fresh documents are probed keeps recall loss at 0.0, its revival
    drains the repair queue (docs/s beside ``add_batch``'s); (e) THREEWISE
-   signing and stats on the card equal the CPU's.
+   signing and stats on the card equal the CPU's;
+11. the sharded phase (after item 7's serve path, its launch counts read
+   on their own): the multi-device layer (``kernels/shard.py``) on
+   ``data_mesh(1)`` and on ``DataMesh((cuda:0,) * 4)``, four virtual
+   shards of the one card, each output held bit for bit against the same
+   call without a mesh: (a) ``run_sharded`` of the stats plans (both
+   families, warm HLL and CountMin carries), the dedup plans (k = 64, both
+   families) and the decontam plan at 1021 x 8192 (no d > 1 divides 1021,
+   an eighth of the rows idle); (b) item 10's executor checks on each
+   mesh; (c) ``NgramStats`` on 1 and 4 shards over (8, 1024, 512) blocks
+   through each shard's graph replay (dispatches, replays and launches
+   printed); (d) a stats stream exported at 4 shards imported at 1 and at
+   2, and one at 1 imported at 4; (e) item 10's ``DataPlane`` snapshots at
+   ``data_shards=1``; (f) ``MinHashDeduper`` on 4 shards over
+   ``SERVICE_DOCS`` documents (signatures and flags) and
+   ``DedupService(mesh=...)`` over them under item 10's chaos storm; (g)
+   ``ServeEngine`` greedy and sampled with its pool on 1 and on 4 shards:
+   tokens and telemetry equal item 7's runs. ``sharded[...]`` lines time
+   one ``run_sharded`` call at d = 1 and 4 against ``api.run`` and one
+   stats block at d = 4 against d = 1 and one device (card and host ms,
+   idle share), beside the card's name and power limit. Every shard runs
+   on cuda:0 here; the distinct-device path needs a machine with more
+   cards (``tests/test_torch_on_card.py`` holds it there).
 
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
@@ -965,7 +987,9 @@ def decode_split(torch, decode, spec, args, cbits, got, card):
 
 def serve_phase(torch, card, reset_counts, read_counts, err_grid):
     """The serve path on qwen1.5-0.5b at full width; returns the decode
-    kernel's entry of the kernels line and its numbers."""
+    kernel's entry of the kernels line, generated tokens/s and what the
+    sharded phase serves again: the engine factory, the prompts and the
+    greedy and sampled runs."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import sketches, u32
     from repro_torch.kernels import api, decode, ref
@@ -1005,9 +1029,9 @@ def serve_phase(torch, card, reset_counts, read_counts, err_grid):
         prompts[r, -(SERVE_N - 1):] = grams[j, : SERVE_N - 1]
     prompts = prompts.astype(np.int32)
 
-    def engine(impl="kernel", **kw):
+    def engine(impl="kernel", mesh=None, **kw):
         s = dataclasses.replace(scfg, **kw)
-        return ServeEngine(cfg, params, s, impl=impl,
+        return ServeEngine(cfg, params, s, impl=impl, mesh=mesh,
                            canary_bits=cbits if s.ngram_plane != "legacy"
                            else None)
 
@@ -1179,7 +1203,9 @@ def serve_phase(torch, card, reset_counts, read_counts, err_grid):
              "launches": counts["decode"], "max_abs_err": err_grid,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
              "bound_by": by, "library_ms": None}
-    return entry, SERVE_B * SERVE_NEW / t_gen
+    ctx = {"engine": engine, "prompts": prompts,
+           "greedy": (toks, tele), "sampled": (stoks, sstats["telemetry"])}
+    return entry, SERVE_B * SERVE_NEW / t_gen, ctx
 
 
 # -- the durable phase: executors, the graph, snapshots, the service -------------
@@ -1195,12 +1221,14 @@ def same_outputs(torch, got, want) -> bool:
                                          for k in want)
 
 
-def executor_checks(torch, api, stream, plan, x, xb, ops, card, what):
+def executor_checks(torch, api, stream, plan, x, xb, ops, card, what,
+                    mesh=None):
     """run_stream's three executors at chunk_s = CHUNK_S, over ``x`` (a
     whole number of chunks) and over ``x`` cut to a ragged tail with some
     rows idle or short: each bit-equal to one-shot ``api.run`` with the
-    kernel and with the plain version. Prints each executor's dispatches
-    for the ragged stream."""
+    kernel and with the plain version (on ``mesh`` when given: the stream
+    row-sharded, each shard's graph replayed). Prints each executor's
+    dispatches for the ragged stream."""
     B, S = x.shape
     cases = [(x, xb, None)]
     Sr = S - CHUNK_S + RAGGED
@@ -1222,7 +1250,7 @@ def executor_checks(torch, api, stream, plan, x, xb, ops, card, what):
             before = stream.dispatch_count()
             got = stream.run_stream(plan, xc, h1v_b=xbc, n_windows=nwc,
                                     operands=ops, chunk_s=CHUNK_S,
-                                    executor=executor)
+                                    executor=executor, mesh=mesh)
             counts[executor] = stream.dispatch_count() - before
             if not same_outputs(torch, got, want):
                 raise AssertionError(f"executors[{what}]: {executor} != "
@@ -1327,15 +1355,18 @@ def dir_bytes(path: Path) -> int:
 
 def dataplane_durability(torch, pipeline, stats, durable, fault, dp_ref, dc,
                          tmp: Path, card, steps=100, every=25, kill=60,
-                         interrupt=50):
+                         interrupt=50, data_shards=None):
     """``DataPlane`` for ``kill`` steps with a snapshot every ``every``
     (the one at ``interrupt`` killed mid-write by a FailureInjector), then
     a fresh plane of another stats seed restores and runs to ``steps``: its
     registers, table and token count must equal ``dp_ref``'s uninterrupted
-    run."""
-    cfg = dp_ref.corpus.cfg
+    run. ``data_shards``: both planes' dedup signing and stats on a data
+    mesh of that many shards."""
+    cfg = dataclasses.replace(dp_ref.corpus.cfg, data_shards=data_shards)
     inj = fault.FailureInjector(fail_kinds={interrupt: fault.SnapshotInterrupt})
-    a = pipeline.DataPlane(cfg, decontam=dc)
+    a = pipeline.DataPlane(cfg, decontam=dc, stats=stats.NgramStats(
+        stats.StatsConfig(impl=cfg.impl, device=cfg.device,
+                          data_shards=data_shards)))
     saves, lost = [], 0
     for step in range(kill):
         a.next_batch(step)
@@ -1350,7 +1381,8 @@ def dataplane_durability(torch, pipeline, stats, durable, fault, dp_ref, dc,
         raise AssertionError(f"dataplane: {lost} interrupted snapshots, "
                              f"latest {durable.latest_epoch(str(tmp))}")
     b = pipeline.DataPlane(cfg, stats=stats.NgramStats(stats.StatsConfig(
-        seed=12345, device=cfg.device)), decontam=dc)
+        seed=12345, impl=cfg.impl, device=cfg.device,
+        data_shards=data_shards)), decontam=dc)
     t0 = time.perf_counter()
     epoch = b.restore(str(tmp))
     restore_s = time.perf_counter() - t0
@@ -1370,7 +1402,9 @@ def dataplane_durability(torch, pipeline, stats, durable, fault, dp_ref, dc,
                              f"{dp_ref.telemetry()}")
     nbytes = dir_bytes(tmp / f"step_{steps:08d}")
     save_ms, restore_ms = 1e3 * float(np.median(saves)), 1e3 * restore_s
-    print(f"dataplane durability: {kill} steps, a snapshot every {every} "
+    print(f"dataplane durability"
+          f"{'' if data_shards is None else f' (data_shards={data_shards})'}"
+          f": {kill} steps, a snapshot every {every} "
           f"(the one at {interrupt} interrupted), a fresh plane restored "
           f"epoch {epoch} and ran to {steps}: registers, table and telemetry "
           f"equal the uninterrupted run; snapshot {nbytes} bytes, save "
@@ -1514,6 +1548,291 @@ def durable_phase(torch, card, reset_counts, read_counts, ng, dc, dp, dd,
             raise AssertionError(f"durable phase launched no {kind} plan")
     # (e) the unfused paths
     unfused_checks(torch, dedup_mod, stats, docs, rows, card)
+
+
+# -- the sharded phase: the multi-device layer on virtual shards ----------------
+SHARD_B = 1021              # run_sharded's rows: no d > 1 divides them
+
+
+def sharded_turns(torch, fns, iters=20):
+    """(device ms, host ms) a call of each of ``fns`` (name -> fn), timed in
+    turns A B C C B A; each the lower of its two readings."""
+    names = list(fns)
+    first = {k: device_ms(torch, fns[k], iters) for k in names}
+    second = {k: device_ms(torch, fns[k], iters) for k in reversed(names)}
+    return {k: (min(first[k][0], second[k][0]), min(first[k][1], second[k][1]))
+            for k in names}
+
+
+def turns_text(times) -> str:
+    return "; ".join(f"{k} {d:.5f} ms card, {h:.5f} ms host"
+                     for k, (d, h) in times.items())
+
+
+def sharded_plans(torch, api, shard, meshes, ng, dc, dd, gdd, rows, card):
+    """``run_sharded`` of the stats, decontam and dedup plans, both families
+    where the path has them, at SHARD_B x 8192 with warm global carries,
+    on each mesh: bit-equal to ``api.run``; then one stats call timed."""
+    toks = rows[:SHARD_B, : 16 * CHUNK_S]
+    cases = []
+    for family in ("cyclic", "general"):
+        st = ng[family]
+        x = st._lookup(toks)
+        ops = {"cms": st._cms_ops()}
+        warm = api.run(st.plan, x[:64], operands=ops)
+        cases.append((f"stats {family}", st.plan, x, None, {
+            "hll": {"init": warm["hll"]},
+            "cms": {**st._cms_ops(), "init": warm["cms"]}}))
+        deduper = dd if family == "cyclic" else gdd
+        cases.append((f"dedup {family}", deduper.plan,
+                       deduper.fam._lookup(deduper.fam_params,
+                                           torch.from_numpy(toks).cuda()),
+                       None, {"sig": {"a": deduper.mh_params["a"],
+                                      "b": deduper.mh_params["b"]}}))
+    xa, xb = dc._lookups(toks)
+    cases.append(("decontam cyclic", dc.plan, xa, xb,
+                  {"bloom": {"bits": dc.bits}}))
+    gen = torch.Generator().manual_seed(5)
+    nw = torch.randint(0, toks.shape[1] - N + 2, (SHARD_B,), generator=gen)
+    nw[:SHARD_B // 8] = 0
+    for what, plan, x, xb2, ops in cases:
+        want = api.run(plan, x, h1v_b=xb2, n_windows=nw, operands=ops)
+        for name, mesh in meshes.items():
+            got = shard.run_sharded(plan, x, h1v_b=xb2, n_windows=nw,
+                                    operands=ops, mesh=mesh)
+            if not same_outputs(torch, got, want):
+                raise AssertionError(f"sharded[{what}]: run_sharded on "
+                                     f"{name} != api.run")
+        print(f"sharded[{what}] ({SHARD_B}, {x.shape[1]}), an eighth of "
+              f"the rows idle: run_sharded on {', '.join(meshes)} == "
+              f"api.run, bit for bit [{card}]")
+    _, plan, x, _, ops = cases[0]
+    fns = {"api.run": lambda: api.run(plan, x, operands=ops)}
+    for name, mesh in meshes.items():
+        fns[name] = (lambda m: lambda: shard.run_sharded(
+            plan, x, operands=ops, mesh=m))(mesh)
+    print(f"sharded[run_sharded stats plan ({SHARD_B}, {x.shape[1]})]: "
+          f"{turns_text(sharded_turns(torch, fns))} [{card}]")
+
+
+def sharded_stats(torch, stats, stream, sketch_fused, meshes, ngc, rows,
+                  card):
+    """``NgramStats`` on each mesh over the same (8, 1024, 512) blocks
+    (``update_many``'s per-shard graphs): registers, table and token count
+    equal the one-device run's; the dispatches and launches of the run;
+    one block timed at each shard count, with its idle share over 10."""
+    cut = rows[:, : 4 * BLOCK_T * CHUNK_S]
+    want = stats_run(ngc, cut)
+    by_mesh = {}
+    for name, mesh in meshes.items():
+        ng = stats.NgramStats(stats.StatsConfig(device="cuda"), mesh=mesh)
+        ng.rebind_params(ngc.export_params())
+        stats_run(ng, cut[:, : BLOCK_T * CHUNK_S])     # the captures
+        before = (stream.dispatch_count(), sketch_fused.LAUNCHES)
+        got = stats_run(ng, cut)
+        after = (stream.dispatch_count(), sketch_fused.LAUNCHES)
+        for key in ("hll", "cms"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"sharded stats on {name}: {key} != "
+                                     f"one device")
+        if got["tokens"].tolist() != want["tokens"].tolist():
+            raise AssertionError(f"sharded stats on {name}: tokens differ")
+        by_mesh[name] = ng
+        print(f"sharded[stats on {name}]: update_stream_many over "
+              f"{cut.size} tokens == one device (registers, table, tokens); "
+              f"{after[0] - before[0]} dispatches, "
+              f"{(after[0] - before[0]) * mesh.size} graph replays, "
+              f"{after[1] - before[1]} plan launches [{card}]")
+    block = next(stats_blocks(cut))[0]
+    chunks = ngc._lookup(block)
+    T, B, C = chunks.shape
+    lens = torch.full((T, B), C, dtype=torch.int32, device="cuda")
+    ops = {"cms": ngc._cms_ops()}
+    fns = {"one device": (lambda s: lambda: stream.update_many(
+        ngc.plan, s, chunks, lengths=lens, operands=ops))(
+            stream.init_state(ngc.plan, B, device="cuda"))}
+    for name, mesh in meshes.items():
+        fns[name] = (lambda s: lambda: stream.update_many(
+            ngc.plan, s, chunks, lengths=lens, operands=ops))(
+                stream.init_state(ngc.plan, B, device="cuda", mesh=mesh))
+    times = sharded_turns(torch, fns)
+    idle = {k: device_busy(torch, (lambda f: lambda: [f() for _ in
+                                                      range(10)])(fns[k]),
+                           card, f"stats block {k}, 10 blocks")
+            for k in fns}
+    print(f"sharded[stats block ({T}, {B}, {C})]: {turns_text(times)}; "
+          f"idle over 10 blocks "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in idle.items())} [{card}]")
+    return by_mesh
+
+
+def sharded_elastic(torch, stats, shard, ngc, rows, mesh4, card):
+    """A stats stream exported at 4 shards and imported at 1 and 2, and
+    one exported at 1 imported at 4, each finished there: the registers,
+    table and tokens of the uninterrupted one-device run."""
+    cut = rows[:, : 4 * BLOCK_T * CHUNK_S]
+    blocks = list(stats_blocks(cut))
+    want = stats_run(ngc, cut)
+    two = shard.DataMesh((torch.device("cuda", 0),) * 2)
+    plans = (("4 shards", mesh4, "1 shard", shard.data_mesh(1)),
+             ("4 shards", mesh4, "2 shards", two),
+             ("1 shard", shard.data_mesh(1), "4 shards", mesh4))
+    for save_name, save_mesh, load_name, load_mesh in plans:
+        a = stats.NgramStats(stats.StatsConfig(device="cuda"),
+                             mesh=save_mesh)
+        a.rebind_params(ngc.export_params())
+        ss = a.init_stream(cut.shape[0])
+        for toks, lens in blocks[:2]:
+            ss = a.update_stream_many(ss, toks, lengths=lens)
+        tree = a.export_stream(ss)
+        b = stats.NgramStats(stats.StatsConfig(device="cuda", seed=777),
+                             mesh=load_mesh)
+        ss = b.import_stream(tree)
+        for toks, lens in blocks[2:]:
+            ss = b.update_stream_many(ss, toks, lengths=lens)
+        got = b.finalize_stream(ss)
+        for key in ("hll", "cms"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"elastic {save_name} -> {load_name}: "
+                                     f"{key} != one device")
+        if got["tokens"].tolist() != want["tokens"].tolist():
+            raise AssertionError(f"elastic {save_name} -> {load_name}: "
+                                 f"tokens differ")
+    print(f"sharded[elastic]: a stats stream of {cut.shape[0]} rows saved "
+          f"after 2 of {len(blocks)} blocks at 4 shards and restored at 1 "
+          f"and at 2, and saved at 1 restored at 4, each finished there: "
+          f"registers, table and tokens equal the one-device run [{card}]")
+
+
+def sharded_dedup(torch, dedup, service, fault, dd, docs, flags, mesh4,
+                  card, n_docs=SERVICE_DOCS):
+    """``MinHashDeduper`` on the 4-shard mesh over the first ``n_docs``
+    documents: signatures and verdicts equal the one-device deduper's; then
+    ``DedupService(mesh=...)`` over them under the durable phase's chaos
+    storm: flags equal."""
+    sub = docs[:n_docs]
+    sd = dedup.MinHashDeduper(dd.cfg, mesh=mesh4)
+    params = dd.export_state()["params"]
+    sd.import_params(params)
+    t0 = time.perf_counter()
+    sigs = sd.signature_many(sub)
+    t_sign = time.perf_counter() - t0
+    if not np.array_equal(sigs, dd.signature_many(sub)):
+        raise AssertionError("sharded dedup: signatures != one device")
+    got = sd.add_batch(sub)
+    if not np.array_equal(got, flags[:n_docs]):
+        raise AssertionError("sharded dedup: flags != one device")
+    sd.close()
+    n_batches = -(-n_docs // 1000)
+    chaos = fault.ChaosSchedule(0, n_batches, n_workers=4, replication=2,
+                                job_kill_rate=0.5)
+    svc = service.DedupService(dd.cfg, service.ServiceConfig(
+        n_workers=4, replication=2), mesh=mesh4)
+    svc.dd.import_params(params)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = service.run_dedup_job(svc, sub, directory=tmp,
+                                    batch_docs=1000, snapshot_every=10,
+                                    chaos=chaos, max_restarts=n_batches)
+        dt = time.perf_counter() - t0
+    svc.close()
+    if not np.array_equal(res["flags"], flags[:n_docs]):
+        raise AssertionError("sharded service: flags != one device")
+    print(f"sharded[dedup]: {n_docs} docs on 4 shards (groups of "
+          f"{dd.cfg.stream_rows} x 4 rows): signatures and add_batch flags "
+          f"== one device, signing {t_sign:.3f} s; DedupService(mesh) under "
+          f"chaos seed 0 ({json.dumps(chaos.counts())}): {res['restarts']} "
+          f"restarts, flags == one device, {dt:.3f} s [{card}]")
+
+
+def sharded_serve(torch, ctx, mesh1, mesh4, card):
+    """``ServeEngine`` with its pool on 1 and on 4 virtual shards, greedy
+    and sampled: tokens and telemetry (canary and banned counts) equal at
+    both and equal the serve phase's one-device runs."""
+    strip = lambda t: {k: v for k, v in t.items() if k != "dispatches"}
+    for kind, kw in (("greedy", {}), ("sampled",
+                                      {"temperature": 0.8, "top_k": 50})):
+        base_toks, base_tele = ctx[kind]
+        runs = {}
+        for name, mesh in (("1 shard", mesh1), ("4 shards", mesh4)):
+            toks, st = ctx["engine"](mesh=mesh, **kw).generate(
+                ctx["prompts"], SERVE_NEW)
+            runs[name] = (toks, strip(st["telemetry"]))
+            if not (np.array_equal(toks, base_toks)
+                    and runs[name][1] == strip(base_tele)):
+                raise AssertionError(f"sharded serve {kind} on {name} != "
+                                     f"one device")
+        tele = runs["4 shards"][1]
+        print(f"sharded[serve {kind}]: {SERVE_ARCH}, {SERVE_B} prompts x "
+              f"{SERVE_P}, {SERVE_NEW} new, the pool on 1 and on 4 virtual "
+              f"shards: tokens and telemetry == one device (canary hits "
+              f"{tele['canary_hits']}, banned {tele['banned_candidates']})"
+              f" [{card}]")
+
+
+def sharded_phase(torch, card, reset_counts, read_counts, ng, dc, dp, dd,
+                  gdd, docs, flags, rows, serve_ctx):
+    """The multi-device layer (``kernels/shard.py``) on ``data_mesh(1)`` and
+    on four virtual shards of the one card: plans, streams, elastic
+    restore, the data plane's snapshots, dedup and the service, serving —
+    each held bit for bit against the same call without a mesh."""
+    import tempfile
+    from repro_torch.data import dedup as dedup_mod
+    from repro_torch.data import durable, pipeline, service
+    from repro_torch.data import stats as stats_mod
+    from repro_torch.kernels import api, shard, sketch_fused, stream
+    from repro_torch.train import fault
+    print(f"sharded: torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}; every shard here runs on cuda:0 "
+          f"(the distinct-device path needs more cards) [{card}]")
+    mesh1 = shard.data_mesh(1)
+    mesh4 = shard.DataMesh((torch.device("cuda", 0),) * 4)
+    meshes = {"data_mesh(1)": mesh1, "4 virtual shards": mesh4}
+    ngc = ng["cyclic"]
+    split, t0 = {}, time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        now = time.perf_counter()
+        split[what] = round(now - t0, 1)
+        t0 = now
+
+    reset_counts()
+    sharded_plans(torch, api, shard, meshes, ng, dc, dd, gdd, rows, card)
+    lap("plans")
+    toks = rows[:, : 16 * CHUNK_S]
+    x = ngc._lookup(toks)
+    xa, xb = dc._lookups(toks)
+    for name, mesh in meshes.items():
+        executor_checks(torch, api, stream, ngc.plan, x, None,
+                        {"cms": ngc._cms_ops()}, card, f"stats, {name}",
+                        mesh=mesh)
+        executor_checks(torch, api, stream, dc.plan, xa, xb,
+                        {"bloom": {"bits": dc.bits}}, card,
+                        f"decontam, {name}", mesh=mesh)
+    lap("executors")
+    sharded_stats(torch, stats_mod, stream, sketch_fused,
+                  {"1 shard": mesh1, "4 shards": mesh4}, ngc, rows, card)
+    lap("stats")
+    sharded_elastic(torch, stats_mod, shard, ngc, rows, mesh4, card)
+    lap("elastic")
+    with tempfile.TemporaryDirectory() as tmp:
+        dataplane_durability(torch, pipeline, stats_mod, durable, fault, dp,
+                             dc, Path(tmp), card, data_shards=1)
+    lap("dataplane")
+    sharded_dedup(torch, dedup_mod, service, fault, dd, docs, flags, mesh4,
+                  card)
+    lap("dedup and service")
+    sharded_serve(torch, serve_ctx, mesh1, mesh4, card)
+    lap("serve")
+    print(f"sharded phase split, s: {json.dumps(split)} [{card}]")
+    counts = read_counts()
+    print(f"launches[sharded phase]: {json.dumps(counts)}")
+    for kind in ("MinHashSpec", "HLLSpec", "CountMinSpec", "BloomSpec",
+                 "decode"):
+        if counts[kind] < 1:
+            raise AssertionError(f"sharded phase launched no {kind} kernel")
 
 
 # -- the paper's byte-level path ------------------------------------------------
@@ -2402,11 +2721,17 @@ def main() -> int:
           f"share {idle_dec:.4f}) [{card}]")
     # -- 7. the serve path, with its times ---------------------------------------
     t0 = time.perf_counter()
-    entry, serve_tps = serve_phase(torch, card, reset_counts, read_counts,
-                                   err_decode)
+    entry, serve_tps, serve_ctx = serve_phase(torch, card, reset_counts,
+                                              read_counts, err_decode)
     kernels.append(entry)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s; generated "
           f"{serve_tps:.1f} tokens/s [{card}]")
+    # -- 11. the sharded phase ------------------------------------------------
+    t0 = time.perf_counter()
+    sharded_phase(torch, card, reset_counts, read_counts, ng, dc, dp, dd,
+                  gdd, docs, flags, rows, serve_ctx)
+    del serve_ctx
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s [{card}]")
     # -- 8. the byte-level path, with its times -----------------------------
     t0 = time.perf_counter()
     byte_entries, bytes_cps = bytes_phase(torch, card, reset_counts,

@@ -16,8 +16,12 @@ OR-scatter (it runs once per eval set, not per batch).
 snapshot an open stream scan with both family draws and the filter, in
 the JAX package's layout.
 
-Not ported yet: multi-device scans (``data_shards``, ``mesh``; ROADMAP.md,
-Queue 1 item 7).
+Multi-device scans: with ``mesh`` (a
+:class:`~repro_torch.kernels.shard.DataMesh`) or
+``DecontamConfig.data_shards`` the batch scan runs through
+:func:`repro_torch.kernels.shard.run_auto` (rows split over the shards, the
+filter copied to each device) and the streams are row-sharded; the counts
+are the same bits at any shard count.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.core import BloomFilter, make_family
 from repro_torch.data.stats import device_tokens, lookup
-from repro_torch.kernels import api, stream
+from repro_torch.kernels import api, shard, stream
 from repro_torch.kernels.plan import BloomSpec, HashSpec, SketchPlan
 
 
@@ -43,19 +47,18 @@ class DecontamConfig:
     max_hit_frac: float = 0.5    # flag a sequence when >50% of windows hit
     seed: int = 7
     impl: str = "auto"           # kernel dispatch: auto | kernel | ref
-    # multi-device scans are not ported: None or 1
+    # shard the scan over this many shards (None = one device): rows are
+    # independent, the filter is copied to every device
     data_shards: Optional[int] = None
     device: str = "cuda"
 
 
 class Decontaminator:
     def __init__(self, cfg: DecontamConfig, mesh=None):
-        if mesh is not None or cfg.data_shards not in (None, 1):
-            raise NotImplementedError(
-                "multi-device decontamination (mesh / data_shards) is not "
-                "ported to repro_torch yet (ROADMAP.md, Queue 1 item 7)")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
+        # an explicit mesh wins over cfg.data_shards
+        self.mesh = shard.resolve(mesh, cfg.data_shards, self.device)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam_a = make_family("cyclic", n=cfg.ngram_n, L=cfg.L)
         self.fam_b = make_family("cyclic", n=cfg.ngram_n, L=cfg.L)
@@ -88,9 +91,9 @@ class Decontaminator:
         """(B, S) train batch -> (B,) float32 fraction of windows present
         in the eval set."""
         ha, hb = self._lookups(tokens)
-        counts = api.run(self.plan, ha, h1v_b=hb,
-                         operands={"bloom": {"bits": self.bits}},
-                         impl=self.cfg.impl)["bloom"]
+        counts = shard.run_auto(self.plan, ha, h1v_b=hb,
+                                operands={"bloom": {"bits": self.bits}},
+                                impl=self.cfg.impl, mesh=self.mesh)["bloom"]
         W = ha.shape[-1] - self.cfg.ngram_n + 1
         return (counts.to(torch.float32) / W).cpu().numpy()
 
@@ -105,7 +108,8 @@ class Decontaminator:
         chunks is still probed. ``seen`` counts each row's symbols on the
         host, for the final fraction."""
         return {"stream": stream.init_state(self.plan, batch,
-                                            device=self.device),
+                                            device=self.device,
+                                            mesh=self.mesh),
                 "seen": np.zeros((batch,), np.int64)}
 
     def _step(self, sstate, tokens, lengths, many: bool) -> dict:
@@ -136,7 +140,8 @@ class Decontaminator:
     def finalize_stream(self, sstate: dict) -> np.ndarray:
         """-> (B,) fraction of each stream's windows present in the eval
         set (0.0 for streams shorter than one window)."""
-        counts = stream.finalize(self.plan, sstate["stream"])["bloom"]
+        counts = stream.finalize(self.plan, sstate["stream"],
+                                 batch=len(sstate["seen"]))["bloom"]
         counts = counts.cpu().numpy().astype(np.int64)
         windows = np.maximum(sstate["seen"] - self.cfg.ngram_n + 1, 0)
         return np.where(windows > 0, counts / np.maximum(windows, 1), 0.0)
@@ -167,10 +172,12 @@ class Decontaminator:
                 "seen": np.asarray(sstate["seen"], np.int64).copy()}
 
     def import_stream(self, tree: dict) -> dict:
-        """Rebuild a live stream scan on this instance's device from
-        :meth:`export_stream`'s tree (this package's or the JAX
-        package's): the params are re-bound first, then the carry."""
+        """Rebuild a live stream scan on this instance's device (or mesh,
+        whatever shard count it was saved at) from :meth:`export_stream`'s
+        tree (this package's or the JAX package's): the params are re-bound
+        first, then the carry."""
         self.rebind_params(tree["params"])
         return {"stream": stream.import_state(self.plan, tree["stream"],
-                                              device=self.device),
+                                              device=self.device,
+                                              mesh=self.mesh),
                 "seen": np.asarray(tree["seen"], np.int64).copy()}

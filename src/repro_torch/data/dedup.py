@@ -28,8 +28,12 @@ package does. BUFFERED-GENERAL gives GENERAL's bits and signs on its plan.
 unfused parity oracles) and :func:`exact_duplicate_mask` (a k=4 MinHash
 plan: one plan launch on CUDA) complete the module.
 
-Not ported yet: multi-device signing (``data_shards``, ``mesh``; ROADMAP.md,
-Queue 1 item 7).
+Multi-device signing: with ``mesh`` (a
+:class:`~repro_torch.kernels.shard.DataMesh`) or ``DedupConfig.data_shards``
+each group's stream carry is row-sharded over the mesh
+(:mod:`repro_torch.kernels.stream`); ``stream_rows`` is then a per-shard
+tile budget, so a group holds up to ``stream_rows`` x d documents.
+Signatures are per row, so they do not depend on the shard count.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import Cyclic, General, MinHash, make_family, u32
-from repro_torch.kernels import api, stream
+from repro_torch.kernels import api, shard, stream
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
 
@@ -68,7 +72,7 @@ class DedupConfig:
     vocab: int = 1 << 17
     seed: int = 0
     impl: str = "auto"           # kernel dispatch: auto | kernel | ref
-    # multi-device signing is not ported: None or 1
+    # sign over a data mesh of this many shards (None = one device)
     data_shards: Optional[int] = None
     # probe the band-sharded LSH index on a thread pool of this many workers
     # (0/1 = in-line; band shards are independent either way)
@@ -227,18 +231,16 @@ class BandShardedLSHIndex:
 
 class MinHashDeduper:
     """Near-dedup with a band-sharded LSH index; streamed, fused signing on
-    ``cfg.device``."""
+    ``cfg.device``, or over ``mesh`` (an explicit mesh wins over
+    ``cfg.data_shards``)."""
 
     def __init__(self, cfg: DedupConfig, mesh=None):
-        if mesh is not None or cfg.data_shards not in (None, 1):
-            raise NotImplementedError(
-                "multi-device signing (mesh / data_shards) is not ported to "
-                "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
         if cfg.n_signatures % cfg.lsh_bands:
             raise ValueError(f"n_signatures={cfg.n_signatures} is not a "
                              f"multiple of lsh_bands={cfg.lsh_bands}")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
+        self.mesh = shard.resolve(mesh, cfg.data_shards, self.device)
         self.rows = cfg.n_signatures // cfg.lsh_bands
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)
@@ -316,7 +318,9 @@ class MinHashDeduper:
         that runs out of symbols submits 0-length chunks, and a document
         shorter than the n-gram window signs to the sentinel signature.
         A family without a fused plan signs through
-        :meth:`_signature_many_bucketed`.
+        :meth:`_signature_many_bucketed`. Under a mesh of d shards a group
+        holds up to ``stream_rows`` x d documents (a power of two times
+        ``stream_rows``, at most what the corpus fills).
         """
         if self.plan is None:
             return self._signature_many_bucketed(docs)
@@ -324,6 +328,9 @@ class MinHashDeduper:
         D = len(docs)
         out = np.empty((D, cfg.n_signatures), np.uint32)
         Bt, Cs = cfg.stream_rows, cfg.stream_chunk_s
+        d = self.mesh.size if self.mesh is not None else 1
+        if d > 1 and D >= 2 * Bt:
+            Bt *= 1 << int(np.log2(min(d, D // Bt)))
         T0 = max(1, cfg.stream_block_chunks)
         operands = {"sig": {"a": self.mh_params["a"],
                             "b": self.mh_params["b"]}}
@@ -355,10 +362,12 @@ class MinHashDeduper:
                     dev_toks = stream._to_device(toks, self.device)
                     yield self.fam._lookup(self.fam_params, dev_toks), lengths
 
-            state = stream.init_state(self.plan, Bt, device=self.device)
+            state = stream.init_state(self.plan, Bt, device=self.device,
+                                      mesh=self.mesh)
             state = stream.feed(self.plan, blocks(), state,
                                 operands=operands, impl=cfg.impl)
-            sigs = stream.finalize(self.plan, state)["sig"].cpu().numpy()
+            sigs = stream.finalize(self.plan, state,
+                                   batch=Bt)["sig"].cpu().numpy()
             out[sel] = sigs[: len(group)]
         return out
 

@@ -171,7 +171,8 @@ def save_stats_stream(stats, sstate, directory: str, epoch: int, *,
 
 def restore_stats_stream(stats, directory: str,
                          epoch: Optional[int] = None) -> Tuple[Dict, int]:
-    """-> (live stream state on ``stats``'s device, epoch restored from)."""
+    """-> (live stream state on ``stats``'s device or mesh, whatever shard
+    count it was saved at; epoch restored from)."""
     tree, epoch = load(directory, epoch)
     return stats.import_stream(tree), epoch
 
@@ -186,6 +187,7 @@ def save_decontam_stream(dec, sstate, directory: str, epoch: int, *,
 
 def restore_decontam_stream(dec, directory: str,
                             epoch: Optional[int] = None) -> Tuple[Dict, int]:
-    """-> (live stream state on ``dec``'s device, epoch restored from)."""
+    """-> (live stream state on ``dec``'s device or mesh, whatever shard
+    count it was saved at; epoch restored from)."""
     tree, epoch = load(directory, epoch)
     return dec.import_stream(tree), epoch

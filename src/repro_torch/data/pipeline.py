@@ -9,9 +9,8 @@
   and read the stats state with its draw through ``data/durable.py``, in
   the JAX package's format (a snapshot of either package restores in the
   other).
-
-Not ported yet: multi-device signing (``data_shards``; ROADMAP.md, Queue 1
-item 7).
+* ``PipelineConfig.data_shards`` routes the corpus dedup's signing over a
+  data mesh of that many shards (:mod:`repro_torch.kernels.shard`).
 """
 from __future__ import annotations
 
@@ -40,7 +39,8 @@ class PipelineConfig:
     num_hosts: int = 1
     hash_family: str = "cyclic"   # the dedup signing family
     impl: str = "auto"            # kernel dispatch: auto | kernel | ref
-    # multi-device signing is not ported: None or 1
+    # sign the dedup pass over a data mesh of this many shards (None = one
+    # device)
     data_shards: Optional[int] = None
     device: str = "cuda"
 

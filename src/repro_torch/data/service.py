@@ -74,8 +74,9 @@ This is the port of the JAX package's ``data/service.py``: the same
 placement, envelope, counters and snapshot layout, so a service snapshot
 of either package restores in the other. Signing runs on the calling
 thread through the port's ``MinHashDeduper.signature_many`` (the plan
-kernel on CUDA); the band shards and every worker thread touch only numpy.
-Not ported yet: multi-device signing (``mesh``; ROADMAP.md, Queue 1 item 7).
+kernel on CUDA); the band shards and every worker thread touch only numpy. A ``mesh``
+(or ``DedupConfig.data_shards``) goes to the deduper, whose signing then
+runs over that data mesh; the band shards stay numpy.
 """
 from __future__ import annotations
 

@@ -25,8 +25,13 @@ past 2^32 tokens. :meth:`NgramStats.export_stream` /
 :meth:`~NgramStats.import_stream` snapshot an open stream together with
 the draw it was accumulated under, in the JAX package's layout.
 
-Not ported yet: multi-device updates (``data_shards``, ``mesh``; ROADMAP.md,
-Queue 1 item 7).
+Multi-device updates: with ``mesh`` (a
+:class:`~repro_torch.kernels.shard.DataMesh`) or ``StatsConfig.data_shards``
+the batch pass runs through :func:`repro_torch.kernels.shard.run_auto`
+(rows split over the shards, the registers merged by max and the tables by
+addition) and the streams are row-sharded over the mesh; an exported
+stream imports onto any shard count. The state is the same bits at any
+count.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import CountMinSketch, HyperLogLog, make_family, u32
-from repro_torch.kernels import api, ops, stream
+from repro_torch.kernels import api, ops, shard, stream
 from repro_torch.kernels.plan import CountMinSpec, HashSpec, HLLSpec, SketchPlan
 
 
@@ -53,7 +58,8 @@ class StatsConfig:
     family: str = "cyclic"       # rolling family: cyclic | general (fused);
                                  # other paper families take the unfused path
     impl: str = "auto"           # kernel dispatch: auto | kernel | ref
-    # multi-device updates are not ported: None or 1
+    # shard the per-batch sketch pass and the streams over this many
+    # shards (None = one device)
     data_shards: Optional[int] = None
     device: str = "cuda"
 
@@ -94,11 +100,9 @@ def _add_tokens(tokens_state: np.ndarray, added: int) -> np.ndarray:
 class NgramStats:
     def __init__(self, cfg: StatsConfig = None, mesh=None):
         self.cfg = cfg = cfg or StatsConfig()
-        if mesh is not None or cfg.data_shards not in (None, 1):
-            raise NotImplementedError(
-                "multi-device stats (mesh / data_shards) is not ported to "
-                "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
         self.device = torch.device(cfg.device)
+        # an explicit mesh wins over cfg.data_shards
+        self.mesh = shard.resolve(mesh, cfg.data_shards, self.device)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fam = make_family(cfg.family, n=cfg.ngram_n, L=cfg.L)
         self.fp = self.fam.init(gen, cfg.vocab, self.device)
@@ -159,11 +163,11 @@ class NgramStats:
             return {"hll": self.hll.update(state["hll"], h), "cms": cms,
                     "tokens": _add_tokens(state["tokens"], n_tok)}
         h1v = self._lookup(tokens)
-        out = api.run(self.plan, h1v,
-                      operands={"hll": {"init": state["hll"]},
-                                "cms": {**self._cms_ops(),
-                                        "init": state["cms"]}},
-                      impl=self.cfg.impl)
+        out = shard.run_auto(self.plan, h1v,
+                             operands={"hll": {"init": state["hll"]},
+                                       "cms": {**self._cms_ops(),
+                                               "init": state["cms"]}},
+                             impl=self.cfg.impl, mesh=self.mesh)
         return {"hll": out["hll"], "cms": out["cms"],
                 "tokens": _add_tokens(state["tokens"], n_tok)}
 
@@ -182,7 +186,7 @@ class NgramStats:
         sstate = stream.init_state(
             self.plan, batch, carry={"hll": state["hll"],
                                      "cms": state["cms"]},
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         return {"stream": sstate, "tokens": state["tokens"],
                 "batch": int(batch)}
 
@@ -255,12 +259,13 @@ class NgramStats:
                 "tokens": np.asarray(sstate["tokens"], np.uint32).copy()}
 
     def import_stream(self, tree: Dict) -> Dict:
-        """Rebuild a live stream state on this instance's device from
-        :meth:`export_stream`'s tree (this package's or the JAX
+        """Rebuild a live stream state on this instance's device (or mesh:
+        the exported tree is unpadded and imports onto any shard count)
+        from :meth:`export_stream`'s tree (this package's or the JAX
         package's): the params are re-bound first, then the carry."""
         self.rebind_params(tree["params"])
         sstate = stream.import_state(self.plan, tree["stream"],
-                                     device=self.device)
+                                     device=self.device, mesh=self.mesh)
         return {"stream": sstate,
                 "tokens": np.asarray(tree["tokens"], np.uint32).copy(),
                 "batch": int(np.asarray(tree["stream"]["seen"]).shape[0])}

@@ -51,6 +51,9 @@
 // 0.0586 on the path's own filter.
 
 #include <cstdint>
+#include <mutex>
+#include <utility>
+#include <vector>
 #include <cuda_runtime.h>
 
 namespace {
@@ -151,13 +154,21 @@ bloom_kernel(const uint32_t* __restrict__ ha, const uint32_t* __restrict__ hb,
   }
 }
 
+// The current device's SM count, cached per device: launches of one
+// process may go to several cards (a data mesh's shards).
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  static std::mutex mu;
+  static std::vector<std::pair<int, int>> seen;   // (device, SMs)
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& s : seen)
+    if (s.first == dev) return s.second;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      sms > 0)
+    seen.emplace_back(dev, sms);
   return sms;
 }
 

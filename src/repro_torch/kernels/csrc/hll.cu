@@ -38,6 +38,9 @@
 // few once they are high).
 
 #include <cstdint>
+#include <mutex>
+#include <utility>
+#include <vector>
 #include <cuda_runtime.h>
 
 namespace {
@@ -117,13 +120,21 @@ hll_global_kernel(const uint32_t* __restrict__ h, long long N, int b,
   raise_all(h, N, b, rank_bits, regs);
 }
 
+// The current device's SM count, cached per device: launches of one
+// process may go to several cards (a data mesh's shards).
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  static std::mutex mu;
+  static std::vector<std::pair<int, int>> seen;   // (device, SMs)
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& s : seen)
+    if (s.first == dev) return s.second;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      sms > 0)
+    seen.emplace_back(dev, sms);
   return sms;
 }
 

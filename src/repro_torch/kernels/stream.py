@@ -53,8 +53,22 @@ memory, ``non_blocking``) with the current block's kernels.
 
 :func:`export_state` / :func:`import_state` move a carry to host numpy
 trees and back, in the JAX package's layout, so a stream checkpointed by
-either package resumes in the other. There is no mesh: ``mesh`` /
-``data_shards`` raise (ROADMAP.md, Queue 1 item 7).
+either package resumes in the other.
+
+Under a 1-D data mesh (``mesh`` / ``data_shards``,
+:mod:`repro_torch.kernels.shard`) the carry is row-sharded: ``init_state``
+pads the batch to a multiple of the shard count d (pad rows never submit
+symbols) and the state holds each shard's rows, an ordinary carry, on its
+device: ``{"mesh": mesh, "shards": [carry, ...]}``. Every update runs each
+shard's rows on its own device (on CUDA, :func:`update_many` replays a
+graph captured for that shard). A global sketch (HLL, CountMin) keeps a
+per-shard partial — the first shard's from the caller's carry, the others'
+from the sketch's identity — merged with the sketch's own operator at
+:func:`finalize` and :func:`export_state`, which is bit-identical to
+merging after every chunk because max and integer addition re-bracket
+exactly. The export is mesh-independent, so a stream saved at one shard
+count resumes at any other (:func:`import_state`). :func:`dispatch_count`
+counts a sharded call as the same call without a mesh.
 """
 from __future__ import annotations
 
@@ -65,7 +79,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import api
+from repro_torch.kernels import api, shard
 from repro_torch.kernels import sketch_fused as _sf
 from repro_torch.kernels.plan import SketchPlan
 
@@ -84,15 +98,35 @@ def dispatch_count() -> int:
     return _dispatches.get()
 
 
-def _dispatched() -> None:
-    _dispatches.set(_dispatches.get() + 1)
+def _dispatched(n: int = 1) -> None:
+    _dispatches.set(_dispatches.get() + n)
 
 
-def _no_mesh(mesh, data_shards) -> None:
-    if mesh is not None or data_shards not in (None, 1):
-        raise NotImplementedError(
-            "multi-device streaming (mesh / data_shards) is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue 1 item 7)")
+def _resolve_mesh(mesh, data_shards, device):
+    mesh = shard.resolve(mesh, data_shards, device)
+    if mesh is not None:
+        shard.check_1d(mesh, "streaming")
+    return mesh
+
+
+def _sharded(state: Dict) -> bool:
+    return "shards" in state
+
+
+def _home(state: Dict) -> torch.device:
+    """Where a carry's updates take their inputs: its device, or its
+    mesh's first device."""
+    return state["mesh"].home if _sharded(state) else state["seen"].device
+
+
+def _check_mesh(state: Dict, mesh, data_shards) -> None:
+    """A ``mesh``/``data_shards`` given to an update must be the one the
+    carry was laid out on (:func:`import_state` re-lays it out)."""
+    want = _resolve_mesh(mesh, data_shards, _home(state))
+    if want is not None and want != state.get("mesh"):
+        raise ValueError(f"the stream state is laid out on "
+                         f"{state.get('mesh')}, not on {want}: export it "
+                         f"and import_state it onto that mesh")
 
 
 def _cat_u32(parts, dim: int) -> torch.Tensor:
@@ -102,22 +136,77 @@ def _cat_u32(parts, dim: int) -> torch.Tensor:
 
 
 def state_batch(plan: SketchPlan, state: Dict) -> int:
-    """The batch size a stream state was built for."""
+    """The (shard-padded) batch size a stream state was built for."""
+    if _sharded(state):
+        return sum(s["seen"].shape[0] for s in state["shards"])
     return state["seen"].shape[0]
 
 
+def _split_state(plan: SketchPlan, state: Dict, mesh) -> Dict:
+    """A carry -> the same carry row-sharded over ``mesh``: its rows padded
+    to a multiple of d (tails and counts 0, row sketches at their
+    identity) and split, each block on its shard's device; a global
+    sketch's state on the first shard, its identity on the others."""
+    d = mesh.size
+    B = state["seen"].shape[0]
+    pad = -B % d
+    rows = (B + pad) // d
+    full = {k: shard.pad_rows(state[k], pad)
+            for k in ("tail", "tail_b", "seen") if k in state}
+    sk = {name: shard.pad_rows(state["sketch"][name], pad,
+                               spec.state_struct(0)[2])
+          for name, spec in plan.sketches if spec.state_kind == "row"}
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        block = slice(i * rows, (i + 1) * rows)
+        s = {k: shard.to_device(v[block], dev).contiguous()
+             for k, v in full.items()}
+        s["sketch"] = {}
+        for name, spec in plan.sketches:
+            if spec.state_kind == "row":
+                got = shard.to_device(sk[name][block], dev).contiguous()
+            elif i == 0:
+                got = shard.to_device(state["sketch"][name], dev)
+            else:
+                got = shard.to_device(torch.full_like(
+                    state["sketch"][name], spec.state_struct(0)[2]), dev)
+            s["sketch"][name] = got
+        shards.append(s)
+    return {"mesh": mesh, "shards": shards}
+
+
+def _join_state(plan: SketchPlan, state: Dict) -> Dict:
+    """A row-sharded carry -> one carry of all its (padded) rows on the
+    mesh's first device, the global sketches' partials merged."""
+    home, parts = state["mesh"].home, state["shards"]
+    out = {k: shard.cat_rows([s[k] for s in parts], home)
+           for k in ("tail", "tail_b", "seen") if k in parts[0]}
+    out["sketch"] = shard.merge_outputs(plan, [s["sketch"] for s in parts],
+                                        home)
+    return out
+
+
 def init_state(plan: SketchPlan, batch: int, *, carry: Optional[Dict] = None,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None,
+               data_shards: Optional[int] = None) -> Dict:
     """Fresh carry for ``batch`` parallel streams under ``plan`` on
     ``device``: ``tail`` (B, n-1) uint32 last-consumed h1 values (plus
     ``tail_b`` for a Bloom plan's second stream), ``seen`` (B,) int32
     consumed-symbol count saturating at ``n-1``, and ``sketch`` — one
     tensor per sketch in its ``state_struct`` shape and dtype, at the
-    sketch's identity or seeded from ``carry[name]``."""
+    sketch's identity or seeded from ``carry[name]``.
+
+    With ``mesh`` / ``data_shards`` (a mesh of ``device``'s kind) the batch
+    is padded up to a multiple of the shard count and row-sharded over the
+    mesh (the module docstring); :func:`finalize` and :func:`export_state`
+    slice the padding off with their ``batch``."""
     if not isinstance(plan, SketchPlan):
         raise TypeError(f"plan must be a SketchPlan, got {type(plan)}")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
+    mesh = _resolve_mesh(mesh, data_shards, device)
+    if mesh is not None:
+        device = mesh.home
     carry = carry or {}
     unknown = set(carry) - set(plan.names)
     if unknown:
@@ -142,7 +231,7 @@ def init_state(plan: SketchPlan, batch: int, *, carry: Optional[Dict] = None,
             sketch[name] = torch.full(shape, fill, dtype=torch.int32,
                                       device=device)
     state["sketch"] = sketch
-    return state
+    return state if mesh is None else _split_state(plan, state, mesh)
 
 
 def _update_body(plan, ref_path, state, chunk, chunk_b, lengths, operands,
@@ -197,16 +286,19 @@ def _chunk_b(plan, chunk_b, shape, device):
 
 def _block(plan, state, chunks, lengths, operands, impl, fn):
     """Validate a (T, B, C) chunk block against the carry; returns the
-    lengths as (T, B) int32 on the state's device, the checked operands and
-    the dispatch flag."""
-    dev = state["seen"].device
+    lengths as (T, B) int32 on the state's (first) device, the checked
+    operands and the dispatch flag. A row-sharded carry takes B up to its
+    padded rows (the rest idle); another carry exactly its rows."""
+    dev = _home(state)
     ref_path = api.use_ref(impl, dev)
     T, B, C = chunks.shape
     if T < 1:
         raise ValueError(f"need at least one chunk, got T={T}")
-    if B != state_batch(plan, state):
-        raise ValueError(f"chunk rows {B} != stream state rows "
-                         f"{state_batch(plan, state)}")
+    Bp = state_batch(plan, state)
+    if _sharded(state) and B > Bp:
+        raise ValueError(f"chunk rows {B} > stream state rows {Bp}")
+    if not _sharded(state) and B != Bp:
+        raise ValueError(f"chunk rows {B} != stream state rows {Bp}")
     for name in (operands or {}):
         if "init" in (operands[name] or {}):
             raise ValueError(
@@ -227,8 +319,37 @@ def _block(plan, state, chunks, lengths, operands, impl, fn):
             operands, ref_path)
 
 
+def _per_shard(state: Dict, chunks, chunk_b, lengths, operands, fn) -> Dict:
+    """A row-sharded carry's update: the (T, B, C) block (B up to the
+    padded rows, padded here with idle rows) split by rows, and
+    ``fn(i, carry, chunks, chunk_b, lengths, operands)`` run for each shard
+    i on its own device with its rows and its copy of the operands."""
+    mesh, parts = state["mesh"], state["shards"]
+    rows = parts[0]["seen"].shape[0]
+    pad = rows * mesh.size - chunks.shape[1]
+    if pad:
+        widen = lambda t: shard.pad_rows(t.transpose(0, 1), pad).transpose(
+            0, 1)
+        chunks, lengths = widen(chunks), widen(lengths)
+        chunk_b = None if chunk_b is None else widen(chunk_b)
+    out = []
+    for i, (dev, carry) in enumerate(zip(mesh.devices, parts)):
+        block = slice(i * rows, (i + 1) * rows)
+
+        def put(t):
+            return None if t is None else shard.to_device(t[:, block], dev)
+
+        ops = {name: {k: shard.replicate(v, dev) for k, v in o.items()}
+               for name, o in operands.items()}
+        with shard.on_device(dev):
+            out.append(fn(i, carry, put(chunks), put(chunk_b), put(lengths),
+                          ops))
+    return {"mesh": mesh, "shards": out}
+
+
 def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
-           lengths=None, operands=None, impl: str = "auto") -> Dict:
+           lengths=None, operands=None, impl: str = "auto", mesh=None,
+           data_shards: Optional[int] = None) -> Dict:
     """Fold one ``(B, C)`` h1 chunk into the stream carry; returns the new
     carry (same shapes and dtypes). One kernel launch on CUDA.
 
@@ -243,8 +364,11 @@ def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
         and their carry rides through untouched.
       operands: the per-sketch runtime operands of ``api.run`` WITHOUT
         ``init``; the carry supplies every sketch's state.
+      mesh / data_shards: optional; the mesh the carry was laid out on
+        (a row-sharded carry updates on its own mesh either way).
     """
-    dev = state["seen"].device
+    _check_mesh(state, mesh, data_shards)
+    dev = _home(state)
     chunk = api.as_u32(chunk, dev).contiguous()
     if chunk.dim() != 2:
         raise ValueError(f"chunk must be (B, C), got shape "
@@ -262,12 +386,20 @@ def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
     lengths, operands, ref_path = _block(plan, state, chunk[None], lengths,
                                          operands, impl, "update")
     _dispatched()
+    if _sharded(state):
+        return _per_shard(
+            state, chunk[None], None if chunk_b is None else chunk_b[None],
+            lengths, operands,
+            lambda i, st, c, cb, ln, ops: _update_body(
+                plan, ref_path, st, c[0].contiguous(),
+                None if cb is None else cb[0].contiguous(), ln[0], ops))
     return _update_body(plan, ref_path, state, chunk, chunk_b, lengths[0],
                         operands)
 
 
 def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
-                lengths=None, operands=None, impl: str = "auto") -> Dict:
+                lengths=None, operands=None, impl: str = "auto", mesh=None,
+                data_shards: Optional[int] = None) -> Dict:
     """Fold a ``(T, B, C)`` block of T chunks into the carry: exactly T
     successive :func:`update` calls (bit-identical carry out), validated
     once for the block.
@@ -276,7 +408,10 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
     ``(T, B, C)`` shape (:class:`_BlockGraph`): one dispatch, T plan
     launches. With ``impl="ref"`` or on the CPU it is the eager loop of
     plain versions. Either way the caller's ``state`` stays unchanged and
-    the returned state is the caller's own (no later call writes it).
+    the returned state is the caller's own (no later call writes it). A
+    row-sharded carry runs each shard's rows on its device: on CUDA one
+    replay of the graph captured for that shard, d replays a block, counted
+    as one dispatch as without a mesh.
 
     Args mirror :func:`update` with a leading chunk axis:
       chunks: (T, B, C) h1 chunk stack, folded in order.
@@ -285,8 +420,10 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
         finished row submits 0 from some chunk on, so ragged streams pad
         with zero-length chunks. Checked on the host (a CUDA tensor is
         read back once), never inside a capture.
+      mesh / data_shards: as :func:`update`.
     """
-    dev = state["seen"].device
+    _check_mesh(state, mesh, data_shards)
+    dev = _home(state)
     chunks = api.as_u32(chunks, dev)
     if chunks.dim() != 3:
         raise ValueError(f"chunks must be (T, B, C), got shape "
@@ -300,6 +437,14 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
                              f"stack {tuple(chunks.shape[:2])}")
     lengths, operands, ref_path = _block(plan, state, chunks, lengths,
                                          operands, impl, "update_many")
+    # the eager loop issues one update a chunk, the graph one replay
+    _dispatched(chunks.shape[0] if ref_path else 1)
+    if _sharded(state):
+        return _per_shard(
+            state, chunks, chunk_b, lengths, operands,
+            lambda i, st, c, cb, ln, ops: (
+                _eager_block(plan, st, c, cb, ln, ops, ref_path) if ref_path
+                else _graph_block(plan, st, c, cb, ln, ops, shard_index=i)))
     if ref_path:
         return _eager_block(plan, state, chunks, chunk_b, lengths, operands,
                             ref_path)
@@ -312,7 +457,6 @@ def _eager_block(plan, state, chunks, chunk_b, lengths, operands,
     on the kernel path) per chunk, the loop's own carry donated from the
     second chunk on. Inputs already validated."""
     for t in range(chunks.shape[0]):
-        _dispatched()
         state = _update_body(plan, ref_path, state, chunks[t].contiguous(),
                              None if chunk_b is None
                              else chunk_b[t].contiguous(),
@@ -403,29 +547,31 @@ class _BlockGraph:
         self.lengths.copy_(lengths)
         self.graph.replay()
         _sf.add_launch_counts(self.counts)
-        _dispatched()
         return _unflat(self.like, [_clone(t) for t in self.state_out])
 
 
-# captures by (plan, device, block shape, second stream, operand addresses);
-# the least recently replayed goes first past _GRAPHS_KEPT
-_GRAPHS_KEPT = 16
+# captures by (plan, device, shard, block shape, second stream, operand
+# addresses); the least recently replayed goes first past _GRAPHS_KEPT
+_GRAPHS_KEPT = 64
 _graphs: "collections.OrderedDict[tuple, _BlockGraph]" = \
     collections.OrderedDict()
 
 
-def _graph_key(plan, chunks, chunk_b, operands) -> tuple:
+def _graph_key(plan, chunks, chunk_b, operands, shard_index=None) -> tuple:
     ptrs = tuple((name, op, t.data_ptr())
                  for name in sorted(operands)
                  for op, t in sorted(operands[name].items()))
-    return (plan, str(chunks.device), tuple(chunks.shape),
+    return (plan, str(chunks.device), shard_index, tuple(chunks.shape),
             chunk_b is not None, ptrs)
 
 
-def _graph_block(plan, state, chunks, chunk_b, lengths, operands) -> Dict:
+def _graph_block(plan, state, chunks, chunk_b, lengths, operands,
+                 shard_index: Optional[int] = None) -> Dict:
     """The block as one replay of its cached :class:`_BlockGraph` (captured
-    on first use). Inputs already validated on the host."""
-    key = _graph_key(plan, chunks, chunk_b, operands)
+    on first use). Inputs already validated on the host. ``shard_index``:
+    the mesh shard the carry is — a graph belongs to one device, and two
+    virtual shards on one device each need their own buffers."""
+    key = _graph_key(plan, chunks, chunk_b, operands, shard_index)
     graph = _graphs.get(key)
     if graph is None:
         graph = _BlockGraph(plan, state, chunks, chunk_b, lengths, operands)
@@ -449,7 +595,8 @@ def _to_device(a, dev: torch.device):
 
 
 def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
-         impl: str = "auto") -> Dict:
+         impl: str = "auto", mesh=None,
+         data_shards: Optional[int] = None) -> Dict:
     """Drive :func:`update_many` over a host iterator of chunk blocks, with
     the host->device copy double-buffered: the kernels of block t are queued
     asynchronously, so block t+1 is pulled from the iterator and its copy
@@ -458,9 +605,11 @@ def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
     ``blocks`` yields either a ``(T, B, C)`` chunk stack or a tuple
     ``(chunks, lengths)`` / ``(chunks, lengths, chunk_b)`` with ``lengths``
     (T, B). Lengths stay on the host, where :func:`update_many` checks them
-    without waiting for the card.
+    without waiting for the card. A row-sharded carry takes its blocks on
+    its mesh's first device, where :func:`update_many` splits them.
     """
-    dev = state["seen"].device
+    _check_mesh(state, mesh, data_shards)
+    dev = _home(state)
 
     def _put(blk):
         if blk is None:
@@ -480,11 +629,19 @@ def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
     return state
 
 
-def finalize(plan: SketchPlan, state: Dict) -> Dict[str, torch.Tensor]:
+def finalize(plan: SketchPlan, state: Dict,
+             batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Extract every sketch's result from a stream carry — the same
     outputs one-shot ``api.run`` would have produced over the concatenated
-    stream (a Bloom sketch's counts per row)."""
-    return {name: state["sketch"][name] for name, _ in plan.sketches}
+    stream (a Bloom sketch's counts per row). A row-sharded carry's rows
+    are gathered and its global partials merged on its mesh's first
+    device; ``batch`` slices the shard padding off the per-row outputs."""
+    if _sharded(state):
+        state = _join_state(plan, state)
+    return {name: (state["sketch"][name] if batch is None
+                   or spec.state_kind == "global"
+                   else state["sketch"][name][:batch])
+            for name, spec in plan.sketches}
 
 
 def _host(t) -> np.ndarray:
@@ -498,7 +655,11 @@ def export_state(plan: SketchPlan, state: Dict,
     and ``sketch`` ``{name: state}``. ``batch`` keeps the first ``batch``
     rows of the per-row leaves (global sketch states pass whole). Every
     leaf is a host copy, safe to hand to a writer thread while the live
-    carry keeps changing."""
+    carry keeps changing. Mesh-independent: a row-sharded carry exports
+    its gathered rows and merged partials, so the tree restores onto any
+    shard count."""
+    if _sharded(state):
+        state = _join_state(plan, state)
     if batch is None:
         batch = state_batch(plan, state)
     out = {k: _host(state[k][:batch]).copy()
@@ -515,10 +676,14 @@ def import_state(plan: SketchPlan, tree: Dict, *, device="cuda", mesh=None,
     """Rebuild a live carry on ``device`` from an :func:`export_state`
     tree (this package's or the JAX package's), checked against ``plan``:
     the tail's width, ``tail_b`` present exactly when the plan has a Bloom
-    sketch, every sketch present in its state shape."""
+    sketch, every sketch present in its state shape. With ``mesh`` /
+    ``data_shards`` the carry is re-padded and row-sharded for the
+    *target* mesh, whatever mesh it was saved from (elastic restore)."""
     if not isinstance(plan, SketchPlan):
         raise TypeError(f"plan must be a SketchPlan, got {type(plan)}")
-    _no_mesh(mesh, data_shards)
+    mesh = _resolve_mesh(mesh, data_shards, device)
+    if mesh is not None:
+        device = mesh.home
     n = plan.hash.n
     seen = _host(tree["seen"])
     batch = int(seen.shape[0])
@@ -549,7 +714,7 @@ def import_state(plan: SketchPlan, tree: Dict, *, device="cuda", mesh=None,
                              f"{shape}")
         sketch[name] = api.as_state(got, dtype_name, device).contiguous()
     state["sketch"] = sketch
-    return state
+    return state if mesh is None else _split_state(plan, state, mesh)
 
 
 def _symbol_budget(n_windows, B: int, S: int, n: int) -> np.ndarray:
@@ -593,7 +758,9 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
       ragged last chunk padded to ``chunk_s``.
 
     ``device``: as ``api.run`` (``h1v``'s device for a tensor, else
-    ``cuda``).
+    ``cuda``). ``mesh`` / ``data_shards``: the stream row-sharded over a
+    1-D data mesh (a mesh of ``device``'s kind), every executor on each
+    shard's rows; the outputs on the mesh's first device.
     """
     if executor not in _EXECUTORS:
         raise ValueError(f"unknown executor={executor!r}; expected one of "
@@ -602,7 +769,6 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
         raise ValueError(f"chunk_s must be >= 1, got {chunk_s}")
     if not isinstance(plan, SketchPlan):
         raise TypeError(f"plan must be a SketchPlan, got {type(plan)}")
-    _no_mesh(mesh, data_shards)
     for name in (operands or {}):
         if "init" in (operands[name] or {}):
             raise ValueError(
@@ -610,6 +776,9 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
                 f"stream carry supplies every sketch's state")
     n = plan.hash.n
     dev = api.resolve_device(h1v, device)
+    mesh = _resolve_mesh(mesh, data_shards, dev)
+    if mesh is not None:
+        dev = mesh.home
     api.use_ref(impl, dev)                    # validates impl up front
     x, lead = api.flatten(api.as_u32(h1v, dev))
     B, S = x.shape
@@ -625,7 +794,7 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
         if n_chunks < nc:
             raise ValueError(f"n_chunks={n_chunks} < ceil(S/chunk_s)={nc}")
         nc = n_chunks
-    state = init_state(plan, B, device=dev)
+    state = init_state(plan, B, device=dev, mesh=mesh)
 
     if executor == "grid":
         state = update(plan, state, x, chunk_b=xb,
@@ -651,4 +820,4 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
             state = update_many(plan, state, tile(x),
                                 chunk_b=None if xb is None else tile(xb),
                                 lengths=lens, operands=operands, impl=impl)
-    return api.shape_outputs(plan, finalize(plan, state), lead)
+    return api.shape_outputs(plan, finalize(plan, state, batch=B), lead)

@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import families, u32
-from repro_torch.kernels import api
+from repro_torch.kernels import api, shard
 from repro_torch.kernels import ref as _kref
 from repro_torch.kernels.plan import DecodeSpec
 from repro_torch.nn import lm
@@ -163,21 +163,23 @@ class ServeEngine:
     are identical between the planes; sampled runs draw from the same
     masked distribution with different streams (one uniform a candidate
     from the pool's step on the fused plane, from the engine's loop on the
-    legacy one). ``mesh`` and ``data_shards`` wait for the multi-device
-    layer (ROADMAP Queue 1 item 7).
+    legacy one). With ``mesh`` / ``data_shards`` the fused plane's pool
+    runs row by row over a data mesh (:class:`SessionPool`): its capacity
+    is the batch rounded up to the shard count (pad rows stay inactive),
+    the model's logits stay on the model's device and the pool splits them
+    by rows; tokens and telemetry are the same at any shard count.
     """
 
     def __init__(self, cfg: ModelConfig, params,
                  scfg: SamplerConfig = SamplerConfig(), *,
                  canary_bits=None, impl: str = "auto",
                  mesh=None, data_shards: Optional[int] = None):
-        if mesh is not None or data_shards is not None:
-            raise NotImplementedError(sessions._SHARDED)
         if scfg.ngram_plane not in _PLANES:
             raise ValueError(f"ngram_plane must be one of {_PLANES}, got "
                              f"{scfg.ngram_plane!r}")
         self.cfg, self.params, self.scfg = cfg, params, scfg
         self.device = params.embed.table.device
+        self.mesh = shard.resolve(mesh, data_shards, self.device)
         self.plane = ("fused" if scfg.ngram_plane == "auto"
                       else scfg.ngram_plane)
         self.impl = impl
@@ -243,17 +245,25 @@ class ServeEngine:
         syncs."""
         cfg, scfg = self.cfg, self.scfg
         B, P = prompts.shape
-        pool = SessionPool(self.decode_spec, B, self.nrn.h1,
+        d = self.mesh.size if self.mesh is not None else 1
+        C = -(-B // d) * d         # inactive pad rows: mesh divisibility
+        pool = SessionPool(self.decode_spec, C, self.nrn.h1,
                            canary_bits=self.canary_bits, impl=self.impl,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh)
         pool.admit(B)
-        pool.prime(prompts)        # charge the filters with the prompt
+        pad = lambda t: shard.pad_rows(t, C - B)
+        pool.prime(pad(prompts))   # charge the filters with the prompt
         out = []
         logits = last_logits
         for _ in range(max_new_tokens):
             logits = lm.mask_pad_logits(cfg, logits.to(torch.float32))
-            token = pool.step(logits, generator=gen,
-                              temperature=scfg.temperature, top_k=scfg.top_k)
+            # the batch's own uniforms, as without a mesh, padded to C
+            noise = sessions.draw_noise(logits.shape, scfg.temperature, gen,
+                                        self.device)
+            token = pool.step(pad(logits), temperature=scfg.temperature,
+                              top_k=scfg.top_k,
+                              noise=None if noise is None else pad(noise))
+            token = token[:B]
             out.append(token)
             logits, caches = lm.decode_step(self.params, cfg, token[:, None],
                                             caches)

@@ -24,8 +24,16 @@ arithmetic on them runs on int64 lanes (:mod:`repro_torch.core.u32`), and
 gathers and scatters on their int32 views, which PyTorch implements on
 every backend. Sampling draws from an explicit ``torch.Generator`` with
 Gumbel-max, as ``jax.random.categorical`` does; the draws are not
-threefry's. This slice is single-device: a ``mesh`` or ``data_shards``
-raises (ROADMAP Queue 1 item 7).
+threefry's.
+
+Under a data mesh (``mesh`` / ``data_shards``,
+:mod:`repro_torch.kernels.shard`) the step and the prompt charge run row
+by row over the shards (``shard.rowwise``): each shard's rows of the
+carry, the logits and the sampling noise go to its device, the h1 table
+and the canary filter are copied to each device, and the rows come back to
+the pool's device. The step is per row, so no combine is needed. The
+sampling noise for all C rows is drawn once on the pool's device before
+the split, so a sampled step gives the same tokens at any shard count.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import u32
-from repro_torch.kernels import api
+from repro_torch.kernels import api, shard
 from repro_torch.kernels import ref as _kref
 from repro_torch.kernels.plan import DecodeSpec
 
@@ -46,10 +54,6 @@ from repro_torch.kernels.plan import DecodeSpec
 # pools served from different asyncio tasks or threads each see their own
 _dispatches = contextvars.ContextVar("repro_torch.serve.sessions._dispatches",
                                      default=0)
-
-_SHARDED = ("ROADMAP Queue 1 item 7: the port's session pool is "
-            "single-device; mesh and data_shards wait for the multi-device "
-            "layer")
 
 # leaf -> dtype; every leaf is (C, ...) row state
 _LEAVES = {"prefix": torch.uint32, "ring": torch.uint32, "pos": torch.int32,
@@ -176,33 +180,46 @@ def _popcount_rows(packed) -> torch.Tensor:
     return v.sum(dim=-1) & u32.MASK32
 
 
+def draw_noise(shape, temperature: float, gen: Optional[torch.Generator],
+               device) -> Optional[torch.Tensor]:
+    """The uniforms a sampled step's Gumbel-max reads: ``shape`` float32
+    draws from ``gen`` on ``device``; None at temperature 0."""
+    if temperature == 0.0:
+        return None
+    return torch.rand(shape, generator=gen, device=device)
+
+
 def sample(masked: torch.Tensor, temperature: float, top_k: int,
-           gen: Optional[torch.Generator]) -> torch.Tensor:
+           gen: Optional[torch.Generator],
+           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(C, V) float32 logits -> (C,) int64 tokens: keep the top-k (every
     logit below the k-th largest becomes -1e30), then argmax (the first
     maximum, as ``jnp.argmax``) at temperature 0, else Gumbel-max over
-    ``logits / temperature`` with uniforms from ``gen``."""
+    ``logits / temperature`` with the uniforms ``noise`` (default: drawn
+    from ``gen``)."""
     if top_k:
         kth = torch.topk(masked, top_k, dim=-1).values[:, -1:]
         masked = masked.masked_fill(masked < kth, _kref.NEG_LOGIT)
     if temperature == 0.0:
         return torch.argmax(masked, dim=-1)
-    u = torch.rand(masked.shape, generator=gen, device=masked.device)
+    u = (noise if noise is not None
+         else draw_noise(masked.shape, temperature, gen, masked.device))
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(masked / temperature + gumbel, dim=-1)
 
 
 def _step_core(spec: DecodeSpec, ref_path: bool, temperature: float,
-               top_k: int, state, logits, gen, h1, canary_bits):
+               top_k: int, state, logits, noise, h1, canary_bits):
     """The whole decode step, purely per row: decode kernel -> sample ->
-    advance -> telemetry. Updates ``state`` in place; returns (C,) int64
-    tokens."""
+    advance -> telemetry. Updates ``state`` in place; returns ((C,) int64
+    tokens, ``state``). ``noise``: the sampling uniforms (C, V), or None
+    at temperature 0."""
     live = state["active"] != 0
     ready = (state["count"] >= spec.n - 1) & live
     out = api.decode(spec, logits, state["prefix"], ready, state["bloom"],
                      h1, canary_bits=canary_bits,
                      impl="ref" if ref_path else "kernel")
-    token = sample(out["logits"], temperature, top_k, gen)
+    token = sample(out["logits"], temperature, top_k, None, noise)
     _advance_rows(spec, state, h1.view(torch.int32)[token], live)
     zero = torch.zeros((), dtype=torch.int64, device=live.device)
     inc = torch.where(live, _popcount_rows(out["banned"]), zero)
@@ -216,17 +233,19 @@ def _step_core(spec: DecodeSpec, ref_path: bool, temperature: float,
         _store(state["canary_hi"], hi)
     _store(state["steps"], (u32.lanes(state["steps"])
                             + live.to(torch.int64)) & u32.MASK32)
-    return token
+    return token, state
 
 
-def _prime_core(spec: DecodeSpec, state, tokens, lengths, h1) -> None:
+def _prime_core(spec: DecodeSpec, state, tokens, lengths, h1) -> Dict:
     """Charge prompt symbols into the carry: a loop over the T prompt
     positions (the reference's ``lax.scan``), each a masked
-    :func:`_advance_rows` (rows past their own length idle)."""
+    :func:`_advance_rows` (rows past their own length idle). Updates
+    ``state`` in place and returns it."""
     h1v = h1.view(torch.int32)[tokens]                     # (C, T)
     active = state["active"] != 0
     for t in range(tokens.shape[1]):
         _advance_rows(spec, state, h1v[:, t], active & (t < lengths))
+    return state
 
 
 def _churn(op: str, state, mask) -> None:
@@ -253,20 +272,29 @@ class SessionPool:
       impl: ``"auto"`` (the decode kernel on CUDA, its plain version on the
         CPU), ``"kernel"`` or ``"ref"``.
       device: where the state lives (default: h1's device if it is a
-        tensor, else ``cuda``).
-      mesh / data_shards: not supported yet (ROADMAP Queue 1 item 7).
+        tensor, else ``cuda``; under a mesh, the mesh's first device).
+      mesh / data_shards: run the step and the prompt charge row by row
+        over a 1-D data mesh (an explicit mesh wins; ``data_shards`` makes
+        one of ``device``'s kind). The capacity must divide the shard
+        count: the carry is split by rows without padding.
     """
 
     def __init__(self, spec: DecodeSpec, capacity: int, h1, *,
                  canary_bits=None, impl: str = "auto", device=None,
                  mesh=None, data_shards: Optional[int] = None):
-        if mesh is not None or data_shards is not None:
-            raise NotImplementedError(_SHARDED)
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.spec = spec
         self.capacity = int(capacity)
         self.device = api.resolve_device(h1, device)
+        self.mesh = shard.resolve(mesh, data_shards, self.device)
+        if self.mesh is not None:
+            if self.capacity % self.mesh.size:
+                raise ValueError(
+                    f"capacity={capacity} must divide the data mesh "
+                    f"({self.mesh.size} shards): the session carry is "
+                    f"row-sharded without padding")
+            self.device = self.mesh.home
         self._ref_path = api.use_ref(impl, self.device)
         self._set_h1(h1)
         if spec.has_canary:
@@ -345,28 +373,43 @@ class SessionPool:
                 raise ValueError(f"lengths shape {tuple(lengths.shape)} != "
                                  f"({self.capacity},)")
         _dispatched()
-        _prime_core(self.spec, self.state, tokens, lengths, self.h1)
+        core = lambda st, tok, ln, h1: _prime_core(self.spec, st, tok, ln, h1)
+        if self.mesh is not None:
+            core = shard.rowwise(core, self.mesh, n_row=3)
+        self.state = core(self.state, tokens, lengths, self.h1)
 
     def step(self, logits, *, generator: Optional[torch.Generator] = None,
-             temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+             temperature: float = 1.0, top_k: int = 0,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step for every active session.
 
         ``logits`` (C, V) raw logits (pad-token masking is the caller's
         job); returns (C,) int32 sampled tokens (inactive rows emit a token
         too — callers index by their slot ids). The decode kernel, top-k /
         temperature sampling, the Bloom/ring advance and the telemetry
-        accumulation all run on the pool's device with no host sync.
+        accumulation all run on the pool's device(s) with no host sync.
         ``generator`` (on the pool's device) supplies the sampling noise;
-        without one the pool's own stream, seeded 0, does."""
+        without one the pool's own stream, seeded 0, does. ``noise``: the
+        (C, V) uniforms themselves, drawn by the caller (the engine draws
+        its batch's rows and pads them to the capacity)."""
         logits = torch.as_tensor(logits, device=self.device)
         if tuple(logits.shape) != (self.capacity, self.vocab):
             raise ValueError(f"logits shape {tuple(logits.shape)} != "
                              f"({self.capacity}, {self.vocab})")
+        temperature = float(temperature)
+        if noise is None:
+            # every row's uniforms drawn here, before any split by rows
+            noise = draw_noise(logits.shape, temperature,
+                               generator if generator is not None
+                               else self._gen, self.device)
         _dispatched()
-        token = _step_core(self.spec, self._ref_path, float(temperature),
-                           int(top_k), self.state, logits,
-                           generator if generator is not None else self._gen,
-                           self.h1, self.canary_bits)
+        core = lambda st, lg, nz, h1, cb: _step_core(
+            self.spec, self._ref_path, temperature, int(top_k), st, lg, nz,
+            h1, cb)
+        if self.mesh is not None:
+            core = shard.rowwise(core, self.mesh, n_row=3)
+        token, self.state = core(self.state, logits, noise, self.h1,
+                                 self.canary_bits)
         self._t += 1
         return token.to(torch.int32)
 

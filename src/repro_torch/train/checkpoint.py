@@ -232,16 +232,39 @@ def _unflatten_like(template, leaves: Dict[str, Any], path: str = ""):
     return leaves[path]
 
 
+def _placements(template, shardings, path: str = "") -> Dict[str, Any]:
+    """``{keystr path: device or None}`` for every leaf of ``template``,
+    read from the matching ``shardings`` tree (a None there, at a leaf or
+    above it, places nothing)."""
+    if template is None:
+        return {}
+    if isinstance(template, dict):
+        out = {}
+        for k in template:
+            sub = None if shardings is None else shardings[k]
+            out.update(_placements(template[k], sub, path + _key(k)))
+        return out
+    if isinstance(template, (list, tuple)):
+        out = {}
+        for i, v in enumerate(template):
+            sub = None if shardings is None else shardings[i]
+            out.update(_placements(v, sub, path + f"[{i}]"))
+        return out
+    return {path: None if shardings is None else torch.device(shardings)}
+
+
 def restore(template, directory: str, step: Optional[int] = None,
             shardings=None, device=None):
     """Restore into the structure of ``template`` -> ``(tree, step)``. A
     tensor leaf of the template comes back as a tensor of its dtype on
     ``device`` (default: the template leaf's device), any other leaf as a
-    numpy array of the template's dtype; shapes must match."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded placement (shardings) is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+    numpy array of the template's dtype; shapes must match.
+
+    ``shardings``: optional tree matching ``template`` whose leaves are
+    ``torch.device``s (or None): a leaf with a device comes back as a
+    tensor of the template's dtype on that device, whatever the template
+    leaf is — the placement the JAX package's ``NamedSharding`` tree gives
+    with ``device_put``; a None leaves the leaf where ``device`` puts it."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -249,6 +272,7 @@ def restore(template, directory: str, step: Optional[int] = None,
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     by_path = {e["path"]: e for e in meta["leaves"]}
+    place = _placements(template, shardings)
     out = {}
     for path, tmpl in flatten_with_path(template):
         arr = read_leaf(d, by_path[path])
@@ -257,9 +281,15 @@ def restore(template, directory: str, step: Optional[int] = None,
                              f"{tuple(tmpl.shape)}")
         if isinstance(tmpl, torch.Tensor):
             dtype = torch.empty(0, dtype=tmpl.dtype).numpy().dtype
-            got = torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)))
-            out[path] = got.to(device if device is not None
-                               else tmpl.device)
         else:
-            out[path] = arr.astype(np.asarray(tmpl).dtype)
+            dtype = np.asarray(tmpl).dtype
+        arr = arr.astype(dtype)
+        if place[path] is not None:
+            out[path] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                place[path])
+        elif isinstance(tmpl, torch.Tensor):
+            out[path] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device if device is not None else tmpl.device)
+        else:
+            out[path] = arr
     return _unflatten_like(template, out), step

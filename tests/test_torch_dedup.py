@@ -141,8 +141,15 @@ def test_band_packing_round_trip_matches_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        dedup.MinHashDeduper(dedup.DedupConfig(data_shards=2, device="cpu"))
+    # multi-device signing is ported: two shards sign and flag as one device
+    docs, _ = _docs()
+    one = dedup.MinHashDeduper(dedup.DedupConfig(device="cpu", vocab=8192))
+    two = dedup.MinHashDeduper(dedup.DedupConfig(data_shards=2, device="cpu",
+                                                 vocab=8192))
+    np.testing.assert_array_equal(two.signature_many(docs[:40]),
+                                  one.signature_many(docs[:40]))
+    np.testing.assert_array_equal(two.add_batch(docs[:40]),
+                                  one.add_batch(docs[:40]))
     # THREEWISE is ported: it signs by the bucketed path, as the reference
     kw = dict(family="threewise", vocab=8192, n_signatures=16, lsh_bands=4)
     ref = jdedup.MinHashDeduper(jdedup.DedupConfig(**kw))

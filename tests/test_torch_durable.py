@@ -132,8 +132,19 @@ def test_checkpoint_restore_into_a_template(tmp_path):
                              "opt": [np.zeros(2, np.float32), None]},
                             str(tmp_path))
     np.testing.assert_array_equal(np.asarray(jgot["w"]), state["w"].numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        checkpoint.restore(template, str(tmp_path), shardings={})
+    # a placement tree: "w" on the CPU device, the rest where it was
+    placed, _ = checkpoint.restore(
+        template, str(tmp_path),
+        shardings={"w": torch.device("cpu"), "step": None, "opt": None})
+    assert torch.equal(placed["w"], got["w"])
+    assert placed["step"] == 9 and placed["opt"][1] is None
+    np.testing.assert_array_equal(placed["opt"][0], got["opt"][0])
+    # a placed numpy leaf comes back a tensor of its dtype on that device
+    placed, _ = checkpoint.restore(
+        template, str(tmp_path),
+        shardings={"w": None, "step": "cpu", "opt": [None, None]})
+    assert isinstance(placed["step"], torch.Tensor)
+    assert placed["step"].dtype == torch.int64 and int(placed["step"]) == 9
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ its filter routes, ``general_rolling`` through each of its product routes
 and ``hll_update`` in shared and in global registers, each against its plain
 version on the same card; and the streaming executor's CUDA-graph replay
 against its eager loop and the plain versions: one dispatch a block, the
-caller's state unchanged, a restore after a capture bit-identical.
+caller's state unchanged, a restore after a capture bit-identical; and the
+multi-device layer (``kernels/shard.py``) on four virtual shards of the
+one card, each shard's graph replayed, equal to the one-device calls (a
+further case holds the distinct-device path and runs only where there is
+more than one card).
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -19,7 +23,7 @@ import numpy as np
 
 from repro_torch.core import gf2
 from repro_torch.data import stats
-from repro_torch.kernels import (api, bloom, general, hll, ops, ref,
+from repro_torch.kernels import (api, bloom, general, hll, ops, ref, shard,
                                  sketch_fused, stream)
 from repro_torch.kernels import plan as tplan
 
@@ -355,3 +359,63 @@ def test_restore_after_capture_on_card(cuda, tmp_path):
     for key in ("hll", "cms"):
         assert torch.equal(ng.finalize_stream(got)[key],
                            plain.finalize_stream(want)[key]), key
+
+
+def _sharded_checks(plan, mesh, gen, dev):
+    """``run_sharded`` and sharded ``update_many`` blocks on ``mesh`` equal
+    the one-device calls: outputs and carries bit for bit, one dispatch a
+    block and the shards' T launches each."""
+    B, S, T, C = 37, 700, 3, 96             # B divides no d > 1
+    ops_ = _stream_ops(plan, gen, dev)
+    x = _words(gen, dev, B, S)
+    xb = _words(gen, dev, B, S) if plan.needs_second_stream else None
+    nw = torch.randint(0, S - 7, (B,), generator=gen, device=dev)
+    want = api.run(plan, x, h1v_b=xb, n_windows=nw, operands=ops_)
+    got = shard.run_sharded(plan, x, h1v_b=xb, n_windows=nw, operands=ops_,
+                            mesh=mesh)
+    for name in want:
+        assert torch.equal(got[name], want[name].to(mesh.home)), name
+    chunks = _words(gen, dev, T, B, C)
+    second = (_words(gen, dev, T, B, C) if plan.needs_second_stream
+              else None)
+    lens = np.random.default_rng(2).integers(0, C + 1, (T, B))
+    one = stream.init_state(plan, B, device=dev)
+    many = stream.init_state(plan, B, device=dev, mesh=mesh)
+    for t in range(3):
+        one = stream.update_many(plan, one, chunks, chunk_b=second,
+                                 lengths=lens, operands=ops_)
+        before = (stream.dispatch_count(), sketch_fused.LAUNCHES)
+        many = stream.update_many(plan, many, chunks, chunk_b=second,
+                                  lengths=lens, operands=ops_)
+        assert stream.dispatch_count() == before[0] + 1
+        # each shard warms up (T launches) and captures before its first
+        # replay
+        assert (sketch_fused.LAUNCHES - before[1]
+                == mesh.size * T * (1 + (t == 0)))
+    a = stream.export_state(plan, one)
+    b = stream.export_state(plan, many, batch=B)
+    for key in ("tail", "seen"):
+        assert np.array_equal(a[key], b[key]), key
+    for name in a["sketch"]:
+        assert np.array_equal(a["sketch"][name], b["sketch"][name]), name
+
+
+def test_sharded_plans_and_blocks_on_virtual_shards_on_card(cuda):
+    """Four virtual shards of the one card: every shard's kernel launches
+    and its own graph replays on this card."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    mesh = shard.DataMesh((torch.device("cuda", 0),) * 4)
+    for plan in _stream_plans():
+        _sharded_checks(plan, mesh, gen, cuda)
+
+
+def test_sharded_plans_and_blocks_on_distinct_cards(cuda):
+    """The distinct-device path: shards on every card, operands copied to
+    each, outputs merged on the first."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs more than one CUDA card (the distinct-device "
+                    "path; one card runs the virtual-shard case)")
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    mesh = shard.data_mesh()
+    for plan in _stream_plans():
+        _sharded_checks(plan, mesh, gen, cuda)

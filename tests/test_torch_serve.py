@@ -129,8 +129,15 @@ def test_engine_rejects_misuse():
     with pytest.raises(ValueError, match="canary_bits needs"):
         ServeEngine(cfg, params, SamplerConfig(),
                     canary_bits=np.zeros(8, np.uint32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ServeEngine(cfg, params, SamplerConfig(), data_shards=2)
+    # the multi-device pool is ported: at two shards a batch of 3 (the
+    # pool rounded up to 4) gives the one-device tokens, sampled too
+    scfg = SamplerConfig(temperature=0.8, top_k=5, no_repeat_ngram=3, seed=2)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, size=(3, 5))
+    want, wstats = ServeEngine(cfg, params, scfg).generate(prompts, 6)
+    got, stats = ServeEngine(cfg, params, scfg,
+                             data_shards=2).generate(prompts, 6)
+    np.testing.assert_array_equal(got, want)
+    assert stats["banned_candidates"] == wstats["banned_candidates"]
     with pytest.warns(UserWarning, match="exceeds the hash width"):
         engine_mod.NoRepeatNgram(cfg, SamplerConfig(no_repeat_ngram=33),
                                  device="cpu")

@@ -27,6 +27,7 @@ from repro.data import service as jservice
 from repro.train import fault as jfault
 from repro_torch import convert
 from repro_torch.data import dedup, service
+from repro_torch.kernels import shard
 from repro_torch.train import fault
 
 # the suite runs test files side by side in worker processes: keep torch's
@@ -219,5 +220,8 @@ def test_worker_semantics():
     w.dead = True
     with pytest.raises(fault.WorkerCrash, match="down"):
         w.call("digest", 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        service.DedupService(_cfg(dedup), mesh=object())
+    # the service hands its mesh to its deduper, whose signing runs on it
+    mesh = shard.data_mesh(2, device="cpu")
+    svc = service.DedupService(_cfg(dedup), mesh=mesh)
+    assert svc.dd.mesh is mesh
+    svc.close()

@@ -197,8 +197,11 @@ def test_sampled_step_stays_in_top_k_and_unbanned():
 def test_pool_rejects_what_the_slice_lacks():
     spec = DecodeSpec(n=3, log2_m=6)
     h1 = np.arange(10, dtype=np.uint32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sessions.SessionPool(spec, 4, h1, device="cpu", data_shards=2)
+    # row sharding is ported: the capacity must divide the shard count
+    with pytest.raises(ValueError, match="must divide the data mesh"):
+        sessions.SessionPool(spec, 3, h1, device="cpu", data_shards=2)
+    assert sessions.SessionPool(spec, 4, h1, device="cpu",
+                                data_shards=2).mesh.size == 2
     pool = sessions.SessionPool(spec, 3, h1, device="cpu")
     with pytest.raises(ValueError, match="only 3 free"):
         pool.admit(4)
@@ -207,3 +210,65 @@ def test_pool_rejects_what_the_slice_lacks():
     with pytest.raises(ValueError, match="canary_bits given"):
         sessions.SessionPool(spec, 3, h1, device="cpu",
                              canary_bits=np.zeros(1, np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# row-wise sharding over a data mesh (tests/test_serve_plane.py:374-455)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_pool_sharded_bitparity_any_shard_count(d, temperature):
+    """The pool on d virtual CPU shards gives the one-device tokens and
+    carry, greedy and sampled (the noise is drawn before the split); greedy
+    it also equals the reference's pool on its d-device mesh."""
+    from repro.kernels import shard as jshard
+    spec_kw = dict(n=4, log2_m=9, canary_log2_m=10, canary_k=2)
+    V, C = 96, 8
+    rng = np.random.default_rng(13)
+    h1 = rng.integers(0, 2**32, size=V, dtype=np.uint32)
+    spec = DecodeSpec(**spec_kw)
+    cb = rng.integers(0, 2**32, size=spec.canary_words, dtype=np.uint32)
+    prompts = rng.integers(0, V, size=(C, 5)).astype(np.int32)
+    lens = rng.integers(0, 6, size=C)
+    one = sessions.SessionPool(spec, C, h1, canary_bits=cb, device="cpu")
+    shd = sessions.SessionPool(spec, C, h1, canary_bits=cb, device="cpu",
+                               data_shards=d)
+    jpool = jsess.SessionPool(JDecodeSpec(**spec_kw), C, h1, canary_bits=cb,
+                              impl="ref", mesh=jshard.data_mesh(d))
+    for p in (one, shd, jpool):
+        p.admit(C)
+        p.prime(prompts, lens)
+        p.evict([3])
+    gens = [torch.Generator().manual_seed(21) for _ in range(2)]
+    for _ in range(5):
+        lg = rng.standard_normal((C, V)).astype(np.float32)
+        ta = one.step(lg, generator=gens[0], temperature=temperature,
+                      top_k=7)
+        tb = shd.step(lg, generator=gens[1], temperature=temperature,
+                      top_k=7)
+        assert torch.equal(ta, tb)
+        if temperature == 0.0:
+            tj = jpool.step(lg, temperature=0.0, top_k=7)
+            np.testing.assert_array_equal(tb.numpy(), np.asarray(tj))
+    a, b = one.export_state(), shd.export_state()
+    for key in a["carry"]:
+        np.testing.assert_array_equal(a["carry"][key], b["carry"][key],
+                                      err_msg=key)
+    assert telemetry.snapshot(one) == {**telemetry.snapshot(shd),
+                                       "dispatches": telemetry.snapshot(
+                                           one)["dispatches"]}
+    if temperature == 0.0:
+        _assert_trees_equal(b, jpool.export_state())
+
+
+def test_pool_capacity_must_divide_mesh():
+    spec = DecodeSpec(n=3, log2_m=6)
+    with pytest.raises(ValueError, match="must divide"):
+        sessions.SessionPool(spec, 6, np.arange(8, dtype=np.uint32),
+                             device="cpu", data_shards=4)
+    pool = sessions.SessionPool(spec, 8, np.arange(8, dtype=np.uint32),
+                                device="cpu", data_shards=4)
+    with pytest.raises(ValueError, match="logits shape"):
+        pool.step(np.zeros((6, 8), np.float32))

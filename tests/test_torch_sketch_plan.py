@@ -158,8 +158,20 @@ def test_unported_epilogues_raise(tmp_path):
     want = jst.update(jst.init_state(), toks)
     for key in ("hll", "cms"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NgramStats(StatsConfig(data_shards=2, device="cpu"))
+    # multi-device stats are ported: two shards give the same state
+    two = NgramStats(StatsConfig(family="threewise", vocab=512, hll_b=6,
+                                 data_shards=2, device="cpu"))
+    two.rebind_params(jst.export_params())
+    got2 = two.update(two.init_state(), toks)
+    for key in ("hll", "cms"):
+        assert torch.equal(got2[key], got[key])
+    fused = NgramStats(StatsConfig(vocab=512, hll_b=6, device="cpu"))
+    fused2 = NgramStats(StatsConfig(vocab=512, hll_b=6, data_shards=2,
+                                    device="cpu"))
+    a = fused.update(fused.init_state(), toks)
+    b = fused2.update(fused2.init_state(), toks)
+    for key in ("hll", "cms"):
+        assert torch.equal(a[key], b[key])
     dp = DataPlane(PipelineConfig(seq_len=64, batch_size=2, vocab=512,
                                   dedup=False, device="cpu"))
     dp.next_batch(0)

@@ -21,7 +21,7 @@ import torch
 from repro.kernels import api as japi
 from repro.kernels import plan as jplan
 from repro.kernels import stream as jstream
-from repro_torch.kernels import stream
+from repro_torch.kernels import shard, stream
 from repro_torch.kernels import plan as tplan
 
 # the suite runs test files side by side in worker processes: keep torch's
@@ -129,9 +129,12 @@ def test_run_stream_validation():
                           operands={**ops, "hll": {"init": np.zeros(64)}})
     with pytest.raises(ValueError, match="second stream h1v_b"):
         stream.run_stream(tp, x, operands=ops, chunk_s=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        stream.run_stream(tp, x, h1v_b=x, operands=ops, chunk_s=4,
-                          data_shards=2, device="cpu")
+    # the sharded stream is ported: two shards give the one-device bits
+    want = stream.run_stream(tp, x, h1v_b=x, operands=ops, chunk_s=4,
+                             device="cpu")
+    _equal(stream.run_stream(tp, x, h1v_b=x, operands=ops, chunk_s=4,
+                             data_shards=2, device="cpu"),
+           {k: v.numpy() for k, v in want.items()})
 
 
 @pytest.mark.parametrize("family", ["cyclic", "general"])
@@ -204,8 +207,16 @@ def test_import_state_checks_the_plan():
                                if k != "hll"})
     with pytest.raises(ValueError, match="lacks sketches"):
         stream.import_state(tp, lacking, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        stream.import_state(tp, st, mesh=object(), device="cpu")
+    # an import onto a mesh re-pads for it: exported again, the same tree
+    mesh = shard.data_mesh(4, device="cpu")
+    back = stream.export_state(tp, stream.import_state(tp, st, mesh=mesh,
+                                                       device="cpu"),
+                               batch=2)
+    for key in ("tail", "tail_b", "seen"):
+        np.testing.assert_array_equal(back[key], st[key])
+    for name in st["sketch"]:
+        np.testing.assert_array_equal(back["sketch"][name],
+                                      st["sketch"][name])
 
 
 def test_update_many_leaves_the_callers_state_unchanged():
