@@ -164,6 +164,20 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    on cuda:0 here; the distinct-device path needs a machine with more
    cards (``tests/test_torch_on_card.py`` holds it there).
 
+12. the analysis phase (last, its launch counts read on their own): the
+   contract census of ``repro_torch.analysis`` with the kernels
+   (``verify_contracts(device="cuda")`` over both families, on no mesh,
+   ``data_mesh(1)`` and ``DataMesh((cuda:0,) * 4)``) reports no violation;
+   its negative controls (a body that runs the plan twice under
+   ``api.run``'s contract; a session step whose carry comes back copied)
+   are flagged; every deprecated shim (``ops.cyclic_minhash``,
+   ``cyclic_hll``, ``cyclic_bloom`` and the ``sketch_fused`` wrappers
+   ``cyclic_*_fused``) through the plan kernel equals its plain version on
+   the card, both discard settings, B in {8, 1024} x S in {7, 520, 8192}
+   with random ``n_windows``, one plan launch a call; the lint and the
+   discard checker find nothing. An ``analysis:`` line gives the counts
+   and seconds.
+
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
 device line.
@@ -1835,6 +1849,163 @@ def sharded_phase(torch, card, reset_counts, read_counts, ng, dc, dp, dd,
             raise AssertionError(f"sharded phase launched no {kind} kernel")
 
 
+# -- the analyzer ------------------------------------------------------------
+
+SHIM_B = (8, 1024)
+SHIM_S = (7, 520, 8192)
+
+
+def shim_checks(torch, ops, ref, sketch_fused, gen) -> int:
+    """Each deprecated single-sketch shim through the plan kernel, bit-equal
+    to its plain version on the card, both discard settings, B in SHIM_B x
+    S in SHIM_S with random n_windows (the dedup and decontam widths: k =
+    64, HLL b = 12, Bloom 2^22 bits with k = 4), one plan launch a call.
+    ``gen``: a CPU generator. Returns the calls checked."""
+    import warnings
+    dev = torch.device("cuda")
+    a, b = rand_u32(torch, gen, (64,), dev), rand_u32(torch, gen, (64,), dev)
+    bits = (rand_u32(torch, gen, (1 << 17,), dev).view(torch.int32)
+            | rand_u32(torch, gen, (1 << 17,), dev).view(torch.int32)).view(
+                torch.uint32)                 # dense: probes hit and miss
+    calls = 0
+    for discard in (True, False):
+        for B in SHIM_B:
+            for S in SHIM_S:
+                n = 8 if S >= 8 else 5     # the wrappers need S >= n
+                x = rand_u32(torch, gen, (B, S), dev)
+                xb = rand_u32(torch, gen, (B, S), dev)
+                nw = torch.randint(0, S - n + 2, (B,), generator=gen,
+                                   dtype=torch.int32).to(dev)
+                hm = (1 << (32 - n + 1)) - 1 if discard else 0xFFFFFFFF
+                rank = (32 - n + 1 if discard else 32) - 12
+                pairs = {
+                    "ops.cyclic_minhash": lambda impl: ops.cyclic_minhash(
+                        x, a, b, n=n, n_windows=nw, discard=discard,
+                        impl=impl),
+                    "ops.cyclic_hll": lambda impl: ops.cyclic_hll(
+                        x, n=n, b=12, n_windows=nw, discard=discard,
+                        impl=impl),
+                    "ops.cyclic_bloom": lambda impl: ops.cyclic_bloom(
+                        x, xb, bits, n=n, k=4, log2_m=22, n_windows=nw,
+                        discard=discard, impl=impl),
+                    "cyclic_minhash_fused": lambda impl: (
+                        sketch_fused.cyclic_minhash_fused(
+                            x, nw, a, b, n=n, hash_mask=hm)
+                        if impl == "kernel" else ref.minhash_fused_ref(
+                            x, nw, a, b, n=n, hash_mask=hm)),
+                    "cyclic_hll_fused": lambda impl: (
+                        sketch_fused.cyclic_hll_fused(
+                            x, nw, n=n, b=12, rank_bits=rank, hash_mask=hm)
+                        if impl == "kernel" else ref.hll_fused_ref(
+                            x, nw, n=n, b=12, rank_bits=rank,
+                            hash_mask=hm)),
+                    "cyclic_bloom_fused": lambda impl: (
+                        sketch_fused.cyclic_bloom_fused(
+                            x, xb, nw, bits, n=n, k=4, log2_m=22,
+                            hash_mask=hm)
+                        if impl == "kernel" else ref.bloom_fused_ref(
+                            x, xb, nw, bits, n=n, k=4, log2_m=22,
+                            hash_mask=hm))}
+                for name, call in pairs.items():
+                    before = sketch_fused.LAUNCHES
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore", DeprecationWarning)
+                        got = call("kernel")
+                        launched = sketch_fused.LAUNCHES - before
+                        want = call("ref")
+                    if launched != 1:
+                        raise AssertionError(f"{name} made {launched} plan "
+                                             f"launches, not 1")
+                    if not same_bits(torch, got, want):
+                        raise AssertionError(
+                            f"{name} kernel != plain version at B={B}, "
+                            f"S={S}, n={n}, discard={discard}")
+                    calls += 1
+    return calls
+
+
+def analysis_phase(torch, card, reset_counts, read_counts):
+    """The analyzer on the card (``repro_torch.analysis``): the contract
+    census of every registered entry point with the kernels, on no mesh,
+    ``data_mesh(1)`` and four virtual shards of the card, must find no
+    violation; its negative controls (a body that runs the plan twice
+    under ``api.run``'s contract, a session step whose carry comes back
+    copied) must be flagged; every deprecated shim through the plan kernel
+    equals its plain version, one launch a call."""
+    from repro_torch.analysis import contracts, discard, lint
+    from repro_torch.kernels import api, ops, ref, sketch_fused
+    from repro_torch.kernels.plan import DecodeSpec
+    from repro_torch.serve import sessions
+    t0 = time.perf_counter()
+    reset_counts()
+    violations = contracts.verify_contracts(device="cuda",
+                                            device_counts=(1, 4))
+    for v in violations:
+        print(f"analysis violation: {v}")
+    if violations:
+        raise AssertionError(f"{len(violations)} contract violation(s) on "
+                             f"the card")
+    census_s = time.perf_counter() - t0
+    # negative controls: the census must read its counters
+    dev = torch.device("cuda")
+    limit = contracts.device_smem_limit(dev)
+    plan = contracts._sketch_plan("cyclic")
+    x, xb, ops_ = contracts._sketch_args(dev)
+    run = lambda: api.run(plan, x, h1v_b=xb, operands=ops_, impl="kernel")
+
+    def doubled():
+        run()
+        return run()
+
+    flagged = contracts.check_census(
+        contracts.contract_for(api.run), contracts.take_census(doubled),
+        plan=plan, card=True)
+    if not any(f.startswith("launches:") for f in flagged):
+        raise AssertionError(f"a second plan launch went unflagged: "
+                             f"{flagged}")
+    spec = DecodeSpec(n=4, log2_m=8, canary_log2_m=8)
+    gen = torch.Generator().manual_seed(12)
+    pool = sessions.SessionPool(spec, 8, rand_u32(torch, gen, (64,), dev),
+                                canary_bits=rand_u32(
+                                    torch, gen, (spec.canary_words,), dev))
+    pool.admit(8)
+    logits = torch.randn((8, 64), generator=gen).to(dev)
+
+    def copied():
+        token = pool.step(logits, temperature=0.0)
+        pool.state = {k: v.clone() for k, v in pool.state.items()}
+        return token
+
+    moved = contracts.check_census(
+        contracts.contract_for(sessions.SessionPool.step),
+        contracts.take_census(copied, inplace={"state": lambda: pool.state}),
+        card=True)
+    if len(moved) != len(pool.state):
+        raise AssertionError(f"a copied session carry went unflagged: "
+                             f"{moved}")
+    t1 = time.perf_counter()
+    n_shims = shim_checks(torch, ops, ref, sketch_fused, gen)
+    shim_s = time.perf_counter() - t1
+    n_lint = len(lint.lint_tree())
+    n_discard = len(discard.static_findings()) + len(
+        discard.verify_decode_discard())
+    if n_lint or n_discard:
+        raise AssertionError(f"lint {n_lint}, discard {n_discard} "
+                             f"finding(s)")
+    counts = read_counts()
+    print(f"launches[analysis phase]: {json.dumps(counts)}")
+    for kind in ("plan", "decode"):
+        if counts[kind] < 1:
+            raise AssertionError(f"analysis phase launched no {kind} kernel")
+    print(f"analysis: {len(contracts.registry())} entries, 0 violations on "
+          f"no mesh, data_mesh(1) and 4 virtual shards ({census_s:.1f} s); "
+          f"negative controls flagged ({len(flagged)} launch, {len(moved)} "
+          f"in-place findings); {n_shims} shim calls == plain, one plan "
+          f"launch each ({shim_s:.1f} s); lint 0, discard 0; smem caps "
+          f"{json.dumps(contracts.SMEM_CAPS)} within the card's {limit} "
+          f"bytes a block; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 # -- the paper's byte-level path ------------------------------------------------
 
 BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
@@ -2739,6 +2910,8 @@ def main() -> int:
     kernels.extend(byte_entries)
     print(f"bytes phase: {time.perf_counter() - t0:.1f} s; "
           f"{bytes_cps:.0f} chars/s [{card}]")
+    # -- 12. the analyzer ---------------------------------------------------
+    analysis_phase(torch, card, reset_counts, read_counts)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; total {time.perf_counter() - t_start:.1f} s")
 

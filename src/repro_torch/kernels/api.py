@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.core import u32
 from repro_torch.kernels import decode as _dk
 from repro_torch.kernels import ref as _ref
@@ -321,6 +322,7 @@ def shape_outputs(plan: SketchPlan, out: Dict[str, torch.Tensor],
     return results
 
 
+@kernel_contract(kernel="plan", launches=1, dispatches=0, merges="none")
 def run(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None, operands=None,
         impl: str = "auto", w_start=None,
         device=None) -> Dict[str, torch.Tensor]:
@@ -359,6 +361,7 @@ def run(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None, operands=None,
     return shape_outputs(plan, out, lead)
 
 
+@kernel_contract(kernel="decode", launches=1, dispatches=0, merges="none")
 def decode(spec: DecodeSpec, logits, prefix, ready, bloom, h1, *,
            canary_bits=None, impl: str = "auto",
            device=None) -> Dict[str, torch.Tensor]:

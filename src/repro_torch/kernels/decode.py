@@ -106,15 +106,15 @@ def decode_masks_fused(logits: torch.Tensor, prefix: torch.Tensor,
     canary = (torch.empty((B, W), dtype=u32, device=dev)
               if spec.has_canary else None)
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _bind(_build.load("decode"))
+    decode_masks = _bind(_build.load("decode"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(logits.data_ptr(), prefix.data_ptr(), rd.data_ptr(),
-                 _READY_BYTES[rd.dtype], bloom.data_ptr(), h1.data_ptr(),
-                 ptr(canary_bits), B, V,
-                 spec.L, spec.hash_mask, spec.log2_m, spec.k,
-                 spec.canary_log2_m, spec.canary_k, out.data_ptr(),
-                 banned.data_ptr(), ptr(canary), stream)
+        err = decode_masks(
+            logits.data_ptr(), prefix.data_ptr(), rd.data_ptr(),
+            _READY_BYTES[rd.dtype], bloom.data_ptr(), h1.data_ptr(),
+            ptr(canary_bits), B, V, spec.L, spec.hash_mask, spec.log2_m,
+            spec.k, spec.canary_log2_m, spec.canary_k, out.data_ptr(),
+            banned.data_ptr(), ptr(canary), stream)
     if err != 0:
         raise RuntimeError(f"decode_masks launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -11,8 +11,9 @@ against :func:`bloom_probe_ref` and ``csrc/hll.cu`` against
 :func:`hll_update_ref`; the CPU tests hold the module against the JAX
 package's ``repro/kernels/ref.py`` and Pallas kernels. Window-hash helpers
 return int64 lanes; :func:`sketch_plan_ref`, :func:`decode_masks_ref`,
-:func:`bloom_probe_ref` and :func:`hll_update_ref` return the kernel's
-dtypes.
+:func:`bloom_probe_ref`, :func:`hll_update_ref` and the legacy
+single-sketch oracles (:func:`minhash_fused_ref`, :func:`hll_fused_ref`,
+:func:`bloom_fused_ref`) return the kernel's dtypes.
 """
 from __future__ import annotations
 
@@ -192,6 +193,37 @@ def bloom_probe_ref(h_a, h_b, bits, *, k: int = 4,
         (1 << log2_m) - 1)
     words = u32.lanes(bits)
     return (((words[probes >> 5] >> (probes & 31)) & 1) == 1).all(dim=-1)
+
+
+def minhash_fused_ref(h1v, n_windows, a, b, *, n: int, L: int = 32,
+                      hash_mask: int = 0xFFFFFFFF,
+                      k_chunk: int = 16) -> torch.Tensor:
+    """The legacy single-sketch oracle: (B, S) h1v + (B,) n_windows ->
+    (B, k) uint32 CYCLIC MinHash signatures."""
+    h, valid = _masked_windows(h1v, n, L, hash_mask,
+                               torch.as_tensor(n_windows))
+    return minhash_reduce(h, valid, a, b, k_chunk).to(torch.uint32)
+
+
+def hll_fused_ref(h1v, n_windows, *, n: int, b: int, rank_bits: int,
+                  L: int = 32, hash_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+    """The legacy single-sketch oracle: (B, S) h1v -> (2^b,) int32 HLL
+    registers over every valid CYCLIC window."""
+    h, valid = _masked_windows(h1v, n, L, hash_mask,
+                               torch.as_tensor(n_windows))
+    return hll_reduce(h, valid, b, rank_bits)
+
+
+def bloom_fused_ref(h1va, h1vb, n_windows, bits, *, n: int, k: int,
+                    log2_m: int, L: int = 32,
+                    hash_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+    """The legacy single-sketch oracle: two (B, S) h1v draws + packed
+    filter -> (B,) int32 counts of the valid CYCLIC windows whose probes
+    all hit."""
+    ha, valid = _masked_windows(h1va, n, L, hash_mask,
+                                torch.as_tensor(n_windows))
+    hb = cyclic_ref(h1vb, n, L) & hash_mask
+    return bloom_reduce(ha, hb, valid, bits, k, log2_m)
 
 
 def sketch_plan_ref(plan, h1v, h1v_b, n_windows, operands,

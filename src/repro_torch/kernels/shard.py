@@ -39,12 +39,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.kernels import api
 from repro_torch.kernels.plan import CountMinSpec, HLLSpec, SketchPlan
 
@@ -54,6 +56,24 @@ AXIS = "data"
 # "global" carry into the merged output exactly once (int32 addition wraps,
 # as the reference's int32 psum)
 _GLOBAL_MERGE = {HLLSpec: torch.maximum, CountMinSpec: torch.add}
+
+# merges of global sketches' per-shard partials issued in this context, by
+# operator name ("maximum", "add"): d - 1 a sketch each time d shards'
+# outputs are merged (the reference's one pmax or psum). Context-local, as
+# the stream's dispatch counter
+_merges = contextvars.ContextVar("repro_torch.kernels.shard._merges",
+                                 default=())
+
+
+def merge_count() -> Dict[str, int]:
+    """Cross-shard merges issued in this context, by operator name."""
+    return dict(_merges.get())
+
+
+def _merged(op: str) -> None:
+    counts = merge_count()
+    counts[op] = counts.get(op, 0) + 1
+    _merges.set(tuple(counts.items()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,6 +234,7 @@ def merge_outputs(plan: SketchPlan, parts, dev: torch.device,
         acc = to_device(parts[0][name], dev)
         for p in parts[1:]:
             acc = merge(acc, to_device(p[name], dev))
+            _merged(merge.__name__)
         if carry and name in carry:
             acc = merge(acc, to_device(carry[name], dev))
         out[name] = acc
@@ -251,6 +272,8 @@ def sharded_execute(plan: SketchPlan, mesh: DataMesh, ref_path: bool, x, xb,
     return merge_outputs(plan, parts, mesh.home, carry)
 
 
+@kernel_contract(kernel="plan", launches=1, dispatches=0,
+                 merges="global-sketch-merge")
 def run_sharded(plan: SketchPlan, h1v, *, h1v_b=None, n_windows=None,
                 operands=None, impl: str = "auto", w_start=None,
                 mesh: Optional[DataMesh] = None,
@@ -315,6 +338,7 @@ def _tree_cat(trees, dev: torch.device):
     return cat_rows(trees, dev) if isinstance(first, torch.Tensor) else first
 
 
+@kernel_contract(merges="none")
 def rowwise(fn, mesh: DataMesh, n_row: int):
     """Wrap a purely per-row function to run over the mesh's shards.
 

@@ -17,6 +17,12 @@ is its own, so the bits are those of one launch. A launch with a Bloom
 sketch also hashes the second stream ``h1v_b``, which gives the probe
 stride.
 
+The deprecated single-sketch wrappers :func:`cyclic_minhash_fused`,
+:func:`cyclic_hll_fused` and :func:`cyclic_bloom_fused` (the reference's
+legacy entry points, which take a raw ``hash_mask``) are one-sketch plans
+through the same launch; they take no tile knobs, since the kernel picks
+its own form.
+
 The module also holds the byte path's wrapper,
 :func:`cyclic_rolling_fused`: the h1 table lookup fused into the CYCLIC
 window hash, on the card through ``csrc/rolling.cu`` (entry point
@@ -35,8 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HLLSpec,
-                                      MinHashSpec, SketchPlan)
+from repro_torch.kernels.plan import (BloomSpec, CountMinSpec, HashSpec,
+                                      HLLSpec, MinHashSpec, SketchPlan)
 
 # kernel launches made by this wrapper (one per sketch_plan_fused call on
 # CUDA tensors, one a group of eight in a larger plan); the smoke run
@@ -46,6 +52,8 @@ LAUNCHES = 0
 # plan counts under every kind it holds)
 EPILOGUE_LAUNCHES = {t.__name__: 0 for t in
                      (MinHashSpec, HLLSpec, CountMinSpec, BloomSpec)}
+# launches that folded every sketch into its donated carry in place
+DONATED_LAUNCHES = 0
 
 # kernel launches made by cyclic_rolling_fused
 LOOKUP_LAUNCHES = 0
@@ -80,17 +88,19 @@ def _bind(lib: ctypes.CDLL):
 
 
 def launch_counts() -> dict:
-    """``LAUNCHES`` and ``EPILOGUE_LAUNCHES`` as one dict (key ``"plan"``
-    for the former)."""
-    return {"plan": LAUNCHES, **EPILOGUE_LAUNCHES}
+    """``LAUNCHES``, ``EPILOGUE_LAUNCHES`` and ``DONATED_LAUNCHES`` as one
+    dict (keys ``"plan"`` and ``"donated"`` for the first and the last)."""
+    return {"plan": LAUNCHES, **EPILOGUE_LAUNCHES,
+            "donated": DONATED_LAUNCHES}
 
 
 def add_launch_counts(delta: dict, sign: int = 1) -> None:
     """Add ``sign`` times a :func:`launch_counts`-shaped ``delta`` to the
     counters: a CUDA-graph replay launches what its capture recorded, and
     a capture launches nothing (``kernels/stream.py``)."""
-    global LAUNCHES
+    global LAUNCHES, DONATED_LAUNCHES
     LAUNCHES += sign * delta["plan"]
+    DONATED_LAUNCHES += sign * delta["donated"]
     for kind in EPILOGUE_LAUNCHES:
         EPILOGUE_LAUNCHES[kind] += sign * delta[kind]
 
@@ -191,7 +201,7 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
     output's exact shape and type on ``h1v``'s device. The plain version
     takes the flag's checks but stays functional (fresh outputs).
     """
-    global LAUNCHES
+    global LAUNCHES, DONATED_LAUNCHES
     if h1v.device.type == "cpu":
         if donate:   # checked as the card's path checks it, then unused
             for name, spec in plan.sketches:
@@ -252,7 +262,69 @@ def sketch_plan_fused(h1v: torch.Tensor, h1v_b, n_windows: torch.Tensor,
         LAUNCHES += 1
         for kind in {type(spec).__name__ for _, spec in group}:
             EPILOGUE_LAUNCHES[kind] += 1
+        if all(desc.sk[e].init == desc.sk[e].out
+               for e in range(len(group))):
+            DONATED_LAUNCHES += 1
     return results
+
+
+# ---------------------------------------------------------------------------
+# Legacy single-sketch entry points: one-sketch plans over the same kernel
+# ---------------------------------------------------------------------------
+
+
+def _legacy_hash_spec(n: int, L: int, hash_mask: int) -> HashSpec:
+    """Map a legacy raw ``hash_mask`` back onto the declarative discard
+    flag. Window hashes already fit in L bits, so the legacy default mask
+    0xFFFFFFFF is a no-op AND for any L: the same bits as
+    ``discard=False``."""
+    if hash_mask == (1 << (L - n + 1)) - 1:
+        return HashSpec(family="cyclic", n=n, L=L, discard=True)
+    if hash_mask in ((1 << L) - 1, 0xFFFFFFFF):
+        return HashSpec(family="cyclic", n=n, L=L, discard=False)
+    raise ValueError(
+        f"hash_mask {hash_mask:#x} matches neither the Theorem-1 discard "
+        f"mask nor the full width for n={n}, L={L}")
+
+
+def cyclic_minhash_fused(h1v: torch.Tensor, n_windows: torch.Tensor,
+                         a: torch.Tensor, b: torch.Tensor, *, n: int,
+                         L: int = 32,
+                         hash_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+    """h1v (B, S) uint32, n_windows (B,) int32, a/b (k,) uint32 -> (B, k)
+    uint32 MinHash signatures: one plan launch."""
+    plan = SketchPlan(_legacy_hash_spec(n, L, hash_mask),
+                      (("minhash", MinHashSpec(k=int(a.shape[0]))),))
+    return sketch_plan_fused(h1v, None, n_windows,
+                             {"minhash": {"a": a, "b": b}},
+                             plan=plan)["minhash"]
+
+
+def cyclic_hll_fused(h1v: torch.Tensor, n_windows: torch.Tensor, *, n: int,
+                     b: int, rank_bits: int, L: int = 32,
+                     hash_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+    """h1v (B, S) uint32, n_windows (B,) int32 -> (2^b,) int32 HLL
+    registers: one plan launch."""
+    plan = SketchPlan(_legacy_hash_spec(n, L, hash_mask),
+                      (("hll", HLLSpec(b=b, rank_bits=rank_bits)),))
+    return sketch_plan_fused(h1v, None, n_windows, {}, plan=plan)["hll"]
+
+
+def cyclic_bloom_fused(h1va: torch.Tensor, h1vb: torch.Tensor,
+                       n_windows: torch.Tensor, bits: torch.Tensor, *,
+                       n: int, k: int, log2_m: int, L: int = 32,
+                       hash_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+    """Two h1v draws (B, S) uint32 + packed filter (2^log2_m/32,) uint32 ->
+    (B,) int32 counts of the valid windows whose double-hashed probes all
+    hit: one plan launch."""
+    if tuple(bits.shape) != (1 << (log2_m - 5),):
+        raise ValueError(f"bits must have shape ({1 << (log2_m - 5)},) for "
+                         f"log2_m={log2_m}, got {tuple(bits.shape)}")
+    plan = SketchPlan(_legacy_hash_spec(n, L, hash_mask),
+                      (("bloom", BloomSpec(k=k, log2_m=log2_m)),))
+    return sketch_plan_fused(h1va, h1vb, n_windows,
+                             {"bloom": {"bits": bits}}, plan=plan)["bloom"]
+
 
 def cyclic_rolling_fused(tokens: torch.Tensor, table: torch.Tensor, *, n: int,
                          L: int = 32) -> torch.Tensor:

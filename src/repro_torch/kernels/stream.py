@@ -79,6 +79,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.kernels import api, shard
 from repro_torch.kernels import sketch_fused as _sf
 from repro_torch.kernels.plan import SketchPlan
@@ -733,6 +734,13 @@ def _symbol_budget(n_windows, B: int, S: int, n: int) -> np.ndarray:
     return np.where(nw > 0, nw + n - 1, 0)
 
 
+@kernel_contract(variant="scan", kernel="plan", launches=1,
+                 dispatches="block", merges="global-sketch-merge",
+                 donated=("state",))
+@kernel_contract(variant="grid", kernel="plan", launches=1, dispatches=1,
+                 merges="global-sketch-merge")
+@kernel_contract(variant="host", kernel="plan", launches=1,
+                 dispatches="chunk", merges="global-sketch-merge")
 def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
                n_windows=None, operands=None, impl: str = "auto",
                executor: str = "scan", n_chunks: Optional[int] = None,

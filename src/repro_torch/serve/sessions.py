@@ -31,9 +31,11 @@ Under a data mesh (``mesh`` / ``data_shards``,
 by row over the shards (``shard.rowwise``): each shard's rows of the
 carry, the logits and the sampling noise go to its device, the h1 table
 and the canary filter are copied to each device, and the rows come back to
-the pool's device. The step is per row, so no combine is needed. The
-sampling noise for all C rows is drawn once on the pool's device before
-the split, so a sampled step gives the same tokens at any shard count.
+the pool's device, written into the pool's own state tensors, so the carry
+keeps its storage at any shard count. The step is per row, so no combine
+is needed. The sampling noise for all C rows is drawn once on the pool's
+device before the split, so a sampled step gives the same tokens at any
+shard count.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.core import u32
 from repro_torch.kernels import api, shard
 from repro_torch.kernels import ref as _kref
@@ -70,6 +73,19 @@ def dispatch_count() -> int:
 
 def _dispatched(n: int = 1) -> None:
     _dispatches.set(_dispatches.get() + n)
+
+
+def _write_back(state: Dict[str, torch.Tensor],
+                new: Dict[str, torch.Tensor]) -> None:
+    """Copy the leaves of ``new`` that are not already ``state``'s own
+    tensors into them, in place (uint32 through the int32 view)."""
+    for k, dst in state.items():
+        src = new[k]
+        if src.data_ptr() == dst.data_ptr():
+            continue
+        if dst.dtype == torch.uint32:
+            dst, src = dst.view(torch.int32), src.view(torch.int32)
+        dst.copy_(src)
 
 
 def _store(dst: torch.Tensor, lanes: torch.Tensor) -> None:
@@ -376,8 +392,10 @@ class SessionPool:
         core = lambda st, tok, ln, h1: _prime_core(self.spec, st, tok, ln, h1)
         if self.mesh is not None:
             core = shard.rowwise(core, self.mesh, n_row=3)
-        self.state = core(self.state, tokens, lengths, self.h1)
+        _write_back(self.state, core(self.state, tokens, lengths, self.h1))
 
+    @kernel_contract(kernel="decode", launches=1, dispatches=1,
+                     merges="none", donated=("state",))
     def step(self, logits, *, generator: Optional[torch.Generator] = None,
              temperature: float = 1.0, top_k: int = 0,
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -408,8 +426,9 @@ class SessionPool:
             h1, cb)
         if self.mesh is not None:
             core = shard.rowwise(core, self.mesh, n_row=3)
-        token, self.state = core(self.state, logits, noise, self.h1,
-                                 self.canary_bits)
+        token, state = core(self.state, logits, noise, self.h1,
+                            self.canary_bits)
+        _write_back(self.state, state)
         self._t += 1
         return token.to(torch.int32)
 

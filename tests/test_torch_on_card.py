@@ -8,7 +8,10 @@ caller's state unchanged, a restore after a capture bit-identical; and the
 multi-device layer (``kernels/shard.py``) on four virtual shards of the
 one card, each shard's graph replayed, equal to the one-device calls (a
 further case holds the distinct-device path and runs only where there is
-more than one card).
+more than one card); and the analyzer's contract census with the kernels
+(every entry point's launches, dispatches, merges, in-place carries,
+dtypes and shared memory) with its negative control, and the deprecated
+single-sketch shims through the plan kernel.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -419,3 +422,86 @@ def test_sharded_plans_and_blocks_on_distinct_cards(cuda):
     mesh = shard.data_mesh()
     for plan in _stream_plans():
         _sharded_checks(plan, mesh, gen, cuda)
+
+
+def test_contract_census_on_card(cuda):
+    """The analyzer's contract matrix with the kernels: every entry point's
+    launches, dispatches, merges, in-place carries, output dtypes and
+    shared memory as declared, on no mesh, one shard and four virtual
+    shards."""
+    from repro_torch.analysis import contracts
+    violations = contracts.verify_contracts(device="cuda",
+                                            device_counts=(1, 4))
+    assert violations == [], [str(v) for v in violations]
+    limit = contracts.device_smem_limit(cuda)
+    assert 0 < limit <= 228 * 1024
+    assert max(contracts.SMEM_CAPS.values()) <= limit
+
+
+def test_contract_census_flags_a_second_launch_on_card(cuda):
+    """The negative control: api.run's contract pins one plan launch a
+    call; a body that runs the plan twice must be flagged."""
+    from repro_torch.analysis import contracts
+    plan = contracts._sketch_plan("cyclic")
+    x, xb, ops_ = contracts._sketch_args(cuda)
+    run = lambda: api.run(plan, x, h1v_b=xb, operands=ops_, impl="kernel")
+
+    def doubled():
+        run()
+        return run()
+
+    contract = contracts.contract_for(api.run)
+    findings = contracts.check_census(
+        contract, contracts.take_census(doubled), plan=plan, card=True)
+    assert findings == ["launches: counted {'plan': 2}, contract says "
+                        "{'plan': 1}"]
+    assert contracts.check_census(
+        contract, contracts.take_census(run), plan=plan, card=True) == []
+
+
+@pytest.mark.filterwarnings("ignore:ops.cyclic_:DeprecationWarning")
+@pytest.mark.parametrize("discard", [True, False])
+def test_legacy_shims_on_card(cuda, discard):
+    """The deprecated single-sketch shims through the plan kernel, one
+    launch a call, each equal to its plain version on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    B, S, n = 8, 520, 8
+    x, xb = _words(gen, cuda, B, S), _words(gen, cuda, B, S)
+    a, b = _words(gen, cuda, 64), _words(gen, cuda, 64)
+    bits = _words(gen, cuda, 1 << 17, dense=True)
+    nw = torch.randint(0, S - n + 2, (B,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    hm = (1 << (32 - n + 1)) - 1 if discard else 0xFFFFFFFF
+    calls = {
+        "minhash": lambda impl: ops.cyclic_minhash(
+            x, a, b, n=n, n_windows=nw, discard=discard, impl=impl),
+        "hll": lambda impl: ops.cyclic_hll(x, n=n, b=12, n_windows=nw,
+                                           discard=discard, impl=impl),
+        "bloom": lambda impl: ops.cyclic_bloom(
+            x, xb, bits, n=n, k=4, log2_m=22, n_windows=nw,
+            discard=discard, impl=impl)}
+    fused = {
+        "minhash_fused": (
+            lambda: sketch_fused.cyclic_minhash_fused(x, nw, a, b, n=n,
+                                                      hash_mask=hm),
+            lambda: ref.minhash_fused_ref(x, nw, a, b, n=n, hash_mask=hm)),
+        "hll_fused": (
+            lambda: sketch_fused.cyclic_hll_fused(
+                x, nw, n=n, b=12, rank_bits=20, hash_mask=hm),
+            lambda: ref.hll_fused_ref(x, nw, n=n, b=12, rank_bits=20,
+                                      hash_mask=hm)),
+        "bloom_fused": (
+            lambda: sketch_fused.cyclic_bloom_fused(
+                x, xb, nw, bits, n=n, k=4, log2_m=22, hash_mask=hm),
+            lambda: ref.bloom_fused_ref(x, xb, nw, bits, n=n, k=4,
+                                        log2_m=22, hash_mask=hm))}
+    for name, call in calls.items():
+        before = sketch_fused.LAUNCHES
+        got = call("kernel")
+        assert sketch_fused.LAUNCHES - before == 1, name
+        assert torch.equal(got, call("ref")), name
+    for name, (kern, plain) in fused.items():
+        before = sketch_fused.LAUNCHES
+        got = kern()
+        assert sketch_fused.LAUNCHES - before == 1, name
+        assert torch.equal(got, plain()), name
