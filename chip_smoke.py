@@ -178,6 +178,30 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    discard checker find nothing. An ``analysis:`` line gives the counts
    and seconds.
 
+13. the train phase (after item 11, before item 8; its launch counts read
+   on their own): ``train.loop.train`` on qwen1.5-0.5b recommended (24
+   layers, d 1024, vocab 151,936, 463,987,712 parameters, causal skip,
+   ``ce_chunk_vocab`` 4752, remat ``dots``, AdamW) with random weights
+   from seed 0, over the port's ``DataPlane`` at (8, 1024) with dedup on
+   the plan kernel (``impl="kernel"``): 12 steps, a checkpoint after
+   step 8 into a temporary directory, a failure injected at step 10, so
+   ``run_with_recovery`` restores and replays steps 8 and 9. Gates: (a)
+   every loss finite and the mean of the last three below the first; (b)
+   one restart, the steps run in the order expected, each replayed step's
+   loss within rtol 1e-4 of its first pass; (c) the plan kernel launched
+   at least once a step; (d) the data plane's HLL registers, CountMin
+   table and token count bit-equal to a plain ``NgramStats(impl="ref")``
+   twin on the card fed the same steps in the same order, replays
+   included; (e) the trained weights drive ``ServeEngine.generate`` on
+   the decode kernel, every token in vocab; (f) one ``make_train_step``
+   step at ``paper-tiny`` ``.smoke()`` on the card equals the same step
+   on the CPU from one carried state (loss and grad norm rtol 1e-4, every
+   parameter 2e-6). ``train[...]`` lines print the loop's log, the step's
+   ms (the first apart, then four timed steps), tokens/s, the peak device
+   memory, a checkpoint's bytes and its save and restore seconds, the
+   card's idle share over two profiled steps and the model FLOPs a step
+   (6 N tokens plus attention) as a share of the dense bf16 peak.
+
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
 device line.
@@ -236,20 +260,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profiled(torch, fn, iters: int = 1):
+def profiled(torch, fn, iters: int = 1, host: bool = True):
     """Run ``fn`` ``iters`` times under torch.profiler after a warm-up.
     Returns (host seconds to issue the calls, wall seconds until the card
     finished, [(device us, name, count)] of every kernel, copy and fill
     the calls put on the card, largest first). A trace that comes back
     with no device event at all (CUPTI dropped it: one of some forty
-    traces in a run did so on the card) is taken again, twice at most."""
+    traces in a run did so on the card) is taken again, twice at most.
+    ``host=False`` traces the device's activity alone (cheaper to digest
+    for calls of many thousand ops)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    activities = ([ProfilerActivity.CPU] if host else []) + [
+        ProfilerActivity.CUDA]
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -2006,6 +2033,296 @@ def analysis_phase(torch, card, reset_counts, read_counts):
           f"bytes a block; {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# -- the train phase: the dense LM's training half ------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_B, TRAIN_SEQ = 8, 1024        # 8,192 tokens a step
+# 12 loop steps, a checkpoint after step 8, a failure injected at step 10:
+# steps 8 and 9 replay, 14 steps run
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 8, 10
+TRAIN_SCHEDULE = dict(peak_lr=1e-3, warmup_steps=4, decay_steps=12)
+TRAIN_TIMED = 4                     # steps timed after the loop
+TRAIN_SERVE_NEW = 8                 # tokens the trained weights generate
+DENSE_BF16_FLOPS = 989e12           # H100 SXM, dense bf16 (data sheet)
+# the smoke-size step, card against CPU: a carried state (two CPU steps
+# first, so the compared update is lr * m / sqrt(v), not lr * sign(g))
+SMALL_ARCH, SMALL_B, SMALL_S = "paper-tiny", 4, 64
+SMALL_SCHEDULE = dict(peak_lr=1e-2, warmup_steps=2, decay_steps=10)
+SMALL_TOL = dict(loss=1e-4, grad_norm=1e-4, param_atol=2e-6)
+REPLAY_RTOL = 1e-4                  # a replayed step's loss, first pass
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs a step: 6 N a token for the parameters' products
+    (forward and backward) plus attention's two S x S products, 12 L H D S
+    a token, counted over the whole square as it runs here (one KV chunk
+    of 1024, so the causal skip leaves nothing out)."""
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * seq
+    return (6.0 * cfg.param_count() + attn) * tokens
+
+
+def train_idle(torch, fn, card: str) -> float:
+    """The card's idle share over one call of ``fn`` (after a warm-up
+    call), with the matrix products' share of its busy time. Traced with
+    the device's activity alone: a train step issues some 11,000 device
+    ops, and the host's ops beside them take the profiler longer to
+    digest than the steps take to run."""
+    _, wall, rows = profiled(torch, fn, host=False)
+    busy = sum(r[0] for r in rows) / 1e6
+    # matrix products by their kernels' names (cuBLAS / CUTLASS)
+    gemm = sum(r[0] for r in rows if any(
+        w in r[1].lower() for w in ("gemm", "xmma", "cutlass"))) / 1e6
+    top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms" for t, k, c in rows[:6])
+    print(f"profile[train two steps]: wall {wall:.3f} s under the profiler "
+          f"(device activity only), device busy {busy:.4f} s = "
+          f"{busy / wall:.4f} of it, idle {1 - busy / wall:.4f}; matrix "
+          f"products {gemm:.4f} s of the busy time, the rest elementwise, "
+          f"reductions and copies; {sum(r[2] for r in rows)} device events; "
+          f"by device time: {top} [{card}]")
+    return 1 - busy / wall
+
+
+def small_step_card_vs_cpu(torch, registry, tstep, optim, dev):
+    """One ``make_train_step`` step at ``paper-tiny`` ``.smoke()`` on the
+    card and on the CPU from one carried state. Returns the largest
+    differences (loss and grad norm relative, parameters absolute)."""
+    cfg = registry.get_config(SMALL_ARCH).smoke()
+    sched = optim.Schedule(**SMALL_SCHEDULE)
+    fn = tstep.make_train_step(cfg, sched)
+    rng = np.random.default_rng(21)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, size=(
+        SMALL_B, SMALL_S)).astype(np.int32)} for _ in range(3)]
+    cpu = tstep.init_state(0, cfg, sched, device="cpu")
+    for b in batches[:2]:
+        cpu, _ = fn(cpu, b)
+    card = tstep.init_state(0, cfg, sched, device=dev)
+    tstep.load_state(card, {"params": cpu["params"].state_dict(),
+                            "opt": cpu["opt"], "step": cpu["step"]})
+    card, mc = fn(card, batches[2])
+    cpu, mp = fn(cpu, batches[2])
+    rel = {k: abs(float(mc[k]) - float(mp[k])) / abs(float(mp[k]))
+           for k in ("loss", "grad_norm")}
+    dp = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
+             zip(card["params"].parameters(), cpu["params"].parameters()))
+    if (rel["loss"] > SMALL_TOL["loss"]
+            or rel["grad_norm"] > SMALL_TOL["grad_norm"]
+            or dp > SMALL_TOL["param_atol"]):
+        raise AssertionError(f"train step card vs CPU: loss {rel['loss']:.3e}, "
+                             f"grad norm {rel['grad_norm']:.3e}, params "
+                             f"{dp:.3e} past {SMALL_TOL}")
+    return rel["loss"], rel["grad_norm"], dp
+
+
+def train_phase(torch, card, reset_counts, read_counts):
+    """Phase 13: ``train()`` on qwen1.5-0.5b (recommended) at full width
+    over the port's ``DataPlane`` on the plan kernel, with a checkpoint,
+    an injected failure and a restore; then the gates, the step's times,
+    the card's idle share and the model FLOP share."""
+    import re
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataPlane, PipelineConfig
+    from repro_torch.data.stats import NgramStats, StatsConfig
+    from repro_torch.nn import lm
+    from repro_torch.serve.engine import SamplerConfig, ServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.loop import LoopConfig, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    # (f) one step at smoke size, the card against the CPU
+    d_loss, d_gn, d_p = small_step_card_vs_cpu(torch, registry, tstep, optim,
+                                               dev)
+    print(f"train[card vs cpu]: {SMALL_ARCH} .smoke(), one step from a "
+          f"carried state at ({SMALL_B}, {SMALL_S}): loss {d_loss:.3e} and "
+          f"grad norm {d_gn:.3e} relative, parameters {d_p:.3e} absolute "
+          f"(tolerances {json.dumps(SMALL_TOL)})")
+
+    cfg = registry.get_recommended_config(TRAIN_ARCH)
+    pipe = PipelineConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_B,
+                          vocab=cfg.vocab, dedup=True, impl="kernel",
+                          device="cuda")
+    sched = optim.Schedule(**TRAIN_SCHEDULE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, lines = [], []
+
+    def log(line: str) -> None:
+        lines.append(line)
+        if line.startswith("step "):
+            times.append(float(re.search(r"([\d.]+) ms", line)[1]))
+
+    split = {"card vs cpu": time.perf_counter() - t_phase}
+    reset_counts()
+    t0 = time.perf_counter()
+    data = DataPlane(pipe)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = train(cfg, pipe, LoopConfig(
+            n_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=tmp,
+            log_every=1, seed=0), schedule=sched,
+            injector=FailureInjector(fail_at_steps=(TRAIN_FAIL_AT,)),
+            log=log, data=data)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        state = res["state"]
+        ckpt_bytes = dir_bytes(Path(tmp))
+        # the loop's snapshot is written by a thread beside the steps: a
+        # second one of the final state, written here, times a whole save
+        t0 = time.perf_counter()
+        ckpt.save(tstep.checkpoint_tree(state), tmp, TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+    split["data plane"] = build_s
+    split["loop"] = loop_s
+    split["save"] = save_s
+    saved = [ln for ln in lines if ln.startswith("checkpoint step")]
+    restored = [ln for ln in lines if ln.startswith("restored step")]
+    if len(saved) != 1 or len(restored) != 1:
+        raise AssertionError(f"train: snapshots {saved}, restores {restored}")
+    host_s = float(re.search(r"host in ([\d.]+) s", saved[0])[1])
+    restore_s, waited_s = (float(x) for x in re.search(
+        r"in ([\d.]+) s \(waited ([\d.]+) s", restored[0]).groups())
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"train: {cfg.name} recommended ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab} padded to {lm.padded_vocab(cfg)}, tied "
+          f"{cfg.tie_embeddings}, {n_params} parameters, "
+          f"{cfg.param_dtype} parameters, {cfg.activation_dtype} "
+          f"activations, remat {cfg.remat}, {cfg.optimizer}, causal skip "
+          f"{cfg.attn_causal_skip}, ce_chunk_vocab {cfg.ce_chunk_vocab}); "
+          f"DataPlane ({TRAIN_B}, {TRAIN_SEQ}) dedup on the plan kernel, "
+          f"{data.corpus.n_docs_kept} documents kept, "
+          f"{data.corpus.n_duplicates} dropped, built in {build_s:.2f} s; "
+          f"loop of {TRAIN_STEPS} steps, a checkpoint every "
+          f"{TRAIN_CKPT_EVERY}, a failure at step {TRAIN_FAIL_AT}: "
+          f"{len(res['history'])} steps run in {loop_s:.2f} s, restarts "
+          f"{res['restarts']}")
+    for line in lines:
+        print(f"train[loop]: {line}")
+    print(f"launches[train phase]: {json.dumps(counts)}")
+    losses = res["losses"]
+    # (a) finite losses, falling
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    # (b) one restart, from the checkpoint; its replayed steps
+    if res["restarts"] != 1:
+        raise AssertionError(f"train: restarts {res['restarts']} != 1")
+    steps = [s for s, _ in res["history"]]
+    want = (list(range(TRAIN_FAIL_AT))
+            + list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)))
+    if steps != want:
+        raise AssertionError(f"train: steps run {steps} != {want}")
+    first = {s: m["loss"] for s, m in res["history"][:TRAIN_FAIL_AT]}
+    replay = {s: m["loss"] for s, m in res["history"][TRAIN_FAIL_AT:]
+              if s < TRAIN_FAIL_AT}
+    for s, loss in replay.items():
+        if abs(loss - first[s]) > REPLAY_RTOL * abs(first[s]):
+            raise AssertionError(f"train: replayed step {s} loss {loss} != "
+                                 f"first pass {first[s]}")
+    # (c) the plan kernel ran in the phase
+    if counts["plan"] < len(steps):
+        raise AssertionError(f"train: {counts['plan']} plan launches for "
+                             f"{len(steps)} steps")
+    # (d) the data plane's statistics against a plain twin on the card
+    t0 = time.perf_counter()
+    twin = NgramStats(StatsConfig(impl="ref", device="cuda"))
+    twin.rebind_params(data.stats.export_params())
+    tw = twin.init_state()
+    for s in steps:
+        tw = twin.update(tw, data.corpus.batch_for_step(s))
+    for k in ("hll", "cms"):
+        if not torch.equal(tw[k], data.stats_state[k]):
+            raise AssertionError(f"train: the data plane's {k} differs from "
+                                 f"the plain twin's")
+    if not np.array_equal(tw["tokens"], data.stats_state["tokens"]):
+        raise AssertionError("train: token counts differ from the twin's")
+    print(f"train: gates held: {len(losses)} finite losses, first "
+          f"{losses[0]:.4f}, last three {np.round(losses[-3:], 4).tolist()}; "
+          f"restarts 1, steps {steps}; replayed steps' losses "
+          f"{json.dumps({s: [first[s], replay[s]] for s in replay})}; "
+          f"{counts['plan']} plan launches; stats (HLL b=12, CountMin 4 x "
+          f"2^16) bit-equal to the plain twin over the same {len(steps)} "
+          f"steps; {res['telemetry']}")
+    # (e) the trained weights serve on the decode kernel
+    split["twin"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_counts()
+    eng = ServeEngine(cfg, state["params"], SamplerConfig(
+        temperature=0.0, no_repeat_ngram=4), impl="kernel")
+    prompts = np.random.default_rng(23).integers(0, cfg.vocab, size=(2, 16))
+    toks, _ = eng.generate(prompts, TRAIN_SERVE_NEW)
+    serve_counts = read_counts()
+    if toks.shape != (2, TRAIN_SERVE_NEW) or int(toks.max()) >= cfg.vocab \
+            or int(toks.min()) < 0 or serve_counts["decode"] < TRAIN_SERVE_NEW:
+        raise AssertionError(f"train-then-serve: tokens {toks.tolist()}, "
+                             f"launches {serve_counts}")
+    print(f"train-then-serve: {TRAIN_SERVE_NEW} greedy tokens from the "
+          f"trained weights, all in vocab, {serve_counts['decode']} decode "
+          f"launches: {toks.tolist()}")
+    # times: the timed steps, then two under the profiler
+    split["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = tstep.make_train_step(cfg, sched)
+    timed = []
+    for i in range(TRAIN_TIMED):
+        batch = data.next_batch(TRAIN_STEPS + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = fn(state, batch)
+        float(m["loss"])
+        timed.append((time.perf_counter() - t1) * 1e3)
+    ms = float(np.median(timed))
+    tokens = TRAIN_B * TRAIN_SEQ
+    k = iter(range(10**6))
+
+    def two_steps():
+        nonlocal state
+        for _ in range(2):
+            state, m = fn(state, data.next_batch(100 + next(k)))
+        float(m["loss"])
+
+    split["timed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idle = train_idle(torch, two_steps, card)
+    split["profiled"] = time.perf_counter() - t0
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    print(f"train[step]: loop step 0 {times[0]:.1f} ms (first, with the "
+          f"set-up), loop steps 1.. median {np.median(times[1:]):.1f} ms "
+          f"(min {min(times[1:]):.1f}, max {max(times[1:]):.1f}); timed steps "
+          f"{[round(t, 2) for t in timed]} ms, median {ms:.2f} ms, "
+          f"{tokens / ms * 1e3:.0f} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated over the loop); "
+          f"checkpoint of step {TRAIN_CKPT_EVERY}: {ckpt_bytes} bytes, "
+          f"copied to the host in {host_s:.2f} s (the step's stall; a "
+          f"thread writes it), restored in {restore_s:.2f} s (after "
+          f"{waited_s:.2f} s waiting for the writer); a whole save of the "
+          f"final state {save_s:.2f} s; idle share {idle:.4f} over two "
+          f"profiled steps; "
+          f"model FLOPs a step {flops:.4e} (6 N tokens {6.0 * cfg.param_count() * tokens:.4e} "
+          f"+ attention), {flops / ms * 1e3 / 1e12:.1f} TFLOP/s = "
+          f"{flops / ms * 1e3 / DENSE_BF16_FLOPS:.4f} of the dense bf16 peak "
+          f"(989 TFLOP/s) [{card}]")
+    del state, res, eng, data
+    torch.cuda.empty_cache()
+    split["rest"] = time.perf_counter() - t_phase - sum(split.values())
+    print(f"train phase split, s: "
+          f"{json.dumps({k: round(v, 2) for k, v in split.items()})} "
+          f"[{card}]")
+    return time.perf_counter() - t_phase, tokens / ms * 1e3
+
+
 # -- the paper's byte-level path ------------------------------------------------
 
 BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
@@ -2903,6 +3220,9 @@ def main() -> int:
                   gdd, docs, flags, rows, serve_ctx)
     del serve_ctx
     print(f"sharded phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    # -- 13. the train phase ------------------------------------------------
+    train_s, train_tps = train_phase(torch, card, reset_counts, read_counts)
+    print(f"train phase: {train_s:.1f} s; {train_tps:.0f} tokens/s [{card}]")
     # -- 8. the byte-level path, with its times -----------------------------
     t0 = time.perf_counter()
     byte_entries, bytes_cps = bytes_phase(torch, card, reset_counts,

@@ -20,8 +20,10 @@ generalized so the *class* cannot come back in the port:
   the tests that certify their replacements; new call sites use the plan
   engine. Opted-in files carry a ``lint: allow-deprecated-shims`` marker
   comment.
-* ``UNSEEDED-RNG`` — nondeterministic randomness in ``core/`` and
-  ``kernels/`` breaks the bit-identity contracts every test asserts:
+* ``UNSEEDED-RNG`` — nondeterministic randomness in ``core/``,
+  ``kernels/``, the LM's initial weights (``nn/``), the training code
+  (``train/``) and the launchers (``launch/``) breaks the bit-identity
+  and recovery contracts every test asserts:
   torch draws (``torch.rand*``, ``randperm``, ``multinomial``,
   ``bernoulli``, ``normal``, ``poisson`` and the in-place
   ``Tensor.random_`` / ``uniform_`` / ``normal_`` ...) must take an
@@ -81,7 +83,7 @@ TORCH_DRAWS = frozenset({
 })
 TENSOR_DRAWS = frozenset({
     "random_", "uniform_", "normal_", "bernoulli_", "exponential_",
-    "geometric_", "cauchy_", "log_normal_",
+    "geometric_", "cauchy_", "log_normal_", "trunc_normal_",
 })
 
 _INT32_RE = re.compile(r"\bint32\b")        # \b keeps uint32 from matching
@@ -232,7 +234,8 @@ def _rule_shim_import(tree, src: str, rel: str, out: List[Finding]) -> None:
 
 
 def _rule_unseeded_rng(tree, src: str, rel: str, out: List[Finding]) -> None:
-    if not _in(rel, f"{PKG}/core", f"{PKG}/kernels"):
+    if not _in(rel, f"{PKG}/core", f"{PKG}/kernels", f"{PKG}/nn",
+               f"{PKG}/train", f"{PKG}/launch"):
         return
     SEEDLESS_OK = {"default_rng", "SeedSequence", "Generator"}
     for node in ast.walk(tree):

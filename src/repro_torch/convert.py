@@ -16,6 +16,9 @@ that the reference exports and returns the port's tensors:
   :meth:`repro_torch.data.decontam.Decontaminator.rebind_params`;
 * :func:`lm_params_from_jax` — the value tree of ``lm.init``, for the
   ``load_state_dict`` of :class:`repro_torch.nn.lm.LM`;
+* :func:`train_state_from_jax` — a ``{"params", "opt", "step"}`` train
+  state (``train.step.init_state``'s, or a checkpoint of it), for
+  :func:`repro_torch.train.step.load_state`;
 * :func:`session_state_from_jax` / :func:`session_state_to_jax` — a
   ``SessionPool.export_state()`` tree, into the port's
   :meth:`repro_torch.serve.sessions.SessionPool.import_state` and back;
@@ -121,6 +124,29 @@ def lm_params_from_jax(values: Dict, device="cuda") -> Dict[str, torch.Tensor]:
 
     walk(values, ())
     return out
+
+
+def train_state_from_jax(state: Dict, device="cuda") -> Dict:
+    """The reference's train state — ``{"params", "opt", "step"}`` with
+    host arrays as leaves, each ``blocks`` leaf stacked over the layers —
+    -> the port's: ``{"params": a state dict, "opt": ..., "step": 0-d
+    int32 host tensor}``. The parameters go through
+    :func:`lm_params_from_jax` and so does the optimizer state, split over
+    the stacked axis the same way: AdamW's ``{"mu", "nu"}`` become one
+    tensor a parameter name each, Adafactor's per-leaf ``{"vr", "vc"}``
+    or ``{"v"}`` one such dict a parameter name."""
+    opt = state["opt"]
+    if set(opt) == {"mu", "nu"}:
+        port_opt = {k: lm_params_from_jax(opt[k], device) for k in opt}
+    else:
+        port_opt: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, t in lm_params_from_jax(opt, device).items():
+            param, key = name.rsplit(".", 1)
+            port_opt.setdefault(param, {})[key] = t
+    return {"params": lm_params_from_jax(state["params"], device),
+            "opt": port_opt,
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}
 
 
 _CARRY = {"prefix": np.uint32, "ring": np.uint32, "pos": np.int32,

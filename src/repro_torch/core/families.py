@@ -111,10 +111,14 @@ class _Family:
 
     def _gather(self, h1: torch.Tensor, tokens) -> torch.Tensor:
         """Table(s) ``(..., sigma)`` at tokens -> uint32 masked to L bits.
-        The gather and the mask run on the int32 view of the table: PyTorch
+        A token outside [0, sigma) reads the table's last entry, as the
+        reference's gather of the token as uint32 clamps it. The gather
+        and the mask run on the int32 view of the table: PyTorch
         implements both for int32 on every backend."""
         h1 = h1.view(torch.int32)
-        v = h1[..., torch.as_tensor(tokens, device=h1.device).to(torch.int64)]
+        last = h1.shape[-1] - 1
+        idx = torch.as_tensor(tokens, device=h1.device).to(torch.int64)
+        v = h1[..., torch.where(idx < 0, last, idx.clamp_max(last))]
         if self.L < 32:
             v = v & gf2.mask(self.L)
         return v.view(torch.uint32)

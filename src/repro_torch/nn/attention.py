@@ -1,11 +1,14 @@
-"""GQA/MQA attention for serving: prefill over the prompt, single-token
-decode against a fixed-capacity KV cache.
+"""GQA/MQA attention: the chunked flash forward of training and prefill,
+and single-token decode against a fixed-capacity KV cache.
 
 The JAX package computes attention outside any Pallas kernel (a chunked
 online-softmax ``lax.scan``, ``repro/nn/attention.py``); so does the port,
-in plain PyTorch: one matmul for the scores, a masked float32 softmax, one
-matmul for the values. Scores and values are taken in float32 whatever the
-activation dtype, and the output is cast back, as in the reference.
+in plain PyTorch: :func:`flash_attention` loops over the same KV chunks
+with the same running max and sum, and autograd differentiates it. Scores
+and values are taken in float32 whatever the activation dtype, and the
+output is cast back, as in the reference. ``F.scaled_dot_product_attention``
+is not used: it expresses neither the logit soft cap nor bfloat16
+probabilities.
 
 Supports GQA/MQA (any kv <= heads), RoPE or none, qk-norm (qwen3), qkv
 bias (qwen1.5), logit soft-capping, prefix-LM masking, and decode with a
@@ -13,11 +16,12 @@ fixed-capacity cache whose length is one scalar for the whole batch.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.nn.layers import (DTYPES, Linear, RMSNorm, linear_apply,
                                    rmsnorm_apply, rope)
@@ -79,14 +83,11 @@ def _mask(q_pos, k_pos, prefix_len: int):
     return ok
 
 
-def attend(q, k, v, ok=None, *, softcap: float = 0.0,
-           bf16_probs: bool = False):
-    """q (B, Sq, H, D), k/v (B, Sk, KV, D), ``ok`` (B, Sq, Sk) bool or None
-    (every key visible) -> (B, Sq, H, D) in q's dtype. The softmax is kept
+def attend(q, k, v, *, softcap: float = 0.0):
+    """Decode attention: q (B, Sq, H, D) against every key of k/v (B, Sk,
+    KV, D) -> (B, Sq, H, D) in q's dtype, in float32. The softmax is kept
     unnormalised through the value product and divided after, as the
-    reference's online softmax does; ``bf16_probs`` rounds the
-    probabilities and values to bfloat16 for that product (the reference's
-    ``attn_bf16_scores``)."""
+    reference's online softmax does."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, D).to(torch.float32)
@@ -94,25 +95,111 @@ def attend(q, k, v, ok=None, *, softcap: float = 0.0,
     s = s * (1.0 / np.sqrt(D))
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    if ok is not None:
-        s = s.masked_fill(~ok[:, :, None, None, :], NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    vf = v.to(torch.float32)
-    if bf16_probs:
-        p = p.to(torch.bfloat16).to(torch.float32)
-        vf = v.to(torch.bfloat16).to(torch.float32)
-    out = torch.einsum("bsgrc,bcgd->bsgrd", p, vf) / l.clamp_min(1e-30)
+    out = torch.einsum("bsgrc,bcgd->bsgrd", p, v.to(torch.float32))
+    out = out / l.clamp_min(1e-30)
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention(q, k, v, q_pos, k_pos, *, kv_chunk: int,
+                    prefix_len: int = 0, softcap: float = 0.0,
+                    kv_valid: Optional[torch.Tensor] = None,
+                    bf16_probs: bool = False):
+    """Online-softmax attention over ``kv_chunk`` blocks of keys, as the
+    reference's ``lax.scan`` (``repro/nn/attention.py::flash_attention``).
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KV, D); q_pos: (B, Sq); k_pos: (B, Sk).
+    kv_valid: optional (B, Sk) bool; False entries are masked. A tail that
+    ``kv_chunk`` does not divide is padded with keys at position 2**30
+    that ``kv_valid`` masks. ``bf16_probs`` rounds the probabilities and
+    values to bfloat16 for the value product, which sums in float32 (the
+    running max and sum stay float32). Scores, max and sum are float32;
+    the output is cast to q's dtype. Autograd gives the backward.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = 1.0 / np.sqrt(D)
+    nchunks = -(-Sk // kv_chunk)
+    pad = nchunks * kv_chunk - Sk
+    if kv_valid is None:
+        kv_valid = torch.ones((B, Sk), dtype=torch.bool, device=q.device)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=2**30)
+        kv_valid = F.pad(kv_valid, (0, pad), value=False)
+    qg = q.reshape(B, Sq, KV, rep, D).to(torch.float32)
+    m = torch.full((B, Sq, KV, rep), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, KV, rep), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, KV, rep, D), dtype=torch.float32,
+                      device=q.device)
+    for c in range(nchunks):
+        blk = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        s = torch.einsum("bsgrd,bcgd->bsgrc", qg,
+                         k[:, blk].to(torch.float32)) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        ok = (_mask(q_pos, k_pos[:, blk], prefix_len)
+              & kv_valid[:, None, blk])                     # (B, Sq, kc)
+        s = torch.where(ok[:, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        vb = v[:, blk]
+        if bf16_probs:
+            p = p.to(torch.bfloat16).to(torch.float32)
+            vb = vb.to(torch.bfloat16)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bsgrc,bcgd->bsgrd", p, vb.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_causal_skip(q, k, v, q_pos, k_pos, *, q_chunk: int,
+                                kv_chunk: int, prefix_len: int = 0,
+                                softcap: float = 0.0,
+                                bf16_probs: bool = False):
+    """Causal flash attention with a static KV range a q chunk: chunk i
+    visits keys ``[0, ceil(max((i+1)*q_chunk, prefix_len) / kv_chunk) *
+    kv_chunk)`` and never the blocks wholly in its future. Positions must
+    be aligned (training, prefill)."""
+    B, Sq, H, D = q.shape
+    nq = -(-Sq // q_chunk)
+    pad_q = nq * q_chunk - Sq
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=2**30)
+    outs = []
+    for qi in range(nq):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        need = max((qi + 1) * q_chunk, prefix_len)  # prefix rows see it all
+        hi = min(-(-need // kv_chunk) * kv_chunk, k.shape[1])
+        outs.append(flash_attention(
+            q[:, rows], k[:, :hi], v[:, :hi], q_pos[:, rows], k_pos[:, :hi],
+            kv_chunk=kv_chunk, prefix_len=prefix_len, softcap=softcap,
+            bf16_probs=bf16_probs))
+    return torch.cat(outs, dim=1)[:, :Sq]
 
 
 def attn_forward(params: Attention, cfg, x, positions, *,
                  prefix_len: int = 0, return_kv: bool = False):
-    """Prefill forward. x: (B, S, D); positions: (B, S)."""
+    """Training and prefill forward. x: (B, S, D); positions: (B, S)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = attend(q, k, v, _mask(positions, positions, prefix_len),
-                 softcap=cfg.attn_logit_softcap,
-                 bf16_probs=cfg.attn_bf16_scores)
+    if cfg.attn_causal_skip:
+        out = flash_attention_causal_skip(
+            q, k, v, positions, positions, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk, prefix_len=prefix_len,
+            softcap=cfg.attn_logit_softcap, bf16_probs=cfg.attn_bf16_scores)
+    else:
+        out = flash_attention(q, k, v, positions, positions,
+                              kv_chunk=cfg.kv_chunk, prefix_len=prefix_len,
+                              softcap=cfg.attn_logit_softcap,
+                              bf16_probs=cfg.attn_bf16_scores)
     y = linear_apply(params.wo, out, "bshq,hqd->bsd", compute_dtype=out.dtype)
     return (y, (k, v)) if return_kv else y
 

@@ -1,9 +1,9 @@
-"""Pre-norm residual blocks for serving: an attention mixer and a dense
-(SwiGLU or GELU) MLP.
+"""Pre-norm residual blocks, for training, prefill and decode: an
+attention mixer and a dense (SwiGLU or GELU) MLP.
 
 The reference's Mamba-2 mixer and MoE feed-forward (``repro/nn/mamba2.py``,
 ``repro/nn/moe.py``) are not ported yet: a config with such a unit raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+``NotImplementedError`` (ROADMAP Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn.layers import (DTYPES, Linear, RMSNorm, linear_apply,
                                    rmsnorm_apply)
 
-_UNPORTED = ("ROADMAP Queue 1 item 11: the port serves attention + dense "
-             "units only; {what} waits for its port")
+_UNPORTED = ("ROADMAP Queue 1 item 11: the port runs attention + dense "
+             "units only; {what} waits for its port (item 11b)")
 
 
 class MLP(nn.Module):
@@ -82,6 +82,17 @@ def _ffn(params: Block, cfg, spec: LayerSpec, x):
         return x
     h = rmsnorm_apply(params.norm_ffn, x, cfg.norm_eps)
     return x + mlp_forward(params.ffn, cfg, h)
+
+
+def block_forward(params: Block, cfg, spec: LayerSpec, x, positions, *,
+                  prefix_len: int = 0):
+    """One layer of the training forward. Returns (x, aux); ``aux`` is
+    empty for a dense unit (the MoE's load-balance and drop terms come
+    with its port)."""
+    h = rmsnorm_apply(params.norm_mix, x, cfg.norm_eps)
+    mixed = attn.attn_forward(params.attn, cfg, h, positions,
+                              prefix_len=prefix_len)
+    return _ffn(params, cfg, spec, x + mixed), {}
 
 
 def block_prefill(params: Block, cfg, spec: LayerSpec, x, positions, *,

@@ -13,7 +13,8 @@ computes in float32 and returns the input dtype; matmuls run in the
 activation dtype; a bias is added in the output dtype; RoPE rotates in
 float32. Parameters are drawn from an explicit ``torch.Generator``, which
 does not give JAX's threefry bits: parity with the reference carries its
-weights across (:func:`repro_torch.convert.lm_params_from_jax`).
+weights across (:func:`repro_torch.convert.lm_params_from_jax`). They
+take gradients; the serving entry points run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float,

@@ -1,4 +1,5 @@
-"""The decoder-only LM, serving half: init, prefill and single-step decode.
+"""The decoder-only LM: init, the training forward and loss, prefill and
+single-step decode.
 
 The reference scans one block unit over ``cfg.repeats`` stacked copies of
 its parameters (``lax.scan``); the port holds one module per repeat in an
@@ -6,24 +7,32 @@ its parameters (``lax.scan``); the port holds one module per repeat in an
 ``state_dict`` keys follow the reference's trees with the stacked leading
 axis split into layers (``blocks.<r>.u<i>.attn.wq.w``), so
 :func:`repro_torch.convert.lm_params_from_jax` carries the reference's
-weights across. Caches are a list, one dict a repeat, of
-:class:`~repro_torch.nn.attention.KVCache` per unit member.
+weights across (:func:`stack_groups` maps the names back). Caches are a
+list, one dict a repeat, of :class:`~repro_torch.nn.attention.KVCache` per
+unit member.
 
 Entry points (as in ``repro/nn/lm.py``):
   init(gen, cfg, device)                      -> params (an LM module)
+  forward(params, cfg, tokens, prefix)        -> (logits, aux)
+  loss(params, cfg, batch)                    -> (scalar, metrics)
   prefill(params, cfg, tokens, max_len)       -> (last_logits, caches)
   decode_step(params, cfg, token, caches)     -> (logits, caches)
   init_caches(cfg, batch, max_len)            -> caches
   mask_pad_logits(cfg, logits)                -> logits
-Training (``forward``, ``loss``) and the MoE and Mamba units wait for their
-port (ROADMAP Queue 1 item 11).
+The backward is autograd's, with ``cfg.remat`` choosing what a block unit
+keeps for it (:func:`_remat`). The serving entry points run under
+``torch.no_grad``. The MoE and Mamba units wait for their port (ROADMAP
+Queue 1 item 11b).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+import re
+from typing import Dict, Iterable, List
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention, blocks
@@ -60,11 +69,52 @@ class LM(nn.Module):
 
 def init(gen, cfg: ModelConfig, device="cuda") -> LM:
     """Random parameters from ``gen``: a ``torch.Generator`` on ``device``,
-    or an int seed for one."""
+    or an int seed for one. They take gradients."""
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=device).manual_seed(int(gen))
     with torch.no_grad():
-        return LM(gen, cfg, device).eval()
+        return LM(gen, cfg, device)
+
+
+_STACKED = re.compile(r"blocks\.(\d+)\.(.+)")
+
+
+def stack_groups(names: Iterable[str]) -> Dict[str, List[str]]:
+    """The port's parameter names grouped by the reference leaf they
+    form: ``blocks.<r>.<rest>`` for r = 0, 1, ... are the layers of the
+    reference's ``blocks.<rest>``, stacked on its leading axis; any other
+    name is a leaf of its own. Keys are the reference's dotted paths,
+    each list in layer order."""
+    groups: Dict[str, List[str]] = {}
+    for name in names:
+        m = _STACKED.fullmatch(name)
+        if m is None:
+            groups[name] = [name]
+        else:
+            groups.setdefault(f"blocks.{m[2]}", []).append(name)
+    key = lambda n: int(_STACKED.fullmatch(n)[1])
+    return {k: sorted(v, key=key) if k.startswith("blocks.") else v
+            for k, v in groups.items()}
+
+
+_DOTS = functools.partial(
+    checkpoint.create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+     torch.ops.aten.addmm.default])
+
+
+def _remat(fn, cfg: ModelConfig):
+    """What a block unit keeps for the backward: ``"nothing"`` keeps every
+    activation autograd saves; ``"full"`` keeps the unit's input and
+    recomputes the unit in the backward; ``"dots"`` keeps the outputs of
+    the matrix products and recomputes the rest (``checkpoint_dots``)."""
+    if cfg.remat == "nothing":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False,
+                             context_fn=_DOTS)
 
 
 def _embed_inputs(params: LM, cfg: ModelConfig, tokens, prefix_embeds, adt):
@@ -81,10 +131,106 @@ def _tokens(params: LM, tokens) -> torch.Tensor:
         torch.int64)
 
 
+def _unembedding(params: LM, cfg: ModelConfig):
+    return params.embed if cfg.tie_embeddings else params.unembed
+
+
 def _logits(params: LM, cfg: ModelConfig, x, adt):
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
-    table = params.embed if cfg.tie_embeddings else params.unembed
-    return embedding_logits(table, x, adt)
+    return embedding_logits(_unembedding(params, cfg), x, adt)
+
+
+def _backbone(params: LM, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Everything up to the final norm. Returns (hidden, aux, pfx): aux is
+    (load_balance, dropped_frac) averaged over the repeats, zeros for the
+    dense units."""
+    adt = DTYPES[cfg.activation_dtype]
+    x, positions = _embed_inputs(params, cfg, _tokens(params, tokens),
+                                 prefix_embeds, adt)
+    pfx = cfg.prefix_len if prefix_embeds is not None else 0
+
+    def unit_body(x, unit_params):
+        for u, spec in enumerate(cfg.unit):
+            x, _ = blocks.block_forward(unit_params[f"u{u}"], cfg, spec, x,
+                                        positions, prefix_len=pfx)
+        return x
+
+    body = _remat(unit_body, cfg)
+    for unit_params in params.blocks:
+        x = body(x, unit_params)
+    x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
+    return x, torch.zeros(2, dtype=torch.float32, device=x.device), pfx
+
+
+def forward(params: LM, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """tokens (B, S) -> (logits (B, S, padded vocab) in the activation
+    dtype over the text positions, aux)."""
+    adt = DTYPES[cfg.activation_dtype]
+    x, aux, pfx = _backbone(params, cfg, tokens, prefix_embeds)
+    logits = embedding_logits(_unembedding(params, cfg), x, adt)
+    return (logits[:, pfx:] if pfx else logits), aux
+
+
+def _slab(m, s, lab, xf, table, labels, base: int, chunk: int):
+    """One vocab slab of :func:`chunked_softmax_stats`: the slab's logits
+    in bfloat16 (the product rounded to bfloat16, then widened), folded
+    into the running max ``m``, sum ``s`` and label logit ``lab``."""
+    slab = table[base: base + chunk].to(torch.bfloat16)
+    lg = torch.einsum("bsd,vd->bsv", xf, slab).to(torch.float32)
+    m_new = torch.maximum(m, lg.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(-1)
+    rel = labels - base
+    hit = (rel >= 0) & (rel < chunk)
+    picked = torch.gather(lg, -1, rel.clamp(0, chunk - 1)[..., None])[..., 0]
+    return m_new, s, lab + torch.where(hit, picked, 0.0)
+
+
+def chunked_softmax_stats(x, table, labels, chunk: int):
+    """logsumexp and label logit over the vocab without the (B, S, V)
+    logits: ``chunk``-row slabs of the unembedding ``table`` (V, D), each
+    slab's logits recomputed in the backward (``torch.utils.checkpoint``,
+    as the reference's ``jax.checkpoint(body)``), so no two slabs live at
+    once. Returns (logz (B, S), label_logit (B, S)), float32."""
+    V, _ = table.shape
+    if V % chunk:
+        raise ValueError(f"ce_chunk_vocab {chunk} does not divide the "
+                         f"padded vocab {V}")
+    B, S = labels.shape
+    xf = x.to(torch.bfloat16)
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    lab = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for base in range(0, V, chunk):
+        m, s, lab = checkpoint.checkpoint(_slab, m, s, lab, xf, table,
+                                          labels, base, chunk,
+                                          use_reentrant=False)
+    return torch.log(s) + m, lab
+
+
+def loss(params: LM, cfg: ModelConfig, batch, *, z_loss: float = 1e-4,
+         moe_loss_weight: float = 0.01):
+    """Next-token CE plus ``z_loss * mean(logz**2)``. batch: {"tokens":
+    (B, S) integers, "prefix": optional (B, P, D)}. Returns (total,
+    metrics {"ce", "load_balance", "dropped_frac"}), 0-d float32 tensors."""
+    tokens = _tokens(params, batch["tokens"])
+    labels = tokens[:, 1:]
+    prefix = batch.get("prefix")
+    if cfg.ce_chunk_vocab:
+        x, aux, pfx = _backbone(params, cfg, tokens, prefix)
+        x = x[:, pfx:] if pfx else x
+        logz, label_logit = chunked_softmax_stats(
+            x[:, :-1], _unembedding(params, cfg).table, labels,
+            cfg.ce_chunk_vocab)
+    else:
+        logits, aux = forward(params, cfg, tokens, prefix)
+        lg = logits[:, :-1].to(torch.float32)
+        logz = torch.logsumexp(lg, dim=-1)
+        label_logit = torch.gather(lg, -1, labels[..., None])[..., 0]
+    ce = (logz - label_logit).mean()
+    total = ce + z_loss * (logz ** 2).mean()
+    if cfg.n_experts:
+        total = total + moe_loss_weight * aux[0]
+    return total, {"ce": ce, "load_balance": aux[0], "dropped_frac": aux[1]}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

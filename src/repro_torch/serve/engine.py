@@ -199,10 +199,12 @@ class ServeEngine:
             raise ValueError("canary_bits needs no_repeat_ngram >= 2 and "
                              "the fused plane (plus canary_log2_m)")
 
+    @torch.no_grad()
     def generate(self, prompts, max_new_tokens: int,
                  prefix_embeds=None) -> Tuple[np.ndarray, Dict]:
         """prompts (B, P) token ids -> ((B, max_new_tokens) int32 tokens,
-        stats)."""
+        stats). Runs under no-grad: the model's parameters take gradients,
+        serving records no graph."""
         cfg, scfg = self.cfg, self.scfg
         prompts = torch.as_tensor(prompts, device=self.device).to(torch.int64)
         B, P = prompts.shape

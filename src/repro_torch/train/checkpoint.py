@@ -38,6 +38,7 @@ import re
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -82,13 +83,16 @@ def to_host(leaf) -> np.ndarray:
 
 
 def host_tree(tree):
-    """The tree with every leaf a host numpy copy (structure kept)."""
+    """The tree with every leaf a host numpy copy (structure kept). A
+    device tensor's copy to the host is the copy."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: host_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(host_tree(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.device.type != "cpu":
+        return to_host(tree)
     return np.array(to_host(tree))
 
 
@@ -165,6 +169,18 @@ def _write(host_state, directory: str, step: int, keep: int,
         os.rename(tmp, final)
         _rotate(directory, keep)
         return final
+
+
+def _pool_map(fn, items: list) -> list:
+    """``fn`` over ``items`` in order, on a few threads: file reads,
+    crc32 and numpy's copies release the interpreter lock, so a restore
+    of many large leaves reads them side by side. (Writes stay on one
+    thread: ``save_async`` overlaps them with training steps, which a
+    pool of writers would starve of the host.)"""
+    if len(items) < 2:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(min(8, len(items), os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
 
 
 def _rotate(directory: str, keep: int) -> None:
@@ -273,9 +289,10 @@ def restore(template, directory: str, step: Optional[int] = None,
         meta = json.load(f)
     by_path = {e["path"]: e for e in meta["leaves"]}
     place = _placements(template, shardings)
+    leaves = flatten_with_path(template)
+    arrays = _pool_map(lambda pt: read_leaf(d, by_path[pt[0]]), leaves)
     out = {}
-    for path, tmpl in flatten_with_path(template):
-        arr = read_leaf(d, by_path[path])
+    for (path, tmpl), arr in zip(leaves, arrays):
         if arr.shape != tuple(tmpl.shape):
             raise ValueError(f"leaf {path}: shape {arr.shape} != template "
                              f"{tuple(tmpl.shape)}")
@@ -283,12 +300,12 @@ def restore(template, directory: str, step: Optional[int] = None,
             dtype = torch.empty(0, dtype=tmpl.dtype).numpy().dtype
         else:
             dtype = np.asarray(tmpl).dtype
-        arr = arr.astype(dtype)
+        # a copy that keeps a 0-d leaf 0-d (np.ascontiguousarray makes it 1-d)
+        arr = np.array(arr, dtype=dtype, order="C")
         if place[path] is not None:
-            out[path] = torch.from_numpy(np.ascontiguousarray(arr)).to(
-                place[path])
+            out[path] = torch.from_numpy(arr).to(place[path])
         elif isinstance(tmpl, torch.Tensor):
-            out[path] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            out[path] = torch.from_numpy(arr).to(
                 device if device is not None else tmpl.device)
         else:
             out[path] = arr

@@ -1,6 +1,7 @@
-"""The port's LM (serving half) against the JAX package's, with the
-reference's random weights carried across by
-``convert.lm_params_from_jax``.
+"""The port's LM serving entry points (prefill and decode) against the
+JAX package's, with the reference's random weights carried across by
+``convert.lm_params_from_jax``; tests/test_torch_train.py holds the
+training half (forward, loss, gradients) the same way.
 
 At ``paper-tiny`` and ``qwen1.5-0.5b`` (``.smoke()``: float32 parameters
 and activations; qwen keeps its QKV bias and RoPE theta 1e6), the prefill
@@ -9,10 +10,10 @@ the reference's; so do ``qwen3-4b`` (qk-norm, GQA; here with a logit soft
 cap of 30) and ``musicgen-large`` (GELU MLP, untied unembedding, no RoPE,
 a prefix of embeddings under prefix-LM attention), which reach the
 attention and MLP branches the first two do not. The tolerance covers
-float32 sums taken in another order (the reference's attention is an
-online softmax over KV chunks, the port's one softmax; the matmuls come
-from different libraries); both keep the KV cache in bfloat16, as the
-serving default does.
+float32 sums taken in another order (both prefill with an online softmax
+over KV chunks and decode with one softmax; the matmuls come from
+different libraries); both keep the KV cache in bfloat16, as the serving
+default does.
 """
 import dataclasses
 

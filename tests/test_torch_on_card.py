@@ -11,7 +11,9 @@ further case holds the distinct-device path and runs only where there is
 more than one card); and the analyzer's contract census with the kernels
 (every entry point's launches, dispatches, merges, in-place carries,
 dtypes and shared memory) with its negative control, and the deprecated
-single-sketch shims through the plan kernel.
+single-sketch shims through the plan kernel; and the LM's train step on the
+card against the CPU, and a full-width loss and backward over a batch of
+the data plane.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -505,3 +507,59 @@ def test_legacy_shims_on_card(cuda, discard):
         got = kern()
         assert sketch_fused.LAUNCHES - before == 1, name
         assert torch.equal(got, plain()), name
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_step`` step at ``paper-tiny`` ``.smoke()`` on the
+    card against the same step on the CPU, from a state carried after two
+    CPU steps (so the compared update is lr * m / sqrt(v), not lr *
+    sign(g)): loss and grad norm within rtol 1e-4, every parameter within
+    2e-6 (float32 sums in another order; TF32 off)."""
+    from repro_torch.configs import registry
+    from repro_torch.train import optim, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get_config("paper-tiny").smoke()
+    sched = optim.Schedule(peak_lr=1e-2, warmup_steps=2, decay_steps=10)
+    fn = step.make_train_step(cfg, sched)
+    rng = np.random.default_rng(21)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, size=(4, 64)).astype(
+        np.int32)} for _ in range(3)]
+    cpu = step.init_state(0, cfg, sched, device="cpu")
+    for b in batches[:2]:
+        cpu, _ = fn(cpu, b)
+    card = step.init_state(0, cfg, sched, device=cuda)
+    step.load_state(card, {"params": cpu["params"].state_dict(),
+                           "opt": cpu["opt"], "step": cpu["step"]})
+    card, mc = fn(card, batches[2])
+    cpu, mp = fn(cpu, batches[2])
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-4)
+    for (n, a), (_, b) in zip(card["params"].named_parameters(),
+                              cpu["params"].named_parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=2e-6, rtol=0,
+                                   err_msg=n)
+
+
+def test_full_width_loss_and_backward_on_card(cuda):
+    """qwen1.5-0.5b (recommended: causal skip, chunked CE, remat dots) at
+    its published widths, one (1, 128) batch from the data plane on the
+    plan kernel: a finite loss and finite gradients for every parameter."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataPlane, PipelineConfig
+    from repro_torch.nn import lm
+
+    cfg = registry.get_recommended_config("qwen1.5-0.5b")
+    data = DataPlane(PipelineConfig(seq_len=128, batch_size=1,
+                                    vocab=cfg.vocab, impl="kernel",
+                                    device="cuda"))
+    params = lm.init(0, cfg, device=cuda)
+    before = sketch_fused.LAUNCHES
+    batch = data.next_batch(0)
+    assert sketch_fused.LAUNCHES - before == 1
+    loss, metrics = lm.loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    assert torch.isfinite(loss) and float(metrics["ce"]) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert len(grads) == len(list(params.parameters()))
