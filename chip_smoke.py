@@ -202,6 +202,39 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    card's idle share over two profiled steps and the model FLOPs a step
    (6 N tokens plus attention) as a share of the dense bf16 peak.
 
+14. the MoE and Mamba-2 phase (after item 13, before item 8; its launch
+   counts read on their own): mamba2-2.7b at its published widths and
+   depth (64 layers, d_model 2560, SSD state 128, vocab 50,280) and
+   dbrx-132b at its published widths with 2 of its 40 layers (d_model
+   6144, 16 experts of width 10,752, top 4, vocab 100,352), random weights
+   from seed 0. Gates: (a) mamba2 ``ServeEngine.generate`` at item 7's
+   settings (16 prompts of 128 tokens, 64 new, greedy twice and sampled,
+   no-repeat 4-grams, the 2^20-bit canary with 4 rows planted): 64 decode
+   launches, no banned 4-gram emitted, the second greedy run's tokens
+   equal the first's, every planted row hits the canary; on the primed
+   pool the decode kernel at (16, 50432) bit-equal to its plain version;
+   (b) mamba2 with float32 activations and caches: prefill of 16 tokens
+   then 8 decode steps give the forward's logits within rtol/atol 2e-2
+   and the same argmax; (c) dbrx, 2 layers: (a)'s serve (the decode
+   kernel at (16, 100352)), prefill's ``dropped_frac`` at the published
+   capacity factor printed, then (b)'s check at capacity factor 16; (d)
+   mamba2 recommended (remat ``full``, 8 microbatches, AdamW) ``train()``
+   over the ``DataPlane`` at (8, 1024) on the plan kernel, 2 steps, no
+   checkpoint, then 2 profiled steps on its state (4 steps in all): every
+   loss and grad norm finite, one stats launch (HLL + CountMin) a loop
+   step, every state tensor keeping its storage over the profiled steps;
+   (e) dbrx 2 layers recommended (grouped dispatch, remat ``full``, 16
+   microbatches, Adafactor) at (16, 1024), 3 steps and 2 profiled, as (d),
+   each step's ``load_balance`` and ``dropped_frac`` in its loop line;
+   (f) one step at the ``.smoke()`` of dbrx-132b, kimi-k2-1t-a32b,
+   mamba2-2.7b and jamba-1.5-large-398b on the card against the CPU from
+   one carried state (loss and grad norm rtol 1e-4, the drop share
+   equal, each leaf's update within 1e-3 of its norm). ``moe_mamba[...]``
+   lines print tokens/s, the decode step's split, the kernel's time
+   beside its plain version and bound, training ms a step and tokens/s,
+   peak memory, idle shares (from the raw trace, ``raw_idle``) and the
+   model FLOP share (6 N_active, attention's products added).
+
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
 device line.
@@ -260,23 +293,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profiled(torch, fn, iters: int = 1, host: bool = True):
+def profiled(torch, fn, iters: int = 1):
     """Run ``fn`` ``iters`` times under torch.profiler after a warm-up.
     Returns (host seconds to issue the calls, wall seconds until the card
     finished, [(device us, name, count)] of every kernel, copy and fill
     the calls put on the card, largest first). A trace that comes back
     with no device event at all (CUPTI dropped it: one of some forty
-    traces in a run did so on the card) is taken again, twice at most.
-    ``host=False`` traces the device's activity alone (cheaper to digest
-    for calls of many thousand ops)."""
+    traces in a run did so on the card) is taken again, twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    activities = ([ProfilerActivity.CPU] if host else []) + [
-        ProfilerActivity.CUDA]
     for attempt in range(3):
-        with profile(activities=activities) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -2061,32 +2091,50 @@ def train_flops(cfg, tokens: int, seq: int) -> float:
     return (6.0 * cfg.param_count() + attn) * tokens
 
 
-def train_idle(torch, fn, card: str) -> float:
-    """The card's idle share over one call of ``fn`` (after a warm-up
-    call), with the matrix products' share of its busy time. Traced with
-    the device's activity alone: a train step issues some 11,000 device
-    ops, and the host's ops beside them take the profiler longer to
-    digest than the steps take to run."""
-    _, wall, rows = profiled(torch, fn, host=False)
+def raw_idle(torch, fn, card: str, what: str, warm: bool = True) -> float:
+    """The card's idle share over one call of ``fn`` (after a warm-up call
+    unless ``warm`` is off), with the matrix products' share of its busy
+    time (cuBLAS, CUTLASS and nvjet kernels by name). Traced with the
+    device's activity alone and summed from the raw trace's device events:
+    ``key_averages`` builds a Python object an event, which took minutes
+    for the 450,000 kernels of two mamba2 training steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            t, c = acc.get(e.name(), (0, 0))
+            acc[e.name()] = (t + e.duration_ns() / 1e3, c + 1)
+    rows = sorted(((t, k, c) for k, (t, c) in acc.items()), reverse=True)
+    if not rows:
+        raise RuntimeError(f"profile[{what}]: no device event in the trace")
     busy = sum(r[0] for r in rows) / 1e6
-    # matrix products by their kernels' names (cuBLAS / CUTLASS)
     gemm = sum(r[0] for r in rows if any(
-        w in r[1].lower() for w in ("gemm", "xmma", "cutlass"))) / 1e6
+        w in r[1].lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))) / 1e6
     top = "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms" for t, k, c in rows[:6])
-    print(f"profile[train two steps]: wall {wall:.3f} s under the profiler "
-          f"(device activity only), device busy {busy:.4f} s = "
-          f"{busy / wall:.4f} of it, idle {1 - busy / wall:.4f}; matrix "
-          f"products {gemm:.4f} s of the busy time, the rest elementwise, "
-          f"reductions and copies; {sum(r[2] for r in rows)} device events; "
-          f"by device time: {top} [{card}]")
+    print(f"profile[{what}]: wall {wall:.3f} s under the profiler (device "
+          f"activity only), device busy {busy:.4f} s = {busy / wall:.4f} of "
+          f"it, idle {1 - busy / wall:.4f}; matrix products {gemm:.4f} s of "
+          f"the busy time; {sum(r[2] for r in rows)} device events; by "
+          f"device time: {top} [{card}]")
     return 1 - busy / wall
 
 
-def small_step_card_vs_cpu(torch, registry, tstep, optim, dev):
-    """One ``make_train_step`` step at ``paper-tiny`` ``.smoke()`` on the
-    card and on the CPU from one carried state. Returns the largest
-    differences (loss and grad norm relative, parameters absolute)."""
-    cfg = registry.get_config(SMALL_ARCH).smoke()
+def step_card_vs_cpu(torch, registry, tstep, optim, dev, arch=SMALL_ARCH):
+    """One ``make_train_step`` step at ``arch``'s ``.smoke()`` on the card
+    and on the CPU from one carried state (two CPU steps first). Returns
+    the differences: loss and grad norm relative, the largest parameter
+    difference, the worst leaf's update difference in norm over its
+    update's norm, and each side's ``dropped_frac``."""
+    cfg = registry.get_config(arch).smoke()
     sched = optim.Schedule(**SMALL_SCHEDULE)
     fn = tstep.make_train_step(cfg, sched)
     rng = np.random.default_rng(21)
@@ -2095,22 +2143,23 @@ def small_step_card_vs_cpu(torch, registry, tstep, optim, dev):
     cpu = tstep.init_state(0, cfg, sched, device="cpu")
     for b in batches[:2]:
         cpu, _ = fn(cpu, b)
+    start = [p.detach().clone() for p in cpu["params"].parameters()]
     card = tstep.init_state(0, cfg, sched, device=dev)
     tstep.load_state(card, {"params": cpu["params"].state_dict(),
                             "opt": cpu["opt"], "step": cpu["step"]})
     card, mc = fn(card, batches[2])
     cpu, mp = fn(cpu, batches[2])
-    rel = {k: abs(float(mc[k]) - float(mp[k])) / abs(float(mp[k]))
+    out = {k: abs(float(mc[k]) - float(mp[k])) / abs(float(mp[k]))
            for k in ("loss", "grad_norm")}
-    dp = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
-             zip(card["params"].parameters(), cpu["params"].parameters()))
-    if (rel["loss"] > SMALL_TOL["loss"]
-            or rel["grad_norm"] > SMALL_TOL["grad_norm"]
-            or dp > SMALL_TOL["param_atol"]):
-        raise AssertionError(f"train step card vs CPU: loss {rel['loss']:.3e}, "
-                             f"grad norm {rel['grad_norm']:.3e}, params "
-                             f"{dp:.3e} past {SMALL_TOL}")
-    return rel["loss"], rel["grad_norm"], dp
+    out["params"] = out["update"] = 0.0
+    for a, b, s in zip(card["params"].parameters(),
+                       cpu["params"].parameters(), start):
+        a, b = a.detach().cpu(), b.detach()
+        out["params"] = max(out["params"], float((a - b).abs().max()))
+        out["update"] = max(out["update"], float(
+            torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b - s)))
+    out["dropped"] = (float(mc["dropped_frac"]), float(mp["dropped_frac"]))
+    return out
 
 
 def train_phase(torch, card, reset_counts, read_counts):
@@ -2138,12 +2187,16 @@ def train_phase(torch, card, reset_counts, read_counts):
     t_phase = time.perf_counter()
 
     # (f) one step at smoke size, the card against the CPU
-    d_loss, d_gn, d_p = small_step_card_vs_cpu(torch, registry, tstep, optim,
-                                               dev)
+    d = step_card_vs_cpu(torch, registry, tstep, optim, dev)
+    if (d["loss"] > SMALL_TOL["loss"] or d["grad_norm"] > SMALL_TOL["grad_norm"]
+            or d["params"] > SMALL_TOL["param_atol"]):
+        raise AssertionError(f"train step card vs CPU: loss {d['loss']:.3e}, "
+                             f"grad norm {d['grad_norm']:.3e}, params "
+                             f"{d['params']:.3e} past {SMALL_TOL}")
     print(f"train[card vs cpu]: {SMALL_ARCH} .smoke(), one step from a "
-          f"carried state at ({SMALL_B}, {SMALL_S}): loss {d_loss:.3e} and "
-          f"grad norm {d_gn:.3e} relative, parameters {d_p:.3e} absolute "
-          f"(tolerances {json.dumps(SMALL_TOL)})")
+          f"carried state at ({SMALL_B}, {SMALL_S}): loss {d['loss']:.3e} and "
+          f"grad norm {d['grad_norm']:.3e} relative, parameters "
+          f"{d['params']:.3e} absolute (tolerances {json.dumps(SMALL_TOL)})")
 
     cfg = registry.get_recommended_config(TRAIN_ARCH)
     pipe = PipelineConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_B,
@@ -2295,7 +2348,7 @@ def train_phase(torch, card, reset_counts, read_counts):
 
     split["timed"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    idle = train_idle(torch, two_steps, card)
+    idle = raw_idle(torch, two_steps, card, "train two steps")
     split["profiled"] = time.perf_counter() - t0
     flops = train_flops(cfg, tokens, TRAIN_SEQ)
     print(f"train[step]: loop step 0 {times[0]:.1f} ms (first, with the "
@@ -2321,6 +2374,414 @@ def train_phase(torch, card, reset_counts, read_counts):
           f"{json.dumps({k: round(v, 2) for k, v in split.items()})} "
           f"[{card}]")
     return time.perf_counter() - t_phase, tokens / ms * 1e3
+
+
+# -- phase 14: the MoE and Mamba-2 units -----------------------------------------
+
+MAMBA_ARCH, MOE_ARCH, MOE_LAYERS = "mamba2-2.7b", "dbrx-132b", 2
+# train() steps (step 0 warms up), then two profiled steps on the state
+MM_STEPS = {MAMBA_ARCH: 2, MOE_ARCH: 3}
+MM_BATCH = {MAMBA_ARCH: (8, 1024), MOE_ARCH: (16, 1024)}
+MM_SCHEDULE = dict(peak_lr=1e-4, warmup_steps=2, decay_steps=8)
+MM_CHECK_P, MM_CHECK_S = 16, 24                  # prefill 16, decode to 24
+MM_CHECK_TOL = 2e-2                              # the reference's own
+MM_SMOKE = ("dbrx-132b", "kimi-k2-1t-a32b", "mamba2-2.7b",
+            "jamba-1.5-large-398b")
+# a smoke step's parameter update, each leaf in norm against the CPU's:
+# routed gradients leave elements near 0 whose m / sqrt(v) has no
+# relative bound, so phase 13's per-element 2e-6 does not carry over
+MM_UPDATE_RTOL = 1e-3
+
+
+def moe_train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs a step: 6 N_active a token (the routed experts' share
+    only: ``param_count(active_only=True)``) plus attention's 12 L H D S
+    over its layers. The SSD's own products are not counted, as 6 N
+    does not count attention's."""
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_specs())
+    attn = 12 * n_attn * cfg.n_heads * cfg.resolved_head_dim * seq
+    return (6.0 * cfg.param_count(active_only=True) + attn) * tokens
+
+
+def mm_serve(torch, cfg, params, card, reset_counts, read_counts):
+    """Gates (a) and (c)'s serve: ``ServeEngine.generate`` at phase 8's
+    settings on ``params`` (16 prompts x 128, 64 new, greedy twice and
+    sampled, no-repeat 4-grams in 2^14-bit filters with k = 2, the 2^20-bit
+    canary with k = 4, four rows planted with a canary gram's head); then
+    the decode kernel at the path's shape on a primed pool's real state,
+    bit-equal to its plain version and timed beside it and its bound; the
+    split of a decode step; the card's idle share. Returns a dict of the
+    numbers."""
+    from repro_torch.core import sketches, u32
+    from repro_torch.kernels import decode, ref
+    from repro_torch.nn import lm
+    from repro_torch.serve import sessions
+    from repro_torch.serve.engine import (NoRepeatNgram, SamplerConfig,
+                                          ServeEngine)
+
+    dev = torch.device("cuda")
+    V = lm.padded_vocab(cfg)
+    scfg = SamplerConfig(temperature=0.0, no_repeat_ngram=SERVE_N,
+                         bloom_log2_m=14, bloom_k=2, hash_bits=32,
+                         canary_log2_m=20, canary_k=4, seed=0)
+    nrn = NoRepeatNgram(cfg, scfg, dev)
+    spec = dataclasses.replace(
+        nrn.spec, canary_log2_m=scfg.canary_log2_m, canary_k=scfg.canary_k)
+    rng = np.random.default_rng(31)
+    grams = rng.integers(0, cfg.vocab, size=(CANARY_GRAMS, SERVE_N))
+    cbits = canary_filter(torch, u32, ref, sketches, spec, nrn.h1,
+                          torch.from_numpy(grams).to(dev))
+    prompts = rng.integers(0, cfg.vocab, size=(SERVE_B, SERVE_P))
+    planted = rng.choice(SERVE_B, PLANTED_ROWS, replace=False)
+    for j, r in enumerate(planted):
+        prompts[r, -(SERVE_N - 1):] = grams[j, : SERVE_N - 1]
+    prompts = prompts.astype(np.int32)
+    engine = lambda **kw: ServeEngine(cfg, params, dataclasses.replace(
+        scfg, **kw), impl="kernel", canary_bits=cbits)
+    eng = engine()
+    eng.generate(prompts[:2, :8], 2)            # first call: cuBLAS set-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, stats = eng.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = read_counts()
+    again, _ = engine().generate(prompts, SERVE_NEW)
+    stoks, sstats = engine(temperature=0.8, top_k=50).generate(prompts,
+                                                               SERVE_NEW)
+    bad = (repeated_completions(prompts, toks, SERVE_N)
+           + repeated_completions(prompts, stoks, SERVE_N))
+    if counts["decode"] != SERVE_NEW:
+        raise AssertionError(f"{cfg.name} serve: {counts['decode']} decode "
+                             f"launches for {SERVE_NEW} steps")
+    if bad:
+        raise AssertionError(f"{cfg.name} serve: {bad} generated tokens "
+                             f"complete a repeated {SERVE_N}-gram")
+    if not np.array_equal(toks, again):
+        raise AssertionError(f"{cfg.name} serve: a second greedy run gave "
+                             f"other tokens")
+    for t in (toks, stoks):
+        if t.shape != (SERVE_B, SERVE_NEW) or t.min() < 0 \
+                or t.max() >= cfg.vocab:
+            raise AssertionError(f"{cfg.name} serve: tokens out of vocab")
+    tele = stats["telemetry"]
+    if tele["canary_hits"] < PLANTED_ROWS:
+        raise AssertionError(f"{cfg.name} serve: {tele['canary_hits']} "
+                             f"canary hits for {PLANTED_ROWS} planted rows")
+    print(f"moe_mamba[{cfg.name} serve]: greedy {SERVE_B} x {SERVE_NEW} "
+          f"after {SERVE_P}-token prompts in {t_gen:.4f} s = "
+          f"{SERVE_B * SERVE_NEW / t_gen:.1f} generated tokens/s; a second "
+          f"greedy run gives the same tokens; sampled (0.8, top-k 50) banned "
+          f"{sstats['banned_candidates']}; no generated token completes a "
+          f"repeated {SERVE_N}-gram; {counts['decode']} decode launches; "
+          f"telemetry {json.dumps(tele)} [{card}]")
+
+    # the decode kernel at the path's shape, on a primed pool's state; the
+    # split of a step between the model and the pool
+    warm, split_steps, prof_steps = 2, 12, 4
+    logits, caches = lm.prefill(params, cfg, prompts, SERVE_P + warm
+                                + split_steps + 2 * prof_steps)
+    pool = sessions.SessionPool(eng.decode_spec, SERVE_B, eng.nrn.h1,
+                                canary_bits=eng.canary_bits, device=dev)
+    pool.admit(SERVE_B)
+    pool.prime(prompts)
+    t_lm = t_pool = 0.0
+    state = {"logits": logits, "caches": caches}
+
+    def one_step(timed=False):
+        nonlocal t_lm, t_pool
+        lg = lm.mask_pad_logits(cfg, state["logits"].float())
+        if timed:
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+        tok = pool.step(lg, temperature=0.0)
+        if timed:
+            torch.cuda.synchronize()
+            b = time.perf_counter()
+        state["logits"], state["caches"] = lm.decode_step(
+            params, cfg, tok[:, None], state["caches"])
+        if timed:
+            torch.cuda.synchronize()
+            t_pool += b - a
+            t_lm += time.perf_counter() - b
+
+    for _ in range(warm):
+        one_step()
+    for _ in range(split_steps):
+        one_step(timed=True)
+    idle = raw_idle(torch, lambda: [one_step() for _ in range(prof_steps)],
+                    card, f"{cfg.name} decode, {prof_steps} steps")
+    st = pool.state
+    ready = (st["count"] >= spec.n - 1) & (st["active"] != 0)
+    lg = lm.mask_pad_logits(cfg, state["logits"].float())
+    args = tuple(a.contiguous() for a in (lg, st["prefix"], ready,
+                                          st["bloom"], pool.h1))
+    kern = lambda: decode.decode_masks_fused(*args, spec=spec,
+                                             canary_bits=cbits)
+    plain = lambda: ref.decode_masks_ref(
+        *args, n=spec.n, L=spec.L, hash_mask=spec.hash_mask,
+        log2_m=spec.log2_m, k=spec.k, canary_bits=cbits,
+        canary_log2_m=spec.canary_log2_m, canary_k=spec.canary_k)
+    got, want = kern(), plain()
+    for key in want:
+        if not same_bits(torch, got[key], want[key]):
+            raise AssertionError(f"decode at ({SERVE_B}, {V}): kernel {key} "
+                                 f"!= plain version's")
+    ms, plain_ms, kh, (k1, k2, p1, p2) = in_turns(torch, kern, plain,
+                                                  k_iters=200, p_iters=5)
+    pb, pc = probes_until_miss(torch, ref, u32, spec, *args[1:],
+                               canary_bits=cbits)
+    b_ms, by, text = decode_bound(spec, SERVE_B, V, pb, pc)
+    print(f"kernel[decode_masks] ({SERVE_B}, {V}) on {cfg.name}'s primed "
+          f"pool: kernel == plain version (logits, banned and canary words); "
+          f"{ms:.5f} ms per launch ({k1:.5f}, {k2:.5f}); plain version "
+          f"{plain_ms:.5f} ms ({p1:.5f}, {p2:.5f}); bound {b_ms:.5f} ms by "
+          f"{by} ({text}); bound / time {b_ms / ms:.3f} [{card}]")
+    print(f"moe_mamba[{cfg.name} decode step]: lm.decode_step "
+          f"{t_lm / split_steps * 1e3:.4f} ms, SessionPool.step "
+          f"{t_pool / split_steps * 1e3:.4f} ms (mean of {split_steps}, host "
+          f"clock with a synchronise around each part); card idle "
+          f"{idle:.4f} over {prof_steps} profiled steps [{card}]")
+    del pool, state, caches, logits
+    return {"serve_tokens_s": SERVE_B * SERVE_NEW / t_gen,
+            "decode": counts["decode"],
+            "lm_ms": t_lm / split_steps * 1e3,
+            "pool_ms": t_pool / split_steps * 1e3, "idle": idle,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms}
+
+
+def mm_decode_check(torch, cfg, params, card):
+    """Gates (b) and (c)'s check: float32 activations and caches, one
+    prompt of 24 tokens: prefill of 16 then 8 decode steps give the
+    training forward's logits within 2e-2 and the same argmax (the
+    reference's tests/test_models.py check)."""
+    from repro_torch.nn import lm
+    cfg = dataclasses.replace(cfg, activation_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(33).integers(
+        0, cfg.vocab, size=(1, MM_CHECK_S))).cuda()
+    with torch.no_grad():
+        full, aux = lm.forward(params, cfg, toks)
+    full = lm.mask_pad_logits(cfg, full.float()[0])
+    last, caches = lm.prefill(params, cfg, toks[:, :MM_CHECK_P],
+                              max_len=MM_CHECK_S, cache_dtype=torch.float32)
+    outs = [last]
+    for t in range(MM_CHECK_P, MM_CHECK_S):
+        step_logits, caches = lm.decode_step(params, cfg, toks[:, t:t + 1],
+                                             caches)
+        outs.append(step_logits)
+    worst = 0.0
+    for i, got in enumerate(outs[:-1]):
+        got = lm.mask_pad_logits(cfg, got.float())[0]
+        want = full[MM_CHECK_P - 1 + i]
+        err = float(((got - want).abs() - MM_CHECK_TOL * want.abs()).max())
+        worst = max(worst, float((got - want).abs().max()))
+        if err > MM_CHECK_TOL or int(got.argmax()) != int(want.argmax()):
+            raise AssertionError(f"{cfg.name}: decode step {i} differs from "
+                                 f"the forward (max |diff| "
+                                 f"{float((got - want).abs().max()):.4e}, "
+                                 f"argmax {int(got.argmax())} vs "
+                                 f"{int(want.argmax())})")
+    print(f"moe_mamba[{cfg.name} prefill + decode == forward]: float32 "
+          f"activations and caches, prefill {MM_CHECK_P} then "
+          f"{MM_CHECK_S - MM_CHECK_P} decode steps: max |logit diff| "
+          f"{worst:.4e} (tolerance rtol/atol {MM_CHECK_TOL}), every argmax "
+          f"equal; forward aux {[round(float(a), 6) for a in aux]} "
+          f"(capacity factor {cfg.capacity_factor}) [{card}]")
+
+
+def mm_train(torch, cfg, card, reset_counts, read_counts):
+    """Gates (d) and (e): ``train()`` over the port's ``DataPlane`` on the
+    plan kernel, no checkpoint; then two steps timed under the profiler,
+    whose state must keep its storage. Returns a dict of the numbers."""
+    import re
+    import tempfile
+
+    from repro_torch.data.pipeline import DataPlane, PipelineConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import LoopConfig, train
+
+    B, S = MM_BATCH[cfg.name]
+    n_steps = MM_STEPS[cfg.name]
+    pipe = PipelineConfig(seq_len=S, batch_size=B, vocab=cfg.vocab,
+                          dedup=True, impl="kernel", device="cuda")
+    sched = optim.Schedule(**MM_SCHEDULE)
+    t0 = time.perf_counter()
+    data = DataPlane(pipe)
+    build_s = time.perf_counter() - t0
+    lines = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = train(cfg, pipe, LoopConfig(
+            n_steps=n_steps, ckpt_every=10**9, ckpt_dir=tmp, log_every=1,
+            seed=0, num_microbatches=cfg.num_microbatches), schedule=sched,
+            log=lines.append, data=data)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for line in lines:
+        print(f"moe_mamba[{cfg.name} train loop]: {line}")
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    ms = [float(re.search(r"([\d.]+) ms", ln)[1]) for ln in steps]
+    gnorms = [float(re.search(r"gnorm +([-\d.e+naif]+)", ln)[1])
+              for ln in steps]
+    losses = res["losses"]
+    if len(losses) != n_steps or not (np.isfinite(losses).all()
+                                      and np.isfinite(gnorms).all()):
+        raise AssertionError(f"{cfg.name} train: losses {losses}, grad "
+                             f"norms {gnorms}")
+    # one stats launch (HLL + CountMin) a step, on the plan kernel
+    if counts["plan"] != n_steps or counts["HLLSpec"] != n_steps \
+            or counts["CountMinSpec"] != n_steps:
+        raise AssertionError(f"{cfg.name} train: launches {counts} for "
+                             f"{n_steps} steps")
+    state = res["state"]
+    fn = tstep.make_train_step(cfg, sched,
+                               num_microbatches=cfg.num_microbatches)
+    k = iter(range(10**6))
+    before = launch_train.storage_pointers(state)
+
+    profiled_m = []
+
+    def two_steps():
+        nonlocal state
+        for _ in range(2):
+            state, m = fn(state, data.next_batch(100 + next(k)))
+            profiled_m.append(m)
+        float(m["loss"])
+
+    # the loop has warmed the step up: no third warm-up pair
+    idle = raw_idle(torch, two_steps, card, f"{cfg.name} train two steps",
+                    warm=False)
+    more = [(float(m["loss"]), float(m["grad_norm"])) for m in profiled_m]
+    if not np.isfinite(more).all():
+        raise AssertionError(f"{cfg.name} train: profiled steps' (loss, "
+                             f"grad norm) {more}")
+    lost = launch_train.moved(before, state)
+    if lost:
+        raise AssertionError(f"{cfg.name} train: {len(lost)} state tensors "
+                             f"changed storage, e.g. {lost[0]}")
+    tokens = B * S
+    step_ms = float(np.median(ms[1:]))
+    flops = moe_train_flops(cfg, tokens, S)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"moe_mamba[{cfg.name} train]: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters ({cfg.param_count(True)} "
+          f"active), remat {cfg.remat}, {cfg.num_microbatches} microbatches, "
+          f"{cfg.optimizer}, dispatch {cfg.moe_dispatch}; DataPlane ({B}, "
+          f"{S}) built in {build_s:.2f} s; {n_steps} steps in {loop_s:.2f} s,"
+          f" step 0 {ms[0]:.1f} ms, steps 1.. median {step_ms:.1f} ms = "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; launches {json.dumps(counts)}"
+          f"; peak device memory {peak / 2**30:.2f} GiB over the loop; two "
+          f"more steps, (loss, grad norm) {more}, every state tensor kept "
+          f"its storage over them; idle share "
+          f"{idle:.4f} over those two profiled steps; model FLOPs a step "
+          f"{flops:.4e} (6 N_active tokens + attention), "
+          f"{flops / step_ms * 1e3 / 1e12:.1f} TFLOP/s = "
+          f"{flops / step_ms * 1e3 / DENSE_BF16_FLOPS:.4f} of the dense bf16 "
+          f"peak (989 TFLOP/s) [{card}]")
+    del state, res, data
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "train_tokens_s": tokens / step_ms * 1e3,
+            "train_idle": idle, "peak_gib": peak / 2**30,
+            "plan": counts["plan"]}
+
+
+def moe_mamba_phase(torch, card, reset_counts, read_counts):
+    """Phase 14: mamba2-2.7b at its published widths and depth and
+    dbrx-132b at its published widths with two layers, each served
+    (``ServeEngine.generate``) and trained (``train()``), with the gates
+    (a)-(f) of docstring item 14."""
+    from repro_torch.configs import registry
+    from repro_torch.nn import lm
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    split, out = {}, {}
+    models = ((MAMBA_ARCH, registry.get_config(MAMBA_ARCH)),
+              (MOE_ARCH, dataclasses.replace(registry.get_config(MOE_ARCH),
+                                             n_layers=MOE_LAYERS)))
+    for arch, cfg in models:
+        # (a) / (c): serve, then (b) / (c): prefill + decode == forward
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init(0, cfg, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"moe_mamba[{arch} model]: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab} padded to "
+              f"{lm.padded_vocab(cfg)}, {n_params} random {cfg.param_dtype} "
+              f"parameters from seed 0 in {init_s:.2f} s; TF32 off")
+        out[arch] = mm_serve(torch, cfg, params, card, reset_counts,
+                             read_counts)
+        if cfg.n_experts:
+            prompts = torch.from_numpy(np.random.default_rng(31).integers(
+                0, cfg.vocab, size=(SERVE_B, SERVE_P))).to(dev)
+            with torch.no_grad():
+                _, aux = lm.forward(params, cfg, prompts)
+            print(f"moe_mamba[{arch} prefill aux]: ({SERVE_B}, {SERVE_P}) "
+                  f"prompts, {cfg.moe_dispatch} dispatch at the published "
+                  f"capacity factor {cfg.capacity_factor}: load_balance "
+                  f"{float(aux[0]):.6f}, dropped_frac {float(aux[1]):.6f}")
+            check = dataclasses.replace(cfg, capacity_factor=16.0)
+        else:
+            check = cfg
+        mm_decode_check(torch, check, params, card)
+        out[arch]["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params
+        torch.cuda.empty_cache()
+        split[f"{arch} serve"] = time.perf_counter() - t0
+        print(f"moe_mamba[{arch} serve phase]: {split[f'{arch} serve']:.1f} "
+              f"s, peak {out[arch]['serve_peak_gib']:.2f} GiB", flush=True)
+        # (d) / (e): train
+        t0 = time.perf_counter()
+        tcfg = registry.get_recommended_config(arch)
+        if arch == MOE_ARCH:
+            tcfg = dataclasses.replace(tcfg, n_layers=MOE_LAYERS)
+        out[arch].update(mm_train(torch, tcfg, card, reset_counts,
+                                  read_counts))
+        split[f"{arch} train"] = time.perf_counter() - t0
+        print(f"moe_mamba[{arch} train phase]: {split[f'{arch} train']:.1f} "
+              f"s", flush=True)
+    # (f) the card against the CPU at smoke size
+    t0 = time.perf_counter()
+    for arch in MM_SMOKE:
+        d = step_card_vs_cpu(torch, registry, tstep, optim, dev, arch)
+        if (d["loss"] > SMALL_TOL["loss"]
+                or d["grad_norm"] > SMALL_TOL["grad_norm"]
+                or d["update"] > MM_UPDATE_RTOL
+                or d["dropped"][0] != d["dropped"][1]):
+            raise AssertionError(f"gate (f) {arch}: {d}")
+        print(f"moe_mamba[{arch} .smoke() card vs cpu]: one step from a "
+              f"carried state at ({SMALL_B}, {SMALL_S}): loss "
+              f"{d['loss']:.3e} and grad norm {d['grad_norm']:.3e} relative "
+              f"(tolerance 1e-4), parameters {d['params']:.3e} absolute, "
+              f"worst leaf update {d['update']:.3e} of its norm (tolerance "
+              f"{MM_UPDATE_RTOL}), dropped_frac {d['dropped'][0]} on both")
+    split["card vs cpu"] = time.perf_counter() - t0
+    print(f"launches[moe_mamba phase]: " + json.dumps(
+        {a: {"decode": o["decode"], "plan": o["plan"]}
+         for a, o in out.items()}))
+    print(f"moe_mamba summary: " + json.dumps(
+        {a: {k: round(v, 5) if isinstance(v, float) else v
+             for k, v in o.items()} for a, o in out.items()})
+          + f" [{card}]")
+    print(f"moe_mamba phase split, s: "
+          f"{json.dumps({k: round(v, 2) for k, v in split.items()})} "
+          f"[{card}]")
+    return time.perf_counter() - t_phase
 
 
 # -- the paper's byte-level path ------------------------------------------------
@@ -3223,6 +3684,9 @@ def main() -> int:
     # -- 13. the train phase ------------------------------------------------
     train_s, train_tps = train_phase(torch, card, reset_counts, read_counts)
     print(f"train phase: {train_s:.1f} s; {train_tps:.0f} tokens/s [{card}]")
+    # -- 14. the MoE and Mamba-2 units ----------------------------------------
+    mm_s = moe_mamba_phase(torch, card, reset_counts, read_counts)
+    print(f"moe_mamba phase: {mm_s:.1f} s [{card}]")
     # -- 8. the byte-level path, with its times -----------------------------
     t0 = time.perf_counter()
     byte_entries, bytes_cps = bytes_phase(torch, card, reset_counts,

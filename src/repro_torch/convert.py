@@ -101,12 +101,23 @@ def decontam_params_from_jax(tree: Dict, device="cuda") -> Dict:
             "bits": _tensor(tree["bits"], np.uint32, 1, "bits", device)}
 
 
+def _from_numpy(arr: np.ndarray, device) -> torch.Tensor:
+    """A copy of ``arr`` on ``device``; a bfloat16 array (``ml_dtypes``,
+    which ``torch.from_numpy`` refuses) goes across as its bits."""
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr).view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
 def lm_params_from_jax(values: Dict, device="cuda") -> Dict[str, torch.Tensor]:
     """The value tree of the reference's ``lm.init`` (leaves as arrays) ->
     a state dict for :class:`repro_torch.nn.lm.LM`. Nested keys join with
     dots; each ``blocks`` leaf is stacked over the repeats on its leading
     axis and splits into one entry a layer (``blocks.<r>.u0.attn.wq.w``).
-    Einsum layouts stay as they are: ``(d, h, q)`` and ``(h, q, d)``."""
+    Einsum layouts stay as they are: ``(d, h, q)`` and ``(h, q, d)``; so
+    do the MoE's and Mamba's bare arrays (``ffn.w_in`` (E, d, F),
+    ``mamba.conv_w``, ``mamba.A_log``). bfloat16 leaves stay bfloat16."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):
@@ -117,10 +128,10 @@ def lm_params_from_jax(values: Dict, device="cuda") -> Dict[str, torch.Tensor]:
         arr = np.asarray(tree)
         if path[0] == "blocks":
             for r in range(arr.shape[0]):
-                out[".".join(("blocks", str(r)) + path[1:])] = (
-                    torch.from_numpy(np.array(arr[r])).to(device))
+                out[".".join(("blocks", str(r)) + path[1:])] = _from_numpy(
+                    arr[r], device)
         else:
-            out[".".join(path)] = torch.from_numpy(np.array(arr)).to(device)
+            out[".".join(path)] = _from_numpy(arr, device)
 
     walk(values, ())
     return out

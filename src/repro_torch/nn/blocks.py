@@ -1,9 +1,8 @@
-"""Pre-norm residual blocks, for training, prefill and decode: an
-attention mixer and a dense (SwiGLU or GELU) MLP.
-
-The reference's Mamba-2 mixer and MoE feed-forward (``repro/nn/mamba2.py``,
-``repro/nn/moe.py``) are not ported yet: a config with such a unit raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11b).
+"""Pre-norm residual blocks, for training, prefill and decode, as in the
+JAX package's ``repro/nn/blocks.py``: an attention or Mamba-2 mixer
+(:mod:`repro_torch.nn.mamba2`), then a dense (SwiGLU or GELU) MLP, an MoE
+(:mod:`repro_torch.nn.moe`) or no feed-forward, as the unit's
+:class:`~repro_torch.configs.base.LayerSpec` says.
 """
 from __future__ import annotations
 
@@ -13,11 +12,9 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import LayerSpec
 from repro_torch.nn import attention as attn
+from repro_torch.nn import mamba2, moe
 from repro_torch.nn.layers import (DTYPES, Linear, RMSNorm, linear_apply,
                                    rmsnorm_apply)
-
-_UNPORTED = ("ROADMAP Queue 1 item 11: the port runs attention + dense "
-             "units only; {what} waits for its port (item 11b)")
 
 
 class MLP(nn.Module):
@@ -47,29 +44,24 @@ def mlp_forward(params: MLP, cfg, x):
     return linear_apply(params.w_out, h, "bsf,fd->bsd", compute_dtype=adt)
 
 
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
-        raise NotImplementedError(_UNPORTED.format(what=f"a {spec.kind!r} "
-                                                   f"mixer"))
-    if spec.ffn == "moe":
-        raise NotImplementedError(_UNPORTED.format(what="an MoE "
-                                                   "feed-forward"))
-
-
 class Block(nn.Module):
-    """``norm_mix`` + ``attn``, then ``norm_ffn`` + ``ffn`` unless the
-    unit's ffn is ``"none"``."""
+    """``norm_mix`` + ``attn`` (or ``mamba`` for a Mamba unit), then
+    ``norm_ffn`` + ``ffn`` (an :class:`~repro_torch.nn.moe.MoE` or an
+    :class:`MLP`) unless the unit's ffn is ``"none"``."""
 
     def __init__(self, gen: torch.Generator, cfg, spec: LayerSpec,
                  device="cuda"):
         super().__init__()
-        _check_spec(spec)
         dt = DTYPES[cfg.param_dtype]
         self.norm_mix = RMSNorm(cfg.d_model, dt, device)
-        self.attn = attn.attn_init(gen, cfg, device)
+        if spec.kind == "attn":
+            self.attn = attn.attn_init(gen, cfg, device)
+        else:
+            self.mamba = mamba2.mamba_init(gen, cfg, device)
         if spec.ffn != "none":
             self.norm_ffn = RMSNorm(cfg.d_model, dt, device)
-            self.ffn = mlp_init(gen, cfg, device)
+            self.ffn = (moe.moe_init(gen, cfg, device) if spec.ffn == "moe"
+                        else mlp_init(gen, cfg, device))
 
 
 def block_init(gen: torch.Generator, cfg, spec: LayerSpec,
@@ -78,34 +70,50 @@ def block_init(gen: torch.Generator, cfg, spec: LayerSpec,
 
 
 def _ffn(params: Block, cfg, spec: LayerSpec, x):
+    """The feed-forward half: (x, aux), aux the MoE's dict or empty."""
     if spec.ffn == "none":
-        return x
+        return x, {}
     h = rmsnorm_apply(params.norm_ffn, x, cfg.norm_eps)
-    return x + mlp_forward(params.ffn, cfg, h)
+    if spec.ffn == "moe":
+        y, aux = moe.moe_forward(params.ffn, cfg, h)
+        return x + y, aux
+    return x + mlp_forward(params.ffn, cfg, h), {}
 
 
 def block_forward(params: Block, cfg, spec: LayerSpec, x, positions, *,
                   prefix_len: int = 0):
-    """One layer of the training forward. Returns (x, aux); ``aux`` is
-    empty for a dense unit (the MoE's load-balance and drop terms come
-    with its port)."""
+    """One layer of the training forward. Returns (x, aux): the MoE's
+    ``{"load_balance", "dropped_frac"}``, empty for a dense unit."""
     h = rmsnorm_apply(params.norm_mix, x, cfg.norm_eps)
-    mixed = attn.attn_forward(params.attn, cfg, h, positions,
-                              prefix_len=prefix_len)
-    return _ffn(params, cfg, spec, x + mixed), {}
+    if spec.kind == "attn":
+        mixed = attn.attn_forward(params.attn, cfg, h, positions,
+                                  prefix_len=prefix_len)
+    else:
+        mixed = mamba2.mamba_forward(params.mamba, cfg, h)
+    return _ffn(params, cfg, spec, x + mixed)
 
 
 def block_prefill(params: Block, cfg, spec: LayerSpec, x, positions, *,
                   prefix_len: int = 0):
-    """One layer over the prompt. Returns (x, (k, v)) for its cache."""
+    """One layer over the prompt. Returns (x, cache): (k, v) for an
+    attention mixer, a :class:`~repro_torch.nn.mamba2.MambaCache` for a
+    Mamba one."""
     h = rmsnorm_apply(params.norm_mix, x, cfg.norm_eps)
-    mixed, kv = attn.attn_forward(params.attn, cfg, h, positions,
-                                  prefix_len=prefix_len, return_kv=True)
-    return _ffn(params, cfg, spec, x + mixed), kv
+    if spec.kind == "attn":
+        mixed, cache = attn.attn_forward(params.attn, cfg, h, positions,
+                                         prefix_len=prefix_len,
+                                         return_kv=True)
+    else:
+        mixed, cache = mamba2.mamba_forward(params.mamba, cfg, h,
+                                            return_cache=True)
+    return _ffn(params, cfg, spec, x + mixed)[0], cache
 
 
 def block_decode(params: Block, cfg, spec: LayerSpec, x, cache):
     """Single-step decode. Returns (x, new_cache)."""
     h = rmsnorm_apply(params.norm_mix, x, cfg.norm_eps)
-    mixed, cache = attn.attn_decode(params.attn, cfg, h, cache)
-    return _ffn(params, cfg, spec, x + mixed), cache
+    if spec.kind == "attn":
+        mixed, cache = attn.attn_decode(params.attn, cfg, h, cache)
+    else:
+        mixed, cache = mamba2.mamba_decode(params.mamba, cfg, h, cache)
+    return _ffn(params, cfg, spec, x + mixed)[0], cache

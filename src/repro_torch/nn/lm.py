@@ -8,8 +8,9 @@ its parameters (``lax.scan``); the port holds one module per repeat in an
 axis split into layers (``blocks.<r>.u<i>.attn.wq.w``), so
 :func:`repro_torch.convert.lm_params_from_jax` carries the reference's
 weights across (:func:`stack_groups` maps the names back). Caches are a
-list, one dict a repeat, of :class:`~repro_torch.nn.attention.KVCache` per
-unit member.
+list, one dict a repeat, of a :class:`~repro_torch.nn.attention.KVCache`
+per attention member and a :class:`~repro_torch.nn.mamba2.MambaCache` per
+Mamba member.
 
 Entry points (as in ``repro/nn/lm.py``):
   init(gen, cfg, device)                      -> params (an LM module)
@@ -21,26 +22,25 @@ Entry points (as in ``repro/nn/lm.py``):
   mask_pad_logits(cfg, logits)                -> logits
 The backward is autograd's, with ``cfg.remat`` choosing what a block unit
 keeps for it (:func:`_remat`). The serving entry points run under
-``torch.no_grad``. The MoE and Mamba units wait for their port (ROADMAP
-Queue 1 item 11b).
+``torch.no_grad``.
 """
 from __future__ import annotations
 
 import functools
 import re
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Union
 
 import torch
 from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn import attention, blocks
+from repro_torch.nn import attention, blocks, mamba2
 from repro_torch.nn.layers import (DTYPES, Embedding, RMSNorm,
                                    embedding_logits, embedding_lookup,
                                    rmsnorm_apply)
 
-Caches = List[Dict[str, attention.KVCache]]
+Caches = List[Dict[str, Union[attention.KVCache, mamba2.MambaCache]]]
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -142,24 +142,33 @@ def _logits(params: LM, cfg: ModelConfig, x, adt):
 
 def _backbone(params: LM, cfg: ModelConfig, tokens, prefix_embeds=None):
     """Everything up to the final norm. Returns (hidden, aux, pfx): aux is
-    (load_balance, dropped_frac) averaged over the repeats, zeros for the
-    dense units."""
+    (load_balance, dropped_frac), float32, summed over a repeat's MoE
+    members and averaged over the repeats (zeros without an MoE)."""
     adt = DTYPES[cfg.activation_dtype]
     x, positions = _embed_inputs(params, cfg, _tokens(params, tokens),
                                  prefix_embeds, adt)
     pfx = cfg.prefix_len if prefix_embeds is not None else 0
 
     def unit_body(x, unit_params):
+        aux_acc = torch.zeros(2, dtype=torch.float32, device=x.device)
         for u, spec in enumerate(cfg.unit):
-            x, _ = blocks.block_forward(unit_params[f"u{u}"], cfg, spec, x,
-                                        positions, prefix_len=pfx)
-        return x
+            x, aux = blocks.block_forward(unit_params[f"u{u}"], cfg, spec, x,
+                                          positions, prefix_len=pfx)
+            if aux:
+                aux_acc = aux_acc + torch.stack(
+                    [aux["load_balance"], aux["dropped_frac"]])
+        return x, aux_acc
 
+    # the aux leaves the checkpointed region beside x; a recompute in the
+    # backward routes every token as the first pass did (nothing in the
+    # MoE's integer results depends on the order of float work)
     body = _remat(unit_body, cfg)
+    auxes = []
     for unit_params in params.blocks:
-        x = body(x, unit_params)
+        x, aux = body(x, unit_params)
+        auxes.append(aux)
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
-    return x, torch.zeros(2, dtype=torch.float32, device=x.device), pfx
+    return x, torch.stack(auxes).mean(dim=0), pfx
 
 
 def forward(params: LM, cfg: ModelConfig, tokens, prefix_embeds=None):
@@ -235,11 +244,15 @@ def loss(params: LM, cfg: ModelConfig, batch, *, z_loss: float = 1e-4,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Caches:
-    """Empty caches, one dict of unit members a repeat."""
-    for spec in cfg.unit:
-        blocks._check_spec(spec)
-    return [{f"u{u}": attention.init_cache(cfg, batch, max_len, dtype, device)
-             for u in range(len(cfg.unit))} for _ in range(cfg.repeats)]
+    """Empty caches, one dict of unit members a repeat: a KV cache of
+    ``dtype`` for an attention member, a Mamba cache (float32 conv
+    history and state, as the reference's) for a Mamba member."""
+    def one(spec):
+        if spec.kind == "attn":
+            return attention.init_cache(cfg, batch, max_len, dtype, device)
+        return mamba2.init_mamba_cache(cfg, batch, device=device)
+    return [{f"u{u}": one(spec) for u, spec in enumerate(cfg.unit)}
+            for _ in range(cfg.repeats)]
 
 
 @torch.no_grad()
@@ -258,11 +271,16 @@ def prefill(params: LM, cfg: ModelConfig, tokens, max_len: int,
     caches = init_caches(cfg, B, max_len, cache_dtype, x.device)
     for unit_p, unit_c in zip(params.blocks, caches):
         for u, spec in enumerate(cfg.unit):
-            x, (k, v) = blocks.block_prefill(unit_p[f"u{u}"], cfg, spec, x,
-                                             positions, prefix_len=pfx)
+            x, got = blocks.block_prefill(unit_p[f"u{u}"], cfg, spec, x,
+                                          positions, prefix_len=pfx)
             c = unit_c[f"u{u}"]
-            c.k[:, :S] = k.to(cache_dtype)
-            c.v[:, :S] = v.to(cache_dtype)
+            if spec.kind == "attn":
+                k, v = got
+                c.k[:, :S] = k.to(cache_dtype)
+                c.v[:, :S] = v.to(cache_dtype)
+            else:        # the history holds activation-dtype values exactly
+                c.conv.copy_(got.conv)
+                c.state.copy_(got.state)
             unit_c[f"u{u}"] = c._replace(length=S)
     return _logits(params, cfg, x[:, -1:], adt)[:, 0], caches
 

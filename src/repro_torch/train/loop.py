@@ -11,7 +11,8 @@ restores the newest checkpoint in place (after joining its writer) and
 replays from it; the corpus is stateless-resumable, so a replayed step
 sees the same batch (and folds it into the statistics once more, as the
 reference's loop does). ``log`` also gets a line for each snapshot and
-restore, with its seconds.
+restore, with its seconds; a step's line also carries the MoE's
+``load_balance`` and ``dropped_frac`` when the model has experts.
 """
 from __future__ import annotations
 
@@ -105,12 +106,15 @@ def train(cfg: ModelConfig, pipe_cfg: PipelineConfig, loop_cfg: LoopConfig,
         dt = watchdog.stop(step)
         if step % loop_cfg.log_every == 0:
             tel = data.telemetry()
+            moe = (f" load_balance {float(metrics['load_balance']):.4f} "
+                   f"dropped_frac {float(metrics['dropped_frac']):.4f}"
+                   if cfg.n_experts else "")
             log(f"step {step:5d} loss {loss:7.4f} "
                 f"ce {float(metrics['ce']):7.4f} "
                 f"gnorm {float(metrics['grad_norm']):8.3f} "
                 f"{dt*1e3:7.1f} ms  distinct_ngrams~"
                 f"{tel['distinct_ngrams']:.3g} "
-                f"deduped {tel['docs_deduped']}")
+                f"deduped {tel['docs_deduped']}{moe}")
         return {"loss": loss}
 
     try:

@@ -37,21 +37,48 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x).detach().to("cpu", torch.float32)
 
 
+# the updates make their float32 temporaries for runs of tensors of at most
+# this many elements together (1 GiB of float32), not for every tensor at
+# once: at dbrx's width those were twice the parameters' bytes
+RUN_NUMEL = 1 << 28
+
+
+def _runs(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """Indices of ``tensors`` in consecutive runs of at most
+    :data:`RUN_NUMEL` elements together (a larger tensor alone)."""
+    out: List[List[int]] = []
+    total = RUN_NUMEL
+    for i, t in enumerate(tensors):
+        if total + t.numel() > RUN_NUMEL:
+            out.append([])
+            total = 0
+        out[-1].append(i)
+        total += t.numel()
+    return out
+
+
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """The float32 2-norm of every gradient together (the norm of the
-    leaves' norms: one launch a few hundred leaves on the card)."""
-    norms = torch._foreach_norm([g.to(torch.float32) for g in grads])
+    leaves' norms: one launch a run of leaves on the card)."""
+    norms = []
+    for run in _runs(grads):
+        norms += torch._foreach_norm([grads[i].to(torch.float32)
+                                      for i in run])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
     """-> (the gradients in float32 scaled to a global norm of at most
     ``max_norm``, new tensors; the global norm before clipping). The norm
-    and the scale stay on the gradients' device."""
+    and the scale stay on the gradients' device. The optimizers clip a
+    run of gradients at a time, to the same values."""
     gn = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     return torch._foreach_mul([g.to(torch.float32) for g in grads],
-                              scale), gn
+                              _clip_scale(gn, max_norm)), gn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,17 +109,7 @@ def adamw(schedule: Schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         return {"mu": {n: zeros(p) for n, p in params.items()},
                 "nu": {n: zeros(p) for n, p in params.items()}}
 
-    @torch.no_grad()
-    def update(grads: Tensors, state, params: Tensors, step) -> Dict:
-        names = list(params)
-        g, gn = clip_by_global_norm([grads[n] for n in names], max_grad_norm)
-        lr = schedule(step)
-        t = _f32(step) + 1.0
-        c1 = float(1.0 - b1 ** t)
-        c2 = float(1.0 - b2 ** t)
-        mu = [state["mu"][n] for n in names]
-        nu = [state["nu"][n] for n in names]
-        p = [params[n] for n in names]
+    def update_run(g, mu, nu, p, c1: float, c2: float, lr: float) -> None:
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
         torch._foreach_mul_(nu, b2)
@@ -107,11 +124,29 @@ def adamw(schedule: Schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         del den
         pf = [x.to(torch.float32) for x in p]
         torch._foreach_add_(upd, torch._foreach_mul(pf, weight_decay))
-        torch._foreach_mul_(upd, float(lr))
+        torch._foreach_mul_(upd, lr)
         if all(x is y for x, y in zip(p, pf)):
             torch._foreach_sub_(p, upd)
         else:
             torch._foreach_copy_(p, torch._foreach_sub(pf, upd))
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors, step) -> Dict:
+        names = list(params)
+        gs = [grads[n] for n in names]
+        gn = _global_norm(gs)
+        scale = _clip_scale(gn, max_grad_norm)
+        lr = schedule(step)
+        t = _f32(step) + 1.0
+        c1 = float(1.0 - b1 ** t)
+        c2 = float(1.0 - b2 ** t)
+        for run in _runs(gs):
+            part = [names[i] for i in run]
+            g = torch._foreach_mul([grads[n].to(torch.float32)
+                                    for n in part], scale)
+            update_run(g, [state["mu"][n] for n in part],
+                       [state["nu"][n] for n in part],
+                       [params[n] for n in part], c1, c2, float(lr))
         return {"grad_norm": gn, "lr": lr}
 
     return Optimizer(init=init, update=update)
@@ -155,37 +190,62 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
     @torch.no_grad()
     def update(grads: Tensors, state, params: Tensors, step) -> Dict:
         names = list(params)
-        clipped, gn = clip_by_global_norm([grads[n] for n in names],
-                                          max_grad_norm)
-        g_of = dict(zip(names, clipped))
+        gn = _global_norm([grads[n] for n in names])
+        scale = _clip_scale(gn, max_grad_norm)
         lr = float(schedule(step))
         t = _f32(step) + 1.0
         beta2 = 1.0 - t ** (-decay_adamant)
         b2, ob2 = float(beta2), float(1.0 - beta2)
+
+        def precondition(g, s):
+            """A clipped gradient (overwritten) -> its preconditioned
+            update, from the second moments already updated."""
+            if "vr" in s:
+                vr, vc = s["vr"], s["vc"]
+                denom_r = vr / torch.clamp_min(
+                    vr.mean(dim=-1, keepdim=True), eps)
+                den = (torch.sqrt(denom_r)[..., None]
+                       * torch.sqrt(vc)[..., None, :])
+                return g.div_(den.add_(eps))
+            return g.div_(torch.sqrt(s["v"]).add_(eps))
+
+        clipped = lambda n: grads[n].to(torch.float32) * scale
         for group in stack_groups(params).values():
-            pres = []
+            # first pass: the second moments, and the sum of the update's
+            # squares over the whole reference leaf; a leaf of at most
+            # RUN_NUMEL elements keeps its updates for the second pass
+            count = sum(params[n].numel() for n in group)
+            kept = {} if count <= RUN_NUMEL else None
+            sq = 0
             for n in group:
-                g, s = g_of[n], state[n]
-                g2 = g * g + eps
+                g, s = clipped(n), state[n]
+                g2 = g * g
+                g2.add_(eps)
                 if "vr" in s:
                     s["vr"].mul_(b2).add_(ob2 * g2.mean(dim=-1))
                     s["vc"].mul_(b2).add_(ob2 * g2.mean(dim=-2))
-                    vr, vc = s["vr"], s["vc"]
-                    denom_r = vr / torch.clamp_min(
-                        vr.mean(dim=-1, keepdim=True), eps)
-                    pres.append(g / (torch.sqrt(denom_r)[..., None]
-                                     * torch.sqrt(vc)[..., None, :] + eps))
                 else:
                     s["v"].mul_(b2).add_(ob2 * g2)
-                    pres.append(g / (torch.sqrt(s["v"]) + eps))
-            # the update's RMS over the whole reference leaf, clipped
-            count = sum(x.numel() for x in pres)
-            rms = torch.sqrt(sum(torch.sum(x * x) for x in pres) / count
-                             + eps)
+                del g2
+                pre = precondition(g, s)
+                sq = sq + torch.sum(pre * pre)
+                if kept is not None:
+                    kept[n] = pre
+            # its RMS, clipped; the second pass applies each update, and
+            # a larger leaf's it recomputes (the same values): one
+            # tensor's temporaries at a time, not a whole leaf's updates
+            rms = torch.sqrt(sq / count + eps)
             shrink = torch.clamp_min(rms / clip_threshold, 1.0)
-            for n, pre in zip(group, pres):
+            for n in group:
+                pre = (kept.pop(n) if kept is not None
+                       else precondition(clipped(n), state[n]))
+                pre.div_(shrink).mul_(lr)
                 p = params[n]
-                p.copy_(p.to(torch.float32) - lr * (pre / shrink))
+                pf = p.to(torch.float32)
+                if pf is p:
+                    p.sub_(pre)
+                else:
+                    p.copy_(pf.sub_(pre))
         return {"grad_norm": gn, "lr": _f32(lr)}
 
     return Optimizer(init=init, update=update)

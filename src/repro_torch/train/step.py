@@ -64,13 +64,18 @@ def make_train_step(cfg: ModelConfig, schedule: Optional[Schedule] = None, *,
             mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
             loss, metrics, grads = grads_of(params, named, mb)
             if acc_g is None:
-                acc_l, acc_m = loss, metrics
-                acc_g = [g.to(torch.float32) for g in grads]
+                # the float32 sum made a gradient at a time, each freed
+                # once cast: not every gradient twice at once
+                grads = list(grads)
+                acc_l, acc_m, acc_g = loss, metrics, []
+                for j, g in enumerate(grads):
+                    acc_g.append(g.to(torch.float32))
+                    grads[j] = None
             else:
                 acc_l = acc_l + loss
                 acc_m = {k: acc_m[k] + v for k, v in metrics.items()}
-                torch._foreach_add_(acc_g, [g.to(torch.float32)
-                                            for g in grads])
+                # mixed dtypes promote tensor by tensor: no float32 copies
+                torch._foreach_add_(acc_g, grads)
             del grads
         scale = 1.0 / num_microbatches
         torch._foreach_mul_(acc_g, scale)

@@ -12,8 +12,8 @@ more than one card); and the analyzer's contract census with the kernels
 (every entry point's launches, dispatches, merges, in-place carries,
 dtypes and shared memory) with its negative control, and the deprecated
 single-sketch shims through the plan kernel; and the LM's train step on the
-card against the CPU, and a full-width loss and backward over a batch of
-the data plane.
+card against the CPU (a dense, an MoE and a Mamba model), and a full-width
+loss and backward over a batch of the data plane.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -509,17 +509,16 @@ def test_legacy_shims_on_card(cuda, discard):
         assert torch.equal(got, plain()), name
 
 
-def test_train_step_on_card_matches_cpu(cuda):
-    """One ``make_train_step`` step at ``paper-tiny`` ``.smoke()`` on the
-    card against the same step on the CPU, from a state carried after two
-    CPU steps (so the compared update is lr * m / sqrt(v), not lr *
-    sign(g)): loss and grad norm within rtol 1e-4, every parameter within
-    2e-6 (float32 sums in another order; TF32 off)."""
+def _step_card_vs_cpu(cuda, arch):
+    """One ``make_train_step`` step at ``arch``'s ``.smoke()`` on the card
+    and on the CPU from the state after two CPU steps (so the compared
+    update is lr * m / sqrt(v), not lr * sign(g)): (the card's metrics,
+    the CPU's, {name: (card parameter, CPU parameter, carried one)})."""
     from repro_torch.configs import registry
     from repro_torch.train import optim, step
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = registry.get_config("paper-tiny").smoke()
+    cfg = registry.get_config(arch).smoke()
     sched = optim.Schedule(peak_lr=1e-2, warmup_steps=2, decay_steps=10)
     fn = step.make_train_step(cfg, sched)
     rng = np.random.default_rng(21)
@@ -528,17 +527,29 @@ def test_train_step_on_card_matches_cpu(cuda):
     cpu = step.init_state(0, cfg, sched, device="cpu")
     for b in batches[:2]:
         cpu, _ = fn(cpu, b)
+    start = {n: p.detach().clone() for n, p in
+             cpu["params"].named_parameters()}
     card = step.init_state(0, cfg, sched, device=cuda)
     step.load_state(card, {"params": cpu["params"].state_dict(),
                            "opt": cpu["opt"], "step": cpu["step"]})
     card, mc = fn(card, batches[2])
     cpu, mp = fn(cpu, batches[2])
+    return mc, mp, {n: (a.detach().cpu(), b.detach(), start[n])
+                    for (n, a), (_, b) in zip(
+                        card["params"].named_parameters(),
+                        cpu["params"].named_parameters())}
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_step`` step at ``paper-tiny`` ``.smoke()`` on the
+    card against the same step on the CPU, from a state carried after two
+    CPU steps: loss and grad norm within rtol 1e-4, every parameter within
+    2e-6 (float32 sums in another order; TF32 off)."""
+    mc, mp, params = _step_card_vs_cpu(cuda, "paper-tiny")
     for k in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-4)
-    for (n, a), (_, b) in zip(card["params"].named_parameters(),
-                              cpu["params"].named_parameters()):
-        np.testing.assert_allclose(a.detach().cpu().numpy(),
-                                   b.detach().numpy(), atol=2e-6, rtol=0,
+    for n, (a, b, _) in params.items():
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-6, rtol=0,
                                    err_msg=n)
 
 
@@ -563,3 +574,19 @@ def test_full_width_loss_and_backward_on_card(cuda):
     assert torch.isfinite(loss) and float(metrics["ce"]) > 0
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert len(grads) == len(list(params.parameters()))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b"])
+def test_moe_and_mamba_step_on_card_matches_cpu(cuda, arch):
+    """An MoE model (dbrx, AdamW) and a Mamba model (mamba2) at smoke
+    size: one step on the card against the CPU from one carried state.
+    Loss, grad norm and the MoE's aux within rtol 1e-4; each parameter
+    leaf's update within 1e-3 of its norm, in norm (TF32 off; an element
+    whose gradient is near 0 has no relative bound through m / sqrt(v))."""
+    mc, mp, params = _step_card_vs_cpu(cuda, arch)
+    for k in ("loss", "grad_norm", "load_balance"):
+        np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-4)
+    assert float(mc["dropped_frac"]) == float(mp["dropped_frac"])
+    for n, (a, b, s) in params.items():
+        assert float(torch.linalg.vector_norm(a - b)) <= 1e-3 * float(
+            torch.linalg.vector_norm(b - s)), n

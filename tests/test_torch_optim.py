@@ -145,6 +145,39 @@ def test_adafactor_state_is_factored():
                for t in s.values())
 
 
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x.values() for t in _leaves(v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_updates_in_runs_equal_one_run(name, dtype, monkeypatch):
+    """Runs of at most ``RUN_NUMEL`` elements (AdamW's float32 temporaries
+    a run; Adafactor's updates of a leaf past it recomputed, not kept)
+    give the very bits of one run over every tensor, over three steps."""
+    def three(run_numel):
+        monkeypatch.setattr(optim, "RUN_NUMEL", run_numel)
+        opt = optim.make_optimizer(name, optim.Schedule(**SCHED))
+        params = {n: p.to(dtype) for n, p in _port(_tree()).items()}
+        state = opt.init(params)
+        rng = np.random.default_rng(1)
+        for i in range(3):
+            grads = {n: torch.from_numpy((rng.standard_normal(tuple(
+                p.shape)) * 10.0 ** -i).astype(np.float32)).to(dtype)
+                for n, p in params.items()}
+            m = opt.update(grads, state, params, i)
+        return params, state, m, optim._runs(list(params.values()))
+
+    p1, s1, m1, runs1 = three(1 << 40)
+    p2, s2, m2, runs2 = three(5000)
+    assert len(runs1) == 1 and len(runs2) > 3
+    assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+    for a, b in zip(_leaves(p1) + _leaves(s1), _leaves(p2) + _leaves(s2)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])
 def test_optimizers_descend_quadratic(name):
     params = {"w": torch.tensor([2.0, -3.0, 1.5]),

@@ -3,8 +3,10 @@ attention (with and without the causal skip), the chunked softmax
 statistics, the forward logits, and the loss with every gradient leaf
 against ``jax.value_and_grad(repro.nn.lm.loss)``; the remat modes against
 each other; serving under no-grad; and the reference's model smoke checks
-on the port (a forward and an SGD step for every dense arch, prefill and
+on the port (a forward and an SGD step for every arch, prefill and
 decode against the forward, the recommended config's step).
+tests/test_torch_moe_mamba_lm.py holds the MoE and Mamba-2 architectures
+against the reference the same way.
 
 Weights are the reference's ``lm.init`` carried across by
 ``convert.lm_params_from_jax`` at ``.smoke()`` sizes (float32 parameters
@@ -192,10 +194,15 @@ def test_loss_and_grads_match_reference(arch, overrides, ce_chunk, skip):
                                    atol=frac * np.abs(w).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("arch,overrides", [ARCHS[1], ARCHS[3]])
+@pytest.mark.parametrize("arch,overrides", [
+    ARCHS[1], ARCHS[3], ("jamba-1.5-large-398b", {}),
+    ("dbrx-132b", {"moe_dispatch": "grouped", "capacity_factor": 0.1})])
 def test_remat_modes_give_equal_grads(arch, overrides):
     """``nothing``, ``dots`` and ``full`` recompute the same float ops on
-    the CPU: bit-equal loss and gradients."""
+    the CPU: bit-equal loss and gradients. With MoE units (jamba; dbrx's
+    grouped dispatch at a capacity factor that drops) the recompute routes
+    and drops as the first pass did, and the aux leaves the checkpointed
+    unit: the load-balance term and the drop share are bit-equal too."""
     base = dict(**overrides, **CHUNKS, ce_chunk_vocab=128,
                 attn_causal_skip=True)
     _, values, _, _ = _carried(arch, **base)
@@ -208,8 +215,10 @@ def test_remat_modes_give_equal_grads(arch, overrides):
         params = lm.init(0, cfg, device="cpu")
         params.load_state_dict(convert.lm_params_from_jax(values, "cpu"))
         runs.append(_grads(params, cfg, batch))
-    for loss, _, grads in runs[1:]:
+    for loss, metrics, grads in runs[1:]:
         assert torch.equal(loss, runs[0][0])
+        for k in ("load_balance", "dropped_frac"):
+            assert torch.equal(metrics[k], runs[0][1][k])
         for name, g in grads.items():
             assert torch.equal(g, runs[0][2][name]), name
 
@@ -228,16 +237,12 @@ def test_serving_records_no_graph():
     assert not caches[0]["u0"].k.requires_grad
 
 
-DENSE = [n for n, c in registry.ARCHS.items()
-         if all(s.kind == "attn" and s.ffn != "moe" for s in c.unit)]
-
-
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", list(registry.ARCHS))
 def test_smoke_forward_and_sgd_step(arch):
     """The reference's ``test_smoke_forward_and_train_step`` on the port,
-    for every dense arch: logits of the right shape and finite, a finite
-    positive gradient norm, and one large SGD step that lowers the
-    loss."""
+    for every arch, MoE and Mamba units included: logits of the right
+    shape and finite, a finite positive gradient norm, and one large SGD
+    step that lowers the loss."""
     cfg = registry.get_config(arch).smoke()
     params = lm.init(0, cfg, device="cpu")
     batch = _batch(cfg, np.random.default_rng(10), S=64)
@@ -257,12 +262,16 @@ def test_smoke_forward_and_sgd_step(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen1.5-0.5b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b", "dbrx-132b"])
 def test_prefill_decode_matches_forward(arch):
     """The reference's autoregressive check on the port: prefill of 16
     tokens then decode steps give the training forward's logits (float32
-    caches), within its 2e-2, and the same argmax."""
-    cfg = registry.get_config(arch).smoke()
+    caches), within its 2e-2, and the same argmax. At its no-drop capacity
+    factor of 16: decode (T = 1) never drops, so the forward must not
+    either."""
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(),
+                              capacity_factor=16.0)
     params = lm.init(0, cfg, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab, size=(1, 24)))
