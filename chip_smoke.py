@@ -235,6 +235,40 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    peak memory, idle shares (from the raw trace, ``raw_idle``) and the
    model FLOP share (6 N_active, attention's products added).
 
+15. the model mesh phase (after item 14; launch counts read on their
+   own): every position a virtual shard of the one card
+   (``launch.mesh.make_debug_mesh``), parameters laid out by their specs
+   (``nn.sharding.spec_for``), one local program a position. Gates: (a)
+   qwen1.5-0.5b at full width and depth, float32 parameters and
+   activations (full logits, no chunked loss): one ``make_train_step``
+   step on (2, 2) from a carried state (two one-device steps in) against
+   the one-device step: loss and grad norm rtol 1e-4, every parameter
+   within rtol 2e-3 / atol 2e-4 (the reference test's), every shard
+   keeping its storage; (b) qwen recommended (bf16, chunked loss over
+   the vocab shards) through ``train()`` on (2, 2) over the ``DataPlane``
+   at (8, 1024) on the plan kernel, 4 steps: finite losses, a plan
+   launch a step at least, the stats bit-equal to a plain twin, two more
+   steps keeping every shard's storage (profiled), and a checkpoint saved
+   on (2, 2) restored on (4, 1) and on one device to the same tree; (c)
+   qwen float32 on (2, 2) and (1, 3) (16 kv heads do not divide 3: the
+   cache shards the sequence, d_ff 2816 stays whole, the vocab splits 3
+   ways): prefill of 16 tokens then 8 decode steps within 2e-2 of the
+   one-device forward with the same argmax; then ``ServeEngine.generate``
+   on (2, 2) (16 prompts of 128, 64 new, greedy): 64 decode launches, no
+   banned 4-gram emitted; (d) dbrx-132b at its published widths, 2 of its
+   40 layers, bf16 parameters, on (2, 2): the loss forward at capacity
+   factor 1.25 at (4, 1024), global dispatch, with float32 activations
+   (the dropped count equal to one device's, the loss within 1e-3) and
+   with bf16 ones (the loss within 1e-3; the dropped counts printed: a
+   bf16 partial sum rounds otherwise than one device's product, and a
+   router near-tie may flip); (e) mamba2-2.7b at its published
+   widths, 4 of its 64 layers, float32, on (2, 2): one step from a carried
+   state against one device (loss and grad norm rtol 1e-4, each leaf's
+   update within 1e-3 of its norm). ``mesh[...]`` lines print ms a step
+   on the mesh and on one device, tokens/s, idle shares, the collectives
+   by kind (calls, bytes), the parameter bytes a position holds and peak
+   memory.
+
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
 device line.
@@ -2784,6 +2818,427 @@ def moe_mamba_phase(torch, card, reset_counts, read_counts):
     return time.perf_counter() - t_phase
 
 
+# -- phase 15: the model mesh -----------------------------------------------------
+
+MESH_ARCH = "qwen1.5-0.5b"
+MESH_STEP_B, MESH_STEP_S = 8, 512           # gate (a): 4,096 tokens a step
+MESH_TRAIN_B, MESH_TRAIN_S, MESH_TRAIN_STEPS = 8, 1024, 4     # gate (b)
+MESH_TOL = dict(loss=1e-4, grad_norm=1e-4, rtol=2e-3, atol=2e-4)
+MESH_UPDATE_RTOL = 1e-3                     # gate (e), as phase 14's (f)
+MESH_MOE_B, MESH_MOE_S = 4, 1024            # gate (d)
+MESH_MOE_LOSS_ATOL = 1e-3
+MESH_MAMBA_LAYERS = 4                       # gate (e): 4 of mamba2's 64
+MESH_MAMBA_B, MESH_MAMBA_S = 4, 512
+
+
+def mesh_shard_bytes(sp) -> tuple:
+    """(least, most) parameter bytes a mesh position holds."""
+    per = []
+    for pos in sp.mesh.positions():
+        per.append(sum(leaf.shards[leaf.coord(pos)].numel()
+                       * leaf.shards[leaf.coord(pos)].element_size()
+                       for leaf in sp.leaves.values()))
+    return min(per), max(per)
+
+
+def mesh_coll_text(counts) -> str:
+    return json.dumps({k: {"calls": v["calls"], "bytes": v["bytes"]}
+                       for k, v in sorted(counts.items())})
+
+
+def mesh_step_gate(torch, cfg, mesh, B, S, what, card, update_rtol=None):
+    """One ``make_train_step`` step on ``mesh`` and on one device from one
+    carried state (two one-device steps first); the gate's tolerances,
+    each shard keeping its storage; then one more step each, timed.
+    Returns the numbers."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn import collectives
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    sched = optim.Schedule(**SMALL_SCHEDULE)
+    fn = tstep.make_train_step(cfg, sched)
+    rng = np.random.default_rng(41)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, size=(B, S)).astype(
+        np.int32)} for _ in range(4)]
+    one = tstep.init_state(0, cfg, sched, device="cuda")
+    for b in batches[:2]:
+        one, _ = fn(one, b)
+    start = {n: p.detach().clone() for n, p in one["params"].named_parameters()}
+    sharded = tstep.shard_state(one, cfg, mesh, sched)
+    before = launch_train.storage_pointers(sharded)
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_collectives()
+    sharded, ms = fn(sharded, batches[2])
+    coll = collectives.collective_count()
+    one, m1 = fn(one, batches[2])
+    lost = launch_train.moved(before, sharded)
+    if lost:
+        raise AssertionError(f"mesh[{what}]: {len(lost)} shards changed "
+                             f"storage, e.g. {lost[0]}")
+    d = {k: abs(float(ms[k]) - float(m1[k])) / abs(float(m1[k]))
+         for k in ("loss", "grad_norm")}
+    full = sharded["params"].full()
+    worst_p = worst_u = 0.0
+    for n, p in one["params"].named_parameters():
+        a, b = full[n].float(), p.detach().float()
+        excess = float(((a - b).abs() - MESH_TOL["rtol"] * b.abs()).max())
+        worst_p = max(worst_p, excess)
+        upd = b - start[n].float()
+        worst_u = max(worst_u, float(torch.linalg.vector_norm(a - b) / max(
+            float(torch.linalg.vector_norm(upd)), 1e-30)))
+    del full
+    if (d["loss"] > MESH_TOL["loss"] or d["grad_norm"] > MESH_TOL["grad_norm"]
+            or (update_rtol is None and worst_p > MESH_TOL["atol"])
+            or (update_rtol is not None and worst_u > update_rtol)):
+        raise AssertionError(f"mesh[{what}]: loss {d['loss']:.3e}, grad norm "
+                             f"{d['grad_norm']:.3e} relative, parameters "
+                             f"{worst_p:.3e} past rtol {MESH_TOL['rtol']}, "
+                             f"worst leaf update {worst_u:.3e}")
+    times = {}
+    for name, st in (("mesh", sharded), ("one device", one)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = fn(st, batches[3])
+        float(m["loss"])
+        times[name] = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    lo, hi = mesh_shard_bytes(sharded["params"])
+    print(f"mesh[{what}]: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_dtype} parameters, "
+          f"{cfg.activation_dtype} activations, TF32 off, ({B}, {S}), mesh "
+          f"{mesh.shape}: one step from a carried state (two one-device "
+          f"steps in): loss {float(ms['loss']):.6f} vs {float(m1['loss']):.6f}"
+          f" ({d['loss']:.3e} relative), grad norm {d['grad_norm']:.3e} "
+          f"relative, parameters {max(worst_p, 0.0):.3e} past rtol "
+          f"{MESH_TOL['rtol']} (atol {MESH_TOL['atol']}), worst leaf update "
+          f"{worst_u:.3e} of its norm; every shard kept its storage; next "
+          f"step {times['mesh']:.1f} ms on the mesh vs "
+          f"{times['one device']:.1f} ms on one device "
+          f"({B * S / times['mesh'] * 1e3:.0f} vs "
+          f"{B * S / times['one device'] * 1e3:.0f} tokens/s); collectives "
+          f"of the gated step {mesh_coll_text(coll)}; parameter bytes a "
+          f"position {lo}-{hi}; peak device memory {peak / 2**30:.2f} GiB "
+          f"[{card}]")
+    del sharded, one
+    torch.cuda.empty_cache()
+    return {"mesh_ms": times["mesh"], "one_ms": times["one device"]}
+
+
+def mesh_train_gate(torch, card, reset_counts, read_counts, mesh):
+    """Gate (b): ``train()`` on the mesh over the ``DataPlane`` on the plan
+    kernel, the stats against a plain twin, two profiled steps that keep
+    every shard's storage, a checkpoint saved on the mesh restored on
+    (4, 1) and on one device."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataPlane, PipelineConfig
+    from repro_torch.data.stats import NgramStats, StatsConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import collectives
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = registry.get_recommended_config(MESH_ARCH)
+    B, S, n = MESH_TRAIN_B, MESH_TRAIN_S, MESH_TRAIN_STEPS
+    pipe = PipelineConfig(seq_len=S, batch_size=B, vocab=cfg.vocab,
+                          dedup=True, impl="kernel", device="cuda")
+    sched = optim.Schedule(**TRAIN_SCHEDULE)
+    data = DataPlane(pipe)
+    lines = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = train(cfg, pipe, LoopConfig(n_steps=n, ckpt_every=10**9,
+                                          ckpt_dir=tmp, log_every=1, seed=0),
+                    schedule=sched, log=lines.append, data=data, mesh=mesh)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = read_counts()
+    for line in lines:
+        print(f"mesh[train loop]: {line}")
+    losses = res["losses"]
+    if len(losses) != n or not np.isfinite(losses).all():
+        raise AssertionError(f"mesh train: losses {losses}")
+    if counts["plan"] < n:
+        raise AssertionError(f"mesh train: {counts['plan']} plan launches "
+                             f"for {n} steps")
+    twin = NgramStats(StatsConfig(impl="ref", device="cuda"))
+    twin.rebind_params(data.stats.export_params())
+    tw = twin.init_state()
+    for s in range(n):
+        tw = twin.update(tw, data.corpus.batch_for_step(s))
+    for k in ("hll", "cms"):
+        if not torch.equal(tw[k], data.stats_state[k]):
+            raise AssertionError(f"mesh train: the data plane's {k} differs "
+                                 f"from the plain twin's")
+    state = res["state"]
+    fn = tstep.make_train_step(cfg, sched)
+    before = launch_train.storage_pointers(state)
+    k = iter(range(10**6))
+
+    def two_steps():
+        nonlocal state
+        for _ in range(2):
+            state, m = fn(state, data.next_batch(100 + next(k)))
+        float(m["loss"])
+
+    collectives.reset_collectives()
+    t0 = time.perf_counter()
+    two_steps()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    coll = {kind: {key: v // 2 for key, v in c.items()}
+            for kind, c in collectives.collective_count().items()}
+    idle = raw_idle(torch, two_steps, card, "mesh train two steps",
+                    warm=False)
+    lost = launch_train.moved(before, state)
+    if lost:
+        raise AssertionError(f"mesh train: {len(lost)} shards changed "
+                             f"storage, e.g. {lost[0]}")
+    peak = torch.cuda.max_memory_allocated()
+    lo, hi = mesh_shard_bytes(state["params"])
+    # a checkpoint saved on the mesh restores on (4, 1) and on one device
+    t0 = time.perf_counter()
+    tree = tstep.checkpoint_tree(state)
+    flat = ckpt.flatten_with_path(tree)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tree, tmp, 1)
+        del state, res
+        torch.cuda.empty_cache()
+        for where in ((4, 1), None):
+            other = (tstep.init_state(1, cfg, sched,
+                                      mesh=make_debug_mesh(*where))
+                     if where else tstep.init_state(1, cfg, sched))
+            tstep.restore_state(other, tmp)
+            got = dict(ckpt.flatten_with_path(tstep.checkpoint_tree(other)))
+            for path, t in flat:
+                if not torch.equal(torch.as_tensor(got[path]).cuda(),
+                                   torch.as_tensor(t).cuda()):
+                    raise AssertionError(f"mesh train: restored on {where} "
+                                         f"leaf {path} differs")
+            del other, got
+            torch.cuda.empty_cache()
+    ckpt_s = time.perf_counter() - t0
+    print(f"mesh[train]: {cfg.name} recommended ({cfg.param_dtype} "
+          f"parameters, remat {cfg.remat}, ce_chunk_vocab "
+          f"{cfg.ce_chunk_vocab}) on mesh {mesh.shape}, train() over the "
+          f"DataPlane ({B}, {S}) on the plan kernel: {n} steps in "
+          f"{loop_s:.2f} s, losses {np.round(losses, 4).tolist()}, launches "
+          f"{json.dumps(counts)}; stats bit-equal to the plain twin; two "
+          f"more steps {step_ms:.1f} ms a step = {B * S / step_ms * 1e3:.0f} "
+          f"tokens/s, every shard kept its storage, idle share {idle:.4f} "
+          f"over two profiled steps; collectives a step "
+          f"{mesh_coll_text(coll)}; parameter bytes a position {lo}-{hi}; "
+          f"peak device memory {peak / 2**30:.2f} GiB; the checkpoint saved "
+          f"on {mesh.shape} restored on (4, 1) and on one device to the same "
+          f"tree ({len(flat)} leaves) in {ckpt_s:.1f} s [{card}]")
+    return {"plan": counts["plan"], "train_ms": step_ms,
+            "train_tokens_s": B * S / step_ms * 1e3, "idle": idle,
+            "peak_gib": peak / 2**30, "collectives": coll}
+
+
+def mesh_decode_gate(torch, cfg, params, mesh, card):
+    """Prefill 16 tokens then 8 decode steps on the mesh at float32: the
+    one-device forward's logits within 2e-2 and the same argmax."""
+    from repro_torch.nn import lm
+    toks = torch.from_numpy(np.random.default_rng(43).integers(
+        0, cfg.vocab, size=(2, MM_CHECK_S))).cuda()
+    with torch.no_grad():
+        full, _ = lm.forward(params, cfg, toks)
+    full = lm.mask_pad_logits(cfg, full.float())
+    sp = lm.shard(params, cfg, mesh)
+    last, caches = lm.prefill(sp, cfg, toks[:, :MM_CHECK_P],
+                              max_len=MM_CHECK_S, cache_dtype=torch.float32)
+    outs = [last]
+    t0 = time.perf_counter()
+    for t in range(MM_CHECK_P, MM_CHECK_S):
+        step_logits, caches = lm.decode_step(sp, cfg, toks[:, t:t + 1],
+                                             caches)
+        outs.append(step_logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (MM_CHECK_S - MM_CHECK_P)
+    worst = 0.0
+    for i, got in enumerate(outs[:-1]):
+        got = lm.mask_pad_logits(cfg, got.float())
+        want = full[:, MM_CHECK_P - 1 + i]
+        excess = float(((got - want).abs() - MM_CHECK_TOL * want.abs()).max())
+        worst = max(worst, float((got - want).abs().max()))
+        if excess > MM_CHECK_TOL or not torch.equal(got.argmax(-1),
+                                                   want.argmax(-1)):
+            raise AssertionError(f"mesh[serve {mesh.shape}]: decode step {i} "
+                                 f"differs from the forward (max |diff| "
+                                 f"{float((got - want).abs().max()):.4e})")
+    kv = caches[0]["u0"].k
+    leaf = sp.leaves["blocks.0.u0.ffn.w_in.w"]
+    vocab = sp.leaves["embed.table"]
+    print(f"mesh[serve {mesh.shape}]: {cfg.name} float32, prefill "
+          f"{MM_CHECK_P} then {MM_CHECK_S - MM_CHECK_P} decode steps: max "
+          f"|logit diff| {worst:.4e} from the one-device forward (tolerance "
+          f"rtol/atol {MM_CHECK_TOL}), every argmax equal; KV cache spec "
+          f"{tuple(kv.spec)} ({'sequence' if kv.spec.axes(1) else 'kv heads'}"
+          f" over model), w_in spec {tuple(leaf.spec)}, embed spec "
+          f"{tuple(vocab.spec)}; {step_ms:.1f} ms a decode step [{card}]")
+    return sp
+
+
+def mesh_phase(torch, card, reset_counts, read_counts):
+    """Phase 15: the model mesh, gates (a)-(e) of docstring item 15."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import collectives, lm
+    from repro_torch.serve.engine import SamplerConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    split, out = {}, {}
+    mesh22 = make_debug_mesh(2, 2)
+    f32 = dict(param_dtype="float32", activation_dtype="float32")
+    # (a) qwen float32, one step on (2, 2) against one device
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(MESH_ARCH), **f32)
+    out["qwen step"] = mesh_step_gate(torch, cfg, mesh22, MESH_STEP_B,
+                                      MESH_STEP_S, "a: qwen step", card)
+    split["a"] = time.perf_counter() - t0
+    # (b) qwen recommended through train() on (2, 2)
+    t0 = time.perf_counter()
+    out["qwen train"] = mesh_train_gate(torch, card, reset_counts,
+                                        read_counts, mesh22)
+    split["b"] = time.perf_counter() - t0
+    # (c) qwen serve on (2, 2) and (1, 3), then generate on (2, 2)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(MESH_ARCH), **f32)
+    params = lm.init(0, cfg, device="cuda")
+    sp13 = mesh_decode_gate(torch, cfg, params, make_debug_mesh(1, 3), card)
+    del sp13
+    sp = mesh_decode_gate(torch, cfg, params, mesh22, card)
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(44)
+    prompts = rng.integers(0, cfg.vocab, size=(SERVE_B, SERVE_P))
+    eng = ServeEngine(cfg, sp, SamplerConfig(temperature=0.0,
+                                             no_repeat_ngram=SERVE_N),
+                      impl="kernel")
+    eng.generate(prompts[:2, :8], 2)            # first call: set-up
+    reset_counts()
+    collectives.reset_collectives()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, _ = eng.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    counts = read_counts()
+    coll = collectives.collective_count()
+    bad = repeated_completions(prompts, toks, SERVE_N)
+    if counts["decode"] != SERVE_NEW or bad or toks.shape != (SERVE_B,
+                                                              SERVE_NEW):
+        raise AssertionError(f"mesh serve: {counts['decode']} decode "
+                             f"launches, {bad} banned {SERVE_N}-grams, "
+                             f"tokens {toks.shape}")
+    idle = raw_idle(torch, lambda: eng.generate(prompts[:, :32], 8), card,
+                    "mesh serve generate")
+    print(f"mesh[serve generate]: {cfg.name} float32 on {mesh22.shape}, "
+          f"ServeEngine.generate {SERVE_B} prompts x {SERVE_P}, "
+          f"{SERVE_NEW} new, greedy, no-repeat {SERVE_N}-grams: "
+          f"{counts['decode']} decode launches, no banned {SERVE_N}-gram "
+          f"emitted, {gen_s:.2f} s = {SERVE_B * SERVE_NEW / gen_s:.1f} "
+          f"generated tokens/s; collectives {mesh_coll_text(coll)}; idle "
+          f"share {idle:.4f} over a short generate [{card}]")
+    out["serve"] = {"decode": counts["decode"],
+                    "tokens_s": SERVE_B * SERVE_NEW / gen_s, "idle": idle}
+    del eng, sp
+    torch.cuda.empty_cache()
+    split["c"] = time.perf_counter() - t0
+    # (d) dbrx, 2 layers, bf16 parameters: the loss at capacity factor 1.25
+    # on (2, 2), with float32 activations (gated: the same dropped count)
+    # and bf16 ones (gated: the loss; the dropped count printed)
+    t0 = time.perf_counter()
+    base = dataclasses.replace(registry.get_config(MOE_ARCH),
+                               n_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(0, base, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(45).integers(
+        0, base.vocab, size=(MESH_MOE_B, MESH_MOE_S))).cuda()
+    n_assign = MESH_MOE_B * MESH_MOE_S * base.top_k * base.repeats
+    cfgs = {a: dataclasses.replace(base, activation_dtype=a)
+            for a in ("float32", "bfloat16")}
+    got = {}
+
+    def moe_loss(p, cfg):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, m = lm.loss(p, cfg, {"tokens": toks})
+        float(loss)
+        return loss, m, (time.perf_counter() - t1) * 1e3
+
+    with torch.no_grad():
+        for a, c in cfgs.items():
+            moe_loss(params, c)                    # a first call: set-up
+            got[a] = {"one": moe_loss(params, c)}
+        sp = lm.shard(params, base, mesh22)
+        del params
+        torch.cuda.empty_cache()
+        for a, c in cfgs.items():
+            collectives.reset_collectives()
+            got[a]["mesh"] = moe_loss(sp, c)
+            got[a]["collectives"] = collectives.collective_count()
+    lo, hi = mesh_shard_bytes(sp)
+    peak = torch.cuda.max_memory_allocated()
+    for a in cfgs:
+        (l1, m1, one_ms), (l2, m2, mesh_ms) = got[a]["one"], got[a]["mesh"]
+        drop1 = round(float(m1["dropped_frac"]) * n_assign)
+        drop2 = round(float(m2["dropped_frac"]) * n_assign)
+        diff = abs(float(l2) - float(l1))
+        print(f"mesh[moe {a}]: {base.name} {base.n_layers} of its 40 layers "
+              f"at its published widths, bf16 parameters, {a} activations, "
+              f"{base.moe_dispatch} dispatch at capacity factor "
+              f"{base.capacity_factor}, ({MESH_MOE_B}, {MESH_MOE_S}) on "
+              f"{mesh22.shape}: loss {float(l2):.6f} vs {float(l1):.6f} on "
+              f"one device (|diff| {diff:.3e}, tolerance "
+              f"{MESH_MOE_LOSS_ATOL}); dropped assignments {drop2} vs "
+              f"{drop1} of {n_assign}"
+              f"{' (gated)' if a == 'float32' else ' (printed)'}; "
+              f"load_balance {float(m2['load_balance']):.6f} vs "
+              f"{float(m1['load_balance']):.6f}; loss forward {mesh_ms:.1f} "
+              f"ms vs {one_ms:.1f} ms; collectives "
+              f"{mesh_coll_text(got[a]['collectives'])}; parameter bytes a "
+              f"position {lo}-{hi}; peak device memory {peak / 2**30:.2f} "
+              f"GiB [{card}]")
+        if diff > MESH_MOE_LOSS_ATOL or (a == "float32" and drop1 != drop2):
+            raise AssertionError(f"mesh[moe {a}]: dropped {drop2} vs "
+                                 f"{drop1}, loss {float(l2)} vs {float(l1)}")
+        out[f"moe {a}"] = {"mesh_ms": mesh_ms, "one_ms": one_ms,
+                           "dropped": [drop2, drop1]}
+    del sp
+    torch.cuda.empty_cache()
+    split["d"] = time.perf_counter() - t0
+    # (e) mamba2, 4 of its 64 layers, float32: one step on (2, 2)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(MAMBA_ARCH),
+                              n_layers=MESH_MAMBA_LAYERS, **f32)
+    out["mamba step"] = mesh_step_gate(
+        torch, cfg, mesh22, MESH_MAMBA_B, MESH_MAMBA_S, "e: mamba2 step",
+        card, update_rtol=MESH_UPDATE_RTOL)
+    split["e"] = time.perf_counter() - t0
+    print(f"launches[mesh phase]: " + json.dumps(
+        {"plan (train)": out["qwen train"]["plan"],
+         "decode (generate)": out["serve"]["decode"]}))
+    print(f"mesh summary: " + json.dumps(
+        {k: {kk: round(vv, 5) if isinstance(vv, float) else vv
+             for kk, vv in v.items()} for k, v in out.items()})
+          + f" [{card}]")
+    print(f"mesh phase split, s: "
+          f"{json.dumps({k: round(v, 2) for k, v in split.items()})} "
+          f"[{card}]")
+    return time.perf_counter() - t_phase
+
+
 # -- the paper's byte-level path ------------------------------------------------
 
 BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
@@ -3687,6 +4142,9 @@ def main() -> int:
     # -- 14. the MoE and Mamba-2 units ----------------------------------------
     mm_s = moe_mamba_phase(torch, card, reset_counts, read_counts)
     print(f"moe_mamba phase: {mm_s:.1f} s [{card}]")
+    # -- 15. the model mesh ---------------------------------------------------
+    mesh_s = mesh_phase(torch, card, reset_counts, read_counts)
+    print(f"mesh phase: {mesh_s:.1f} s [{card}]")
     # -- 8. the byte-level path, with its times -----------------------------
     t0 = time.perf_counter()
     byte_entries, bytes_cps = bytes_phase(torch, card, reset_counts,

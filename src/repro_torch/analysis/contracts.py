@@ -43,6 +43,12 @@ The reference's fields map as follows.
   memory it asks for at a constant compiled into it (:data:`SMEM_CAPS`);
   on the card every cap must lie within the opt-in limit per block that
   the device reports (:func:`device_smem_limit`).
+* the HLO collective census -> ``collectives``: on a model mesh
+  (``"model-mesh"``) a step issues only ``nn.collectives``' kinds
+  (all-gather, all-reduce, reduce-scatter), read from
+  ``collective_count()``: none on a mesh of one position, all-gathers
+  where ``data`` splits (FSDP) and all-reduces where ``model`` splits
+  (the row-parallel products); its declared trees keep their storage.
 * the x64-leak check -> output dtypes: every tensor an entry returns is
   uint32, int32 or float32, and a plan's sketches have their
   ``state_struct`` dtypes; the plain path's int64 lanes never leak out.
@@ -79,6 +85,7 @@ OUTPUT_DTYPES = (torch.uint32, torch.int32, torch.float32)
 SMEM_CAPS = {"plan": (4 << 14) + (1 << 14) // 8, "decode": 4 * 8192}
 
 _MERGE_RULES = ("none", "global-sketch-merge")
+_COLLECTIVE_KINDS = ("all_gather", "all_reduce", "reduce_scatter")
 _DISPATCH_RULES = ("chunk", "block")
 
 
@@ -93,6 +100,7 @@ class KernelContract:
     merges: str = "none"              # "none" | "global-sketch-merge"
     donated: Tuple[str, ...] = ()     # trees updated in place
     variant: str = ""                 # e.g. the stream executor's name
+    collectives: Optional[str] = None     # "model-mesh"
 
     def __post_init__(self):
         if self.merges not in _MERGE_RULES:
@@ -102,6 +110,8 @@ class KernelContract:
                 and self.dispatches not in _DISPATCH_RULES):
             raise ValueError(f"unknown dispatch rule {self.dispatches!r}; "
                              f"expected an int or one of {_DISPATCH_RULES}")
+        if self.collectives not in (None, "model-mesh"):
+            raise ValueError(f"unknown collective rule {self.collectives!r}")
         if (self.launches is None) != (self.kernel is None):
             raise ValueError("launches and kernel are declared together")
 
@@ -173,6 +183,11 @@ def _merge_count() -> Dict[str, int]:
     return shard.merge_count()
 
 
+def _collective_calls() -> Dict[str, int]:
+    from repro_torch.nn.collectives import collective_count
+    return {k: v["calls"] for k, v in collective_count().items()}
+
+
 def _leaves(tree, path: str = ""):
     """``(path, tensor)`` for every tensor leaf of a tree of dicts, lists
     and tuples."""
@@ -203,6 +218,7 @@ class Census:
     written: Tuple[str, ...]   # caller-state leaves the call changed
     tracked: Tuple[str, ...]   # the trees watched for the two above
     result: object = None
+    collectives: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def take_census(fn: Callable[[], object], *,
@@ -220,8 +236,11 @@ def take_census(fn: Callable[[], object], *,
     kept0 = {name: {p: _host(t) for p, t in _leaves(tree)}
              for name, tree in kept.items()}
     l0, d0, m0 = _launch_counts(), _dispatch_count(), _merge_count()
+    c0 = _collective_calls()
     result = fn()
     l1, d1, m1 = _launch_counts(), _dispatch_count(), _merge_count()
+    c1 = _collective_calls()
+    collectives = {k: c1[k] - c0.get(k, 0) for k in c1}
     moved = []
     for name, get in inplace.items():
         now = {p: t.data_ptr() for p, t in _leaves(get())}
@@ -237,7 +256,8 @@ def take_census(fn: Callable[[], object], *,
         donated=l1["donated"] - l0["donated"], dispatches=d1 - d0,
         merges={k: v for k, v in merges.items() if v},
         moved=tuple(moved), written=tuple(written),
-        tracked=tuple(inplace) + tuple(kept), result=result)
+        tracked=tuple(inplace) + tuple(kept), result=result,
+        collectives={k: v for k, v in collectives.items() if v})
 
 
 def expected_merges(contract: KernelContract, plan=None,
@@ -262,9 +282,20 @@ def device_smem_limit(device) -> int:
     return int(props.shared_memory_per_block_optin)
 
 
+def expected_collectives(model_mesh) -> Dict[str, bool]:
+    """Which collective kinds a step on ``model_mesh`` must issue (True)
+    or may (False); kinds not named must not appear."""
+    sizes = dict(zip(model_mesh.axis_names, model_mesh.shape))
+    if model_mesh.size == 1:
+        return {}
+    return {"all_gather": sizes.get("data", 1) > 1,
+            "all_reduce": sizes.get("model", 1) > 1,
+            "reduce_scatter": False}
+
+
 def check_census(contract: KernelContract, census: Census, *, plan=None,
-                 mesh=None, chunks: int = 1,
-                 card: bool = False) -> List[str]:
+                 mesh=None, chunks: int = 1, card: bool = False,
+                 model_mesh=None) -> List[str]:
     """Diff one census against one declaration; returns findings (empty =
     the contract holds). ``plan``/``mesh``/``chunks``: what the call ran
     (a plan's sketch groups, the mesh's shards and the chunks each shard
@@ -306,6 +337,16 @@ def check_census(contract: KernelContract, census: Census, *, plan=None,
         if name not in census.tracked:
             findings.append(f"contract declares {name!r} donated but the "
                             f"census watched no such tree")
+    if contract.collectives == "model-mesh" and model_mesh is not None:
+        want = expected_collectives(model_mesh)
+        for kind, n in census.collectives.items():
+            if kind not in want:
+                findings.append(f"collective {kind}: counted {n}, the "
+                                f"contract allows none on {model_mesh}")
+        for kind, needed in want.items():
+            if needed and not census.collectives.get(kind):
+                findings.append(f"collective {kind}: counted none, the "
+                                f"layout needs it on {model_mesh}")
     for leaf in census.moved:
         findings.append(f"{leaf} was not updated in place (its storage "
                         f"changed)")
@@ -526,8 +567,49 @@ def _verify_rowwise(m: _Matrix) -> None:
         m.check(shard.rowwise, "", f"d={mesh.size}", c, mesh=mesh)
 
 
+def _verify_model_mesh(m: _Matrix) -> None:
+    """The sharded train step and decode step of paper-tiny's smoke size
+    on a (1, 1) and a (2, 2) mesh of virtual shards."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import lm
+    from repro_torch.train import step
+    cfg = get_config("paper-tiny").smoke()
+    rng = np.random.default_rng(24)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16))).to(m.device)
+    for shape in ((1, 1), (2, 2)):
+        mesh = make_debug_mesh(*shape, device=m.device)
+        config = f"mesh={shape}"
+        state = step.init_state(0, cfg, mesh=mesh)
+        fn = step.make_train_step(cfg, num_microbatches=2)
+        c = m.census(lambda: fn(state, {"tokens": toks})[1]["loss"],
+                     inplace={"state": lambda: step.state_tensors(state)})
+        m.check(step.make_train_step, "mesh", config, c, model_mesh=mesh)
+        _, caches = lm.prefill(state["params"], cfg, toks, 24,
+                               cache_dtype=torch.float32)
+        tok = toks[:, :1]
+        c = m.census(lambda: lm.decode_step(state["params"], cfg, tok,
+                                            caches)[0],
+                     inplace={"caches": lambda: _cache_tensors(caches)})
+        m.check(lm.decode_step, "mesh", config, c, model_mesh=mesh)
+
+
+def _cache_tensors(caches) -> Dict[str, torch.Tensor]:
+    """Every shard of a sharded cache list, by repeat, member, field and
+    coordinate."""
+    out = {}
+    for r, unit in enumerate(caches):
+        for u, c in unit.items():
+            for field in c._fields:
+                leaf = getattr(c, field)
+                for coord, t in getattr(leaf, "shards", {}).items():
+                    out[f"{r}.{u}.{field}{list(coord)}"] = t
+    return out
+
+
 _HARNESSES = (_verify_api_run, _verify_run_stream, _verify_run_sharded,
-              _verify_decode, _verify_session_step, _verify_rowwise)
+              _verify_decode, _verify_session_step, _verify_rowwise,
+              _verify_model_mesh)
 
 
 def verify_contracts(device="cuda", device_counts=(1, 4),
@@ -549,7 +631,9 @@ def verify_contracts(device="cuda", device_counts=(1, 4),
     without a cycle."""
     # importing registers the decorated entry points
     from repro_torch.kernels import api, shard, stream     # noqa: F401
+    from repro_torch.nn import lm                          # noqa: F401
     from repro_torch.serve import sessions                 # noqa: F401
+    from repro_torch.train import step                     # noqa: F401
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

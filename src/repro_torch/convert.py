@@ -18,7 +18,8 @@ that the reference exports and returns the port's tensors:
   ``load_state_dict`` of :class:`repro_torch.nn.lm.LM`;
 * :func:`train_state_from_jax` — a ``{"params", "opt", "step"}`` train
   state (``train.step.init_state``'s, or a checkpoint of it), for
-  :func:`repro_torch.train.step.load_state`;
+  :func:`repro_torch.train.step.load_state`; :func:`train_state_to_mesh`
+  lays it out over a model mesh;
 * :func:`session_state_from_jax` / :func:`session_state_to_jax` — a
   ``SessionPool.export_state()`` tree, into the port's
   :meth:`repro_torch.serve.sessions.SessionPool.import_state` and back;
@@ -158,6 +159,24 @@ def train_state_from_jax(state: Dict, device="cuda") -> Dict:
             "opt": port_opt,
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32)}
+
+
+def train_state_to_mesh(state: Dict, cfg, mesh, schedule=None) -> Dict:
+    """The reference's train state -> a port train state laid out over a
+    ``launch.mesh.ModelMesh``: each leaf goes through the host and is
+    sliced into its shards, each on its position's device (the
+    optimizer state after its parameter's spec, Adafactor's statistics
+    after theirs)."""
+    from repro_torch.nn import lm
+    from repro_torch.train.optim import make_optimizer
+    from repro_torch.train.step import load_state
+    carried = train_state_from_jax(state, device="cpu")
+    params = lm.shard(carried["params"], cfg, mesh)
+    out = {"params": params,
+           "opt": make_optimizer(cfg.optimizer, schedule).init(params.leaves),
+           "step": torch.zeros((), dtype=torch.int32)}
+    load_state(out, carried)
+    return out
 
 
 _CARRY = {"prefix": np.uint32, "ring": np.uint32, "pos": np.int32,

@@ -524,7 +524,10 @@ class _BlockGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _sf.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # captured on the block's own card: torch.cuda.graph's default
+        # capture stream is made once, on the card current at the first
+        # capture, and a second card's launches would miss it
+        with torch.cuda.graph(self.graph, stream=side):
             self.state_out = _flat(self._body())
         after = _sf.launch_counts()
         self.counts = {k: after[k] - before[k] for k in after}

@@ -6,12 +6,15 @@ checkpoint/restore -> watchdog, as the JAX package's
       --steps 50 --seq 1024 --batch 8 [--resume] [--device cuda]
 
 The reference's flags plus ``--device`` (default ``cuda``); its
-``--host-devices`` (XLA's virtual CPU devices) has no counterpart. The
-data, model and pod meshes wait for the port's model mesh (ROADMAP Queue 1
-item 11c): a mesh flag above 1 raises. The reference checks that XLA lowered
-its state donation to aliasing; the port updates the state in place, and
+``--host-devices`` (XLA's virtual CPU devices) has no counterpart.
+``--data-mesh``, ``--model-mesh`` and ``--pod-mesh`` lay the state out
+over a (pod, data, model) model mesh (``launch.mesh``): on distinct cards
+where the machine has one for every position, else as virtual shards of
+``--device``; the batch is split over pod and data, as the reference's
+``launch/train.py`` does. The reference checks that XLA lowered its
+state donation to aliasing; the port updates the state in place, and
 checks after the first step that every parameter and optimizer-state
-tensor kept its storage.
+tensor (every shard, on a mesh) kept its storage.
 """
 import argparse
 import os
@@ -33,6 +36,22 @@ def moved(before: Dict[str, int], state: Dict) -> List[str]:
                   if before.get(k) != after.get(k))
 
 
+def model_mesh(data: int, model: int, pod: int, device):
+    """The mesh the flags ask for (None for one device): one card a
+    position where there are enough, else virtual shards of ``device``."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+    if max(data, model, pod) <= 1:
+        return None
+    n = data * model * max(pod, 1)
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= n:
+        return make_mesh([torch.device("cuda", i) for i in range(n)], data,
+                         model, pod)
+    return make_debug_mesh(data, model, pod, device=dev)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-tiny")
@@ -50,10 +69,6 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if max(args.data_mesh, args.model_mesh, args.pod_mesh) > 1:
-        raise NotImplementedError(
-            "ROADMAP Queue 1 item 11c: the port trains on one device; the "
-            "data, model and pod meshes wait for its model mesh")
 
     import torch
 
@@ -73,8 +88,13 @@ def main(argv=None):
                                     device=args.device))
     step_fn = make_train_step(cfg, sched,
                               num_microbatches=cfg.num_microbatches)
-    gen = torch.Generator(device=args.device).manual_seed(0)
-    state = init_state(gen, cfg, sched, args.device)
+    mesh = model_mesh(args.data_mesh, args.model_mesh, args.pod_mesh,
+                      args.device)
+    if mesh is not None:
+        print(f"mesh: {mesh}")
+    home = mesh.home if mesh is not None else args.device
+    gen = torch.Generator(device=home).manual_seed(0)
+    state = init_state(gen, cfg, sched, args.device, mesh=mesh)
     start = 0
     if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
         start = restore_state(state, args.ckpt_dir)

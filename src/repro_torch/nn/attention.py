@@ -190,6 +190,13 @@ def attn_forward(params: Attention, cfg, x, positions, *,
                  prefix_len: int = 0, return_kv: bool = False):
     """Training and prefill forward. x: (B, S, D); positions: (B, S)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
+    out = _attend_prompt(cfg, q, k, v, positions, prefix_len)
+    y = linear_apply(params.wo, out, "bshq,hqd->bsd", compute_dtype=out.dtype)
+    return (y, (k, v)) if return_kv else y
+
+
+def _attend_prompt(cfg, q, k, v, positions, prefix_len: int):
+    """The flash attention of a training or prefill forward."""
     if cfg.attn_causal_skip:
         out = flash_attention_causal_skip(
             q, k, v, positions, positions, q_chunk=cfg.q_chunk,
@@ -200,8 +207,7 @@ def attn_forward(params: Attention, cfg, x, positions, *,
                               kv_chunk=cfg.kv_chunk, prefix_len=prefix_len,
                               softcap=cfg.attn_logit_softcap,
                               bf16_probs=cfg.attn_bf16_scores)
-    y = linear_apply(params.wo, out, "bshq,hqd->bsd", compute_dtype=out.dtype)
-    return (y, (k, v)) if return_kv else y
+    return out
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -234,3 +240,190 @@ def attn_decode(params: Attention, cfg, x, cache: KVCache):
                  softcap=cfg.attn_logit_softcap)
     y = linear_apply(params.wo, out, "bshq,hqd->bsd", compute_dtype=out.dtype)
     return y, KVCache(k=cache.k, v=cache.v, length=t + 1)
+
+
+# -- on a model mesh ----------------------------------------------------------
+# Heads and kv heads are split over ``model`` where the specs split them
+# (``wq``/``wo`` on heads, ``wk``/``wv`` on kv heads); ``wo`` is
+# row-parallel and its partial outputs are all-reduced. With fewer kv heads
+# than the model axis (MQA), ``wk``/``wv`` are gathered and each position
+# takes the kv heads its query heads read.
+
+def _local(P, cfg, pos, hsplit: bool, kvsplit: bool):
+    from types import SimpleNamespace
+    qs = {1: "model"} if hsplit else {}
+    ks = {1: "model"} if kvsplit else {}
+    p = SimpleNamespace(
+        wq=P.linear("wq", pos, qs), wk=P.linear("wk", pos, ks),
+        wv=P.linear("wv", pos, ks),
+        wo=P.linear("wo", pos, {0: "model"} if hsplit else {}, n_in=2))
+    if cfg.qk_norm:
+        p.q_norm, p.k_norm = P.norm("q_norm", pos), P.norm("k_norm", pos)
+    return p
+
+
+def _splits(P):
+    return P.split("wq.w", 1), P.split("wk.w", 1)
+
+
+def _heads_of(cfg, mesh, pos, k, v):
+    """k/v of every kv head -> the kv heads this position's query heads
+    read, in the grouping ``flash_attention`` expects."""
+    H, KV = cfg.n_heads, k.shape[2]
+    m = mesh.axis_size("model")
+    h0 = mesh.index(pos, "model") * (H // m)
+    idx = [h // (H // KV) for h in range(h0, h0 + H // m)]
+    if len(set(idx)) == 1:
+        sel = idx[:1]
+    else:                       # a kv head a query head
+        sel = idx
+    sel = torch.tensor(sel, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def attn_forward_sharded(P, cfg, mesh, hs, positions, *, prefix_len: int = 0,
+                         return_kv: bool = False):
+    """:func:`attn_forward` at every position of ``mesh``: ``hs`` and
+    ``positions`` map a position to its rows. Returns ``{pos: y}`` (and
+    ``{pos: (k, v)}``: the position's kv heads, or every kv head where
+    the kv heads are not split)."""
+    from repro_torch.nn.collectives import REDUCE_DTYPE, all_reduce
+    hsplit, kvsplit = _splits(P)
+    ys, kvs = {}, {}
+    for pos in mesh.positions():
+        p = _local(P, cfg, pos, hsplit, kvsplit)
+        q, k, v = _project_qkv(p, cfg, hs[pos], positions[pos])
+        ka, va = ((k, v) if kvsplit or not hsplit
+                  else _heads_of(cfg, mesh, pos, k, v))
+        out = _attend_prompt(cfg, q, ka, va, positions[pos], prefix_len)
+        ys[pos] = linear_apply(p.wo, out, "bshq,hqd->bsd",
+                               compute_dtype=REDUCE_DTYPE if hsplit
+                               else out.dtype)
+        kvs[pos] = (k, v)
+    if hsplit:
+        ys = {p: y.to(q.dtype)
+              for p, y in all_reduce(ys, mesh, "model").items()}
+    return (ys, kvs) if return_kv else ys
+
+
+def seq_sharded(cache: KVCache) -> bool:
+    """Whether a sharded cache splits the sequence (kv_cache_axes'
+    fallback) rather than the kv heads."""
+    return bool(cache.k.spec.axes(1))
+
+
+def write_prompt(cache: KVCache, kvs, S: int) -> None:
+    """Write each position's prefill k/v into its shard of a sharded
+    cache (the sequence block it owns, on a sequence-sharded cache)."""
+    for pos, (k, v) in kvs.items():
+        c = cache.k.coord(pos)
+        kt, vt = cache.k.shards[c], cache.v.shards[c]
+        if seq_sharded(cache):
+            lo, hi = cache.k.box(c)[1]
+            n = max(0, min(hi, S) - lo)
+            kt[:, :n] = k[:, lo:lo + n].to(kt.dtype)
+            vt[:, :n] = v[:, lo:lo + n].to(vt.dtype)
+        else:
+            kt[:, :S] = k.to(kt.dtype)
+            vt[:, :S] = v.to(vt.dtype)
+
+
+def attend_partial(q, k, v, *, softcap: float = 0.0):
+    """One sequence shard's part of :func:`attend`: (max, sum, the
+    unnormalised value product) over its keys, float32, packed as
+    (B, Sq, KV, rep, D + 2). No keys: max -1e30, sum and product 0."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D).to(torch.float32)
+    if k.shape[1] == 0:
+        out = torch.zeros((B, Sq, KV, H // KV, D + 2), dtype=torch.float32,
+                          device=q.device)
+        out[..., 0] = NEG_INF
+        return out
+    s = torch.einsum("bsgrd,bcgd->bsgrc", qg, k.to(torch.float32))
+    s = s * (1.0 / np.sqrt(D))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bsgrc,bcgd->bsgrd", p, v.to(torch.float32))
+    return torch.cat([m[..., None], p.sum(dim=-1)[..., None], acc], dim=-1)
+
+
+def combine_partials(parts, dtype):
+    """(n shards, B, Sq, KV, rep, D + 2) -> the attention (B, Sq, H, D),
+    the shards folded in order (flash-decode)."""
+    m = parts[..., 0]
+    M = m.amax(dim=0)
+    w = torch.exp(m - M)
+    l = (parts[..., 1] * w).sum(dim=0)
+    acc = (parts[..., 2:] * w[..., None]).sum(dim=0)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    B, Sq, KV, rep, D = out.shape
+    return out.reshape(B, Sq, KV * rep, D).to(dtype)
+
+
+def attn_decode_sharded(P, cfg, mesh, hs, cache: KVCache):
+    """:func:`attn_decode` on a mesh with a sharded cache (``cache.k`` and
+    ``cache.v`` :class:`~repro_torch.nn.collectives.Sharded`): the new
+    token's k/v go into the shard that holds position ``length``; a
+    sequence-sharded cache's shards each attend over their own keys and
+    their partial softmax is combined. Returns ({pos: y}, cache)."""
+    from repro_torch.nn.collectives import (REDUCE_DTYPE, all_gather,
+                                            all_reduce)
+    hsplit, kvsplit = _splits(P)
+    t = cache.length
+    if t >= cache.k.shape[1]:
+        raise ValueError(f"KV cache full: length {t} == capacity "
+                         f"{cache.k.shape[1]}")
+    seq = seq_sharded(cache)
+    qs, params = {}, {}
+    for pos in mesh.positions():
+        p = params[pos] = _local(P, cfg, pos, hsplit, kvsplit)
+        B = hs[pos].shape[0]
+        posid = torch.full((B, 1), t, dtype=torch.int64,
+                           device=hs[pos].device)
+        q, k_new, v_new = _project_qkv(p, cfg, hs[pos], posid)
+        c = cache.k.coord(pos)
+        lo, hi = cache.k.box(c)[1]
+        if lo <= t < hi:
+            cache.k.shards[c][:, t - lo] = k_new[:, 0].to(cache.k.dtype)
+            cache.v.shards[c][:, t - lo] = v_new[:, 0].to(cache.v.dtype)
+        qs[pos] = q
+    outs = {}
+    if not seq:
+        for pos in mesh.positions():
+            c = cache.k.coord(pos)
+            dev = qs[pos].device
+            outs[pos] = attend(qs[pos], cache.k.shards[c][:, :t + 1].to(dev),
+                               cache.v.shards[c][:, :t + 1].to(dev),
+                               softcap=cfg.attn_logit_softcap)
+    else:
+        q_all = all_gather(qs, mesh, "model", 2) if hsplit else qs
+        parts = {}
+        for pos in mesh.positions():
+            c = cache.k.coord(pos)
+            lo, hi = cache.k.box(c)[1]
+            n = max(0, min(hi, t + 1) - lo)
+            dev = q_all[pos].device
+            parts[pos] = attend_partial(
+                q_all[pos], cache.k.shards[c][:, :n].to(dev),
+                cache.v.shards[c][:, :n].to(dev),
+                softcap=cfg.attn_logit_softcap)
+        parts = all_gather(parts, mesh, "model", 0, stack=True)
+        m = mesh.axis_size("model")
+        for pos in mesh.positions():
+            out = combine_partials(parts[pos], qs[pos].dtype)
+            if hsplit:
+                h = cfg.n_heads // m
+                i = mesh.index(pos, "model")
+                out = out[:, :, i * h:(i + 1) * h]
+            outs[pos] = out
+    ys = {pos: linear_apply(params[pos].wo, outs[pos], "bshq,hqd->bsd",
+                            compute_dtype=REDUCE_DTYPE if hsplit
+                            else outs[pos].dtype)
+          for pos in mesh.positions()}
+    if hsplit:
+        dt = next(iter(qs.values())).dtype
+        ys = {p: y.to(dt) for p, y in all_reduce(ys, mesh, "model").items()}
+    return ys, cache._replace(length=t + 1)

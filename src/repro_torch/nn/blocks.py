@@ -33,7 +33,9 @@ def mlp_init(gen: torch.Generator, cfg, device="cuda") -> MLP:
     return MLP(gen, cfg, device)
 
 
-def mlp_forward(params: MLP, cfg, x):
+def mlp_forward(params: MLP, cfg, x, out_dtype=None):
+    """``out_dtype``: the output product's dtype (default the activation
+    dtype), float32 for a row-parallel shard's partial sum."""
     adt = DTYPES[cfg.activation_dtype]
     h = linear_apply(params.w_in, x, "bsd,df->bsf", compute_dtype=adt)
     if cfg.mlp_gated:
@@ -41,7 +43,8 @@ def mlp_forward(params: MLP, cfg, x):
         h = F.silu(g.to(torch.float32)).to(adt) * h
     else:           # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(adt)
-    return linear_apply(params.w_out, h, "bsf,fd->bsd", compute_dtype=adt)
+    return linear_apply(params.w_out, h, "bsf,fd->bsd",
+                        compute_dtype=out_dtype or adt)
 
 
 class Block(nn.Module):
@@ -117,3 +120,93 @@ def block_decode(params: Block, cfg, spec: LayerSpec, x, cache):
     else:
         mixed, cache = mamba2.mamba_decode(params.mamba, cfg, h, cache)
     return _ffn(params, cfg, spec, x + mixed)[0], cache
+
+
+# -- on a model mesh ----------------------------------------------------------
+
+def mlp_forward_sharded(P, cfg, mesh, hs):
+    """:func:`mlp_forward` at every position: ``w_in``/``w_gate``
+    column-parallel and ``w_out`` row-parallel over ``model`` (where
+    ``d_ff`` divides), the float32 partial outputs all-reduced."""
+    from types import SimpleNamespace
+
+    from repro_torch.nn.collectives import REDUCE_DTYPE, all_reduce
+    split = P.split("w_in.w", 1)
+    cols = {1: "model"} if split else {}
+    out = {}
+    for pos in mesh.positions():
+        p = SimpleNamespace(
+            w_in=P.linear("w_in", pos, cols),
+            w_out=P.linear("w_out", pos, {0: "model"} if split else {}))
+        if cfg.mlp_gated:
+            p.w_gate = P.linear("w_gate", pos, cols)
+        out[pos] = mlp_forward(p, cfg, hs[pos],
+                               REDUCE_DTYPE if split else None)
+    if not split:
+        return out
+    adt = DTYPES[cfg.activation_dtype]
+    return {p: y.to(adt) for p, y in all_reduce(out, mesh, "model").items()}
+
+
+def _norm_all(P, name, cfg, mesh, xs):
+    return {pos: rmsnorm_apply(P.norm(name, pos), x, cfg.norm_eps)
+            for pos, x in xs.items()}
+
+
+def _ffn_sharded(P, cfg, spec: LayerSpec, mesh, xs, baxes):
+    if spec.ffn == "none":
+        return xs, None
+    hs = _norm_all(P, "norm_ffn", cfg, mesh, xs)
+    if spec.ffn == "moe":
+        ys, aux = moe.moe_forward_sharded(P.sub("ffn."), cfg, mesh, baxes, hs)
+    else:
+        ys, aux = mlp_forward_sharded(P.sub("ffn."), cfg, mesh, hs), None
+    return {pos: xs[pos] + ys[pos] for pos in xs}, aux
+
+
+def block_forward_sharded(P, cfg, spec: LayerSpec, mesh, xs, positions,
+                          baxes, *, prefix_len: int = 0):
+    """:func:`block_forward` at every position of ``mesh`` (``P`` the
+    block's leaves, ``xs`` a position's rows, ``baxes`` the mesh axes the
+    batch is split over). Returns ({pos: x}, aux {pos: (2,) float32} of
+    the MoE, or None)."""
+    hs = _norm_all(P, "norm_mix", cfg, mesh, xs)
+    if spec.kind == "attn":
+        mixed = attn.attn_forward_sharded(P.sub("attn."), cfg, mesh, hs,
+                                          positions, prefix_len=prefix_len)
+    else:
+        mixed = mamba2.mamba_forward_sharded(P.sub("mamba."), cfg, mesh, hs)
+    return _ffn_sharded(P, cfg, spec, mesh,
+                        {pos: xs[pos] + mixed[pos] for pos in xs}, baxes)
+
+
+def block_prefill_sharded(P, cfg, spec: LayerSpec, mesh, xs, positions,
+                          baxes, cache, *, prefix_len: int = 0):
+    """One layer over the prompt on a mesh, writing the sharded ``cache``
+    in place. Returns {pos: x}."""
+    hs = _norm_all(P, "norm_mix", cfg, mesh, xs)
+    S = next(iter(hs.values())).shape[1]
+    if spec.kind == "attn":
+        mixed, kvs = attn.attn_forward_sharded(
+            P.sub("attn."), cfg, mesh, hs, positions, prefix_len=prefix_len,
+            return_kv=True)
+        attn.write_prompt(cache, kvs, S)
+    else:
+        mixed = mamba2.mamba_forward_sharded(P.sub("mamba."), cfg, mesh, hs,
+                                             cache=cache)
+    return _ffn_sharded(P, cfg, spec, mesh,
+                        {pos: xs[pos] + mixed[pos] for pos in xs}, baxes)[0]
+
+
+def block_decode_sharded(P, cfg, spec: LayerSpec, mesh, xs, baxes, cache):
+    """Single-step decode on a mesh. Returns ({pos: x}, new_cache)."""
+    hs = _norm_all(P, "norm_mix", cfg, mesh, xs)
+    if spec.kind == "attn":
+        mixed, cache = attn.attn_decode_sharded(P.sub("attn."), cfg, mesh,
+                                                hs, cache)
+    else:
+        mixed, cache = mamba2.mamba_decode_sharded(P.sub("mamba."), cfg,
+                                                   mesh, hs, cache)
+    return _ffn_sharded(P, cfg, spec, mesh,
+                        {pos: xs[pos] + mixed[pos] for pos in xs},
+                        baxes)[0], cache

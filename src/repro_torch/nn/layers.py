@@ -19,7 +19,7 @@ take gradients; the serving entry points run under ``torch.no_grad``.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,11 +51,14 @@ class RMSNorm(nn.Module):
         self.scale = _param(torch.ones((dim,), dtype=dtype, device=device))
 
 
-def rmsnorm_apply(norm: RMSNorm, x: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm_apply(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-6,
+                  var: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``var``: the float32 mean square over the normalised dimension,
+    when ``x`` is one model shard of it (the Mamba gated norm)."""
     orig = x.dtype
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if var is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * norm.scale.to(torch.float32)).to(orig)
 

@@ -12,9 +12,9 @@ The reference computes it in plain JAX outside any Pallas kernel; so does
 the port, in plain PyTorch. Its three-operand einsums are written as an
 explicit order of products, so that none builds the (B, nc, c, N, H)
 outer product a left-to-right contraction would: the masked decay times
-C·Bᵀ, then a batched product over the chunk's positions. The reference's
-``constrain(...)`` calls (``cfg.ssd_constrain``) are sharding hints for a
-model mesh and have no counterpart here.
+C·Bᵀ, then a batched product over the chunk's positions. On a model mesh
+(:func:`mamba_forward_sharded`) ``inner`` and the heads are split over
+``model``.
 
 Caches (:class:`MambaCache`) hold the last K-1 pre-conv inputs and the
 float32 state; :func:`mamba_decode` updates their tensors in place, as the
@@ -154,19 +154,20 @@ def _min_prompt(cfg) -> int:
     return cfg.ssm_conv - 1
 
 
-def mamba_forward(params: Mamba2, cfg, x, *,
-                  init_cache: Optional[MambaCache] = None,
-                  return_cache: bool = False):
-    """Train/prefill forward. x: (B, S, D) -> (B, S, D); with
-    ``return_cache`` also the :class:`MambaCache` after the S steps, which
-    needs S >= K-1 (the conv history is the last K-1 pre-conv inputs)."""
+def _dims(params, cfg):
+    """(d_inner, N, H, P) of ``params``, read off its tensors: the whole
+    mixer's or one model shard's."""
+    return (params.wx.w.shape[-1], params.wB.w.shape[-1],
+            params.wdt.w.shape[-1], cfg.ssm_head_dim)
+
+
+def _gated(params, cfg, x, init_cache: Optional[MambaCache] = None):
+    """Everything before the gated norm: (y * silu(z) (B, S, d_inner) in
+    the activation dtype, the pre-conv inputs (B, S, d_inner + 2N), the
+    final state)."""
     adt = DTYPES[cfg.activation_dtype]
     B, S, D = x.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    if return_cache and S < _min_prompt(cfg):
-        raise ValueError(f"a Mamba cache needs a prompt of at least "
-                         f"{_min_prompt(cfg)} tokens (ssm_conv - 1), got {S}")
-
+    di, N, H, P = _dims(params, cfg)
     z = linear_apply(params.wz, x, "bsd,de->bse", compute_dtype=adt)
     xs = linear_apply(params.wx, x, "bsd,de->bse", compute_dtype=adt)
     Bm = linear_apply(params.wB, x, "bsd,dn->bsn", compute_dtype=adt)
@@ -188,8 +189,22 @@ def mamba_forward(params: Mamba2, cfg, x, *,
                                   init_state)
     y = y + params.D.to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, di)
-    y = rmsnorm_apply(params.norm, y * F.silu(z.to(torch.float32)).to(
-        y.dtype), cfg.norm_eps)
+    return y * F.silu(z.to(torch.float32)).to(y.dtype), u_pre, final_state
+
+
+def mamba_forward(params: Mamba2, cfg, x, *,
+                  init_cache: Optional[MambaCache] = None,
+                  return_cache: bool = False):
+    """Train/prefill forward. x: (B, S, D) -> (B, S, D); with
+    ``return_cache`` also the :class:`MambaCache` after the S steps, which
+    needs S >= K-1 (the conv history is the last K-1 pre-conv inputs)."""
+    adt = DTYPES[cfg.activation_dtype]
+    S = x.shape[1]
+    if return_cache and S < _min_prompt(cfg):
+        raise ValueError(f"a Mamba cache needs a prompt of at least "
+                         f"{_min_prompt(cfg)} tokens (ssm_conv - 1), got {S}")
+    g, u_pre, final_state = _gated(params, cfg, x, init_cache)
+    y = rmsnorm_apply(params.norm, g, cfg.norm_eps)
     out = linear_apply(params.out, y, "bse,ed->bsd", compute_dtype=adt)
     if return_cache:
         cache = MambaCache(conv=u_pre[:, S - _min_prompt(cfg):],
@@ -211,12 +226,12 @@ def init_mamba_cache(cfg, batch: int, dtype=torch.float32,
         length=0)
 
 
-def mamba_decode(params: Mamba2, cfg, x, cache: MambaCache):
-    """Single-token decode. x: (B, 1, D). Returns (y (B, 1, D), cache);
-    the cache's conv and state tensors are updated in place."""
+def _gated_decode(params, cfg, x, conv, state):
+    """One token before the gated norm: (y * silu(z) (B, 1, d_inner),
+    the conv window (B, K, d_inner + 2N), the new state (B, H, N, P))."""
     adt = DTYPES[cfg.activation_dtype]
     B = x.shape[0]
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, N, H, P = _dims(params, cfg)
     f32 = torch.float32
 
     z = linear_apply(params.wz, x, "bsd,de->bse", compute_dtype=adt)
@@ -227,7 +242,7 @@ def mamba_decode(params: Mamba2, cfg, x, cache: MambaCache):
     ], dim=-1)                                             # (B, 1, di+2N)
     dt_raw = linear_apply(params.wdt, x, "bsd,dh->bsh", compute_dtype=adt)
 
-    window = torch.cat([cache.conv.to(adt), pre], dim=1)   # (B, K, C)
+    window = torch.cat([conv.to(adt), pre], dim=1)         # (B, K, C)
     u = (window.to(f32) * params.conv_w.to(f32)[None]).sum(dim=1,
                                                            keepdim=True)
     u = F.silu(u + params.conv_b.to(f32)).to(adt)
@@ -240,13 +255,153 @@ def mamba_decode(params: Mamba2, cfg, x, cache: MambaCache):
     Bf, Cf = Bm[:, 0].to(f32), Cm[:, 0].to(f32)
     # B_m dt_h x_hp, as the reference's einsum multiplies them
     upd = Bf[:, None, :, None] * (dt[:, :, None] * xh)[:, :, None, :]
-    state = cache.state * g[:, :, None, None] + upd        # (B, H, N, P)
+    state = state * g[:, :, None, None] + upd              # (B, H, N, P)
     y = torch.einsum("bm,bhmp->bhp", Cf, state)
     y = y + params.D.to(f32)[None, :, None] * xh
     y = y.reshape(B, 1, di).to(adt)
-    y = rmsnorm_apply(params.norm, y * F.silu(z.to(f32)).to(y.dtype),
-                      cfg.norm_eps)
+    return y * F.silu(z.to(f32)).to(y.dtype), window, state
+
+
+def mamba_decode(params: Mamba2, cfg, x, cache: MambaCache):
+    """Single-token decode. x: (B, 1, D). Returns (y (B, 1, D), cache);
+    the cache's conv and state tensors are updated in place."""
+    adt = DTYPES[cfg.activation_dtype]
+    g, window, state = _gated_decode(params, cfg, x, cache.conv,
+                                     cache.state)
+    y = rmsnorm_apply(params.norm, g, cfg.norm_eps)
     out = linear_apply(params.out, y, "bse,ed->bsd", compute_dtype=adt)
     cache.conv.copy_(window[:, 1:])
     cache.state.copy_(state)
     return out, cache._replace(length=cache.length + 1)
+
+
+# -- on a model mesh ----------------------------------------------------------
+# ``inner`` and ``ssm_heads`` are split over ``model`` where both divide;
+# ``wB``/``wC`` are read whole; ``out`` is row-parallel. The conv runs over
+# the concatenated (x, B, C) channels, whose even split does not fall on
+# the x|B|C boundary: a position gathers ``conv_w``/``conv_b`` and takes
+# its x channels and B and C. The gated norm's mean square over d_inner is
+# all-reduced.
+
+def _split(P) -> bool:
+    return P.split("wx.w", 1) and P.split("wdt.w", 1)
+
+
+def _x_range(cfg, mesh, pos, split: bool):
+    w = cfg.d_inner // (mesh.axis_size("model") if split else 1)
+    lo = (mesh.index(pos, "model") if split else 0) * w
+    return lo, lo + w
+
+
+def _local(P, cfg, mesh, pos, split: bool):
+    from types import SimpleNamespace
+    lo, hi = _x_range(cfg, mesh, pos, split)
+    di, N = cfg.d_inner, cfg.ssm_state
+    inner = {1: "model"} if split else {}
+    heads = {0: "model"} if split else {}
+    cols = torch.cat([torch.arange(lo, hi), torch.arange(di, di + 2 * N)])
+    conv_w = P.local("conv_w", pos)
+    cols = cols.to(conv_w.device)
+    return SimpleNamespace(
+        wz=P.linear("wz", pos, inner), wx=P.linear("wx", pos, inner),
+        wB=P.linear("wB", pos), wC=P.linear("wC", pos),
+        wdt=P.linear("wdt", pos, inner),
+        out=P.linear("out", pos, {0: "model"} if split else {}),
+        conv_w=conv_w.index_select(1, cols),
+        conv_b=P.local("conv_b", pos).index_select(0, cols),
+        A_log=P.local("A_log", pos, heads),
+        dt_bias=P.local("dt_bias", pos, heads),
+        D=P.local("D", pos, heads),
+        norm=SimpleNamespace(scale=P.local("norm.scale", pos)[lo:hi]))
+
+
+def _norm_out(ps, cfg, mesh, gs, split: bool):
+    """The gated norm (its mean square all-reduced over ``model``) and
+    the row-parallel ``out``, at every position."""
+    from repro_torch.nn.collectives import REDUCE_DTYPE, all_reduce
+    adt = DTYPES[cfg.activation_dtype]
+    var = {pos: None for pos in gs}
+    if split:
+        sq = {pos: (g.to(torch.float32) ** 2).sum(dim=-1, keepdim=True)
+              for pos, g in gs.items()}
+        var = {pos: s / cfg.d_inner
+               for pos, s in all_reduce(sq, mesh, "model").items()}
+    ys = {}
+    for pos, g in gs.items():
+        y = rmsnorm_apply(ps[pos].norm, g, cfg.norm_eps, var=var[pos])
+        ys[pos] = linear_apply(ps[pos].out, y, "bse,ed->bsd",
+                               compute_dtype=REDUCE_DTYPE if split else adt)
+    if not split:
+        return ys
+    return {p: y.to(adt) for p, y in all_reduce(ys, mesh, "model").items()}
+
+
+def _full_channels(cfg, mesh, rows, split: bool):
+    """{pos: (B, K, x channels + 2N)} -> {pos: (B, K, d_inner + 2N)}:
+    the x channels gathered over ``model``."""
+    from repro_torch.nn.collectives import all_gather
+    if not split:
+        return rows
+    w = cfg.d_inner // mesh.axis_size("model")
+    xs = all_gather({p: r[..., :w] for p, r in rows.items()}, mesh,
+                    "model", -1)
+    return {p: torch.cat([xs[p], r[..., w:]], dim=-1)
+            for p, r in rows.items()}
+
+
+def _write(sharded, pos, full_rows) -> None:
+    """Write a position's rows (the batch block it holds, every other
+    dimension whole) into its shard of ``sharded``."""
+    c = sharded.coord(pos)
+    box = sharded.box(c)
+    sharded.shards[c].copy_(full_rows[(slice(None),) + tuple(
+        slice(a, b) for a, b in box[1:])])
+
+
+def mamba_forward_sharded(P, cfg, mesh, hs,
+                          cache: Optional[MambaCache] = None):
+    """:func:`mamba_forward` at every position of ``mesh``; with ``cache``
+    (a MambaCache of Sharded tensors) its conv history and state are
+    written in place, as a prefill does. Returns {pos: y}."""
+    split = _split(P)
+    ps = {pos: _local(P, cfg, mesh, pos, split) for pos in mesh.positions()}
+    gs, tails, states = {}, {}, {}
+    for pos in mesh.positions():
+        gs[pos], u_pre, states[pos] = _gated(ps[pos], cfg, hs[pos])
+        S = u_pre.shape[1]
+        if cache is not None:
+            if S < _min_prompt(cfg):
+                raise ValueError(f"a Mamba cache needs a prompt of at least "
+                                 f"{_min_prompt(cfg)} tokens, got {S}")
+            tails[pos] = u_pre[:, S - _min_prompt(cfg):]
+    if cache is not None:
+        with torch.no_grad():
+            tails = _full_channels(cfg, mesh, tails, split)
+            for pos in mesh.positions():
+                _write(cache.conv, pos, tails[pos])
+                cache.state.shards[cache.state.coord(pos)].copy_(states[pos])
+    return _norm_out(ps, cfg, mesh, gs, split)
+
+
+def mamba_decode_sharded(P, cfg, mesh, hs, cache: MambaCache):
+    """:func:`mamba_decode` on a mesh with a cache of Sharded tensors,
+    updated in place. Returns ({pos: y}, cache)."""
+    split = _split(P)
+    di = cfg.d_inner
+    ps, gs, windows, states = {}, {}, {}, {}
+    for pos in mesh.positions():
+        ps[pos] = _local(P, cfg, mesh, pos, split)
+        lo, hi = _x_range(cfg, mesh, pos, split)
+        hist = cache.conv.local(pos, {0: cache.conv.spec.axes(0)})
+        hist = torch.cat([hist[..., lo:hi], hist[..., di:]], dim=-1)
+        state = cache.state.shards[cache.state.coord(pos)].to(
+            hs[pos].device)
+        gs[pos], win, states[pos] = _gated_decode(ps[pos], cfg, hs[pos],
+                                                  hist, state)
+        windows[pos] = win[:, 1:]
+    windows = _full_channels(cfg, mesh, windows, split)
+    for pos in mesh.positions():      # every position has read its history
+        _write(cache.conv, pos, windows[pos])
+        cache.state.shards[cache.state.coord(pos)].copy_(states[pos])
+    return (_norm_out(ps, cfg, mesh, gs, split),
+            cache._replace(length=cache.length + 1))

@@ -12,8 +12,8 @@ gather/scatter dispatch with no (T, E, C) one-hot tensor):
 
 The reference computes all of it in plain JAX outside any Pallas kernel;
 so does the port, in plain PyTorch (``torch.bmm`` for the expert
-products, one ``index_add`` for the scatter). Its ``constrain(...)``
-calls are sharding hints for a model mesh and have no counterpart here.
+products, one ``index_add`` for the scatter). On a model mesh
+(:func:`moe_forward_sharded`) the experts are split over ``model``.
 
 Three dispatches, chosen by :func:`moe_forward` as the reference does:
 ``gathered_decode`` (the routed experts' weights gathered per token, for
@@ -46,6 +46,8 @@ def _experts(gen: torch.Generator, shape, dtype, device) -> nn.Parameter:
     copies of it (the draw and its scaling), 8.4 GB for a dbrx layer's
     ``w_in``."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":       # shapes only: nothing to draw
+        return nn.Parameter(out)
     for e in range(shape[0]):
         out[e] = truncated_normal(gen, shape[1:], 1.0 / np.sqrt(shape[1]),
                                   device).to(dtype)
@@ -104,11 +106,14 @@ def _route(params: MoE, cfg, x):
     return probs, gates, top_idx
 
 
-def _slots(top_idx, E: int, C: int):
+def _slots(top_idx, E: int, C: int, offset=None):
     """top_idx (..., T, K) -> (keep, slot), each (..., T, K): an
     assignment's rank within its expert over the T tokens in slot-major
     order (slot k's assignments after every earlier slot's), kept below
-    C, and its buffer row ``expert * C + min(rank, C - 1)``."""
+    C, and its buffer row ``expert * C + min(rank, C - 1)``. ``offset``
+    (K, E): the assignments that rank before these tokens' in each slot
+    and expert (a data shard's share of a global batch); without it, the
+    earlier slots' counts of these T tokens."""
     counts = torch.zeros(top_idx.shape[:-2] + (E,), dtype=torch.int64,
                          device=top_idx.device)
     ranks = []
@@ -117,7 +122,8 @@ def _slots(top_idx, E: int, C: int):
         oh = F.one_hot(ek, E)                                 # (..., T, E)
         within = torch.cumsum(oh, dim=-2) - oh                # exclusive
         rank_k = torch.gather(within, -1, ek[..., None])[..., 0]
-        ranks.append(rank_k + torch.gather(counts, -1, ek))
+        base = counts if offset is None else offset[k]
+        ranks.append(rank_k + torch.gather(base, -1, ek))
         counts = counts + oh.sum(dim=-2)
     rank = torch.stack(ranks, dim=-1)
     return rank < C, top_idx * C + torch.clamp_max(rank, C - 1)
@@ -216,3 +222,164 @@ def moe_forward_grouped(params: MoE, cfg, x):
     w = (gates * keep.to(gates.dtype)).to(adt)
     out = torch.einsum("bskd,bsk->bsd", gathered, w)
     return out, _aux(probs, top_idx, keep, E)
+
+
+# -- on a model mesh ----------------------------------------------------------
+# The experts are split over ``model`` (EP) where E divides; the router is
+# read whole. Each data shard ranks its tokens after every earlier data
+# shard's in each slot and expert (the per-expert counts all-gathered), so
+# the dropped assignments are the one-device run's at any capacity. A
+# position fills the capacity buffer of its own experts with its own
+# tokens; the buffers are reduce-scattered over the batch axes along the
+# capacity (each row has one writer, so the sum is exact), each position
+# runs its experts over its capacity block, and the outputs are gathered
+# back. The gate-weighted outputs of each position's experts are summed
+# over ``model``.
+
+def _local(P, mesh, pos, esplit: bool):
+    from types import SimpleNamespace
+    ex = {0: "model"} if esplit else {}
+    p = SimpleNamespace(router=P.linear("router", pos),
+                        w_in=P.local("w_in", pos, ex),
+                        w_out=P.local("w_out", pos, ex))
+    if "w_gate" in P:
+        p.w_gate = P.local("w_gate", pos, ex)
+    return p
+
+
+def _aux_sharded(mesh, baxes, probs, top_idx, keep, E: int, T: int):
+    """``_aux`` over the global batch: the shards' sums all-reduced over
+    the batch axes."""
+    from repro_torch.nn.collectives import all_reduce
+    K = next(iter(top_idx.values())).shape[-1]
+    packed = {}
+    for pos in probs:
+        ce = F.one_hot(top_idx[pos][..., 0].reshape(-1), E).to(
+            torch.float32).sum(dim=0)
+        packed[pos] = torch.cat([
+            probs[pos].reshape(-1, E).sum(dim=0), ce,
+            keep[pos].to(torch.float32).sum()[None]])
+    packed = all_reduce(packed, mesh, baxes)
+    out = {}
+    for pos, t in packed.items():
+        me, ce = t[:E] / T, t[E:2 * E] / T
+        out[pos] = torch.stack([E * torch.sum(me * ce),
+                                1.0 - t[2 * E] / (T * K)])
+    return out
+
+
+def moe_forward_sharded(P, cfg, mesh, baxes, hs):
+    """:func:`moe_forward` at every position of ``mesh``. ``hs`` maps a
+    position to its batch rows (B_loc, S, D), ``baxes`` names the mesh
+    axes the batch is split over. Returns ({pos: y}, {pos: aux (2,)
+    float32: load_balance, dropped_frac})."""
+    from repro_torch.nn.collectives import (REDUCE_DTYPE, _axes_size,
+                                            all_gather, all_reduce,
+                                            block_index, reduce_scatter)
+    from repro_torch.nn.sharding import mesh_sizes
+    adt = DTYPES[cfg.activation_dtype]
+    E, K = cfg.n_experts, cfg.top_k
+    esplit = P.split("w_in", 0)
+    m = mesh.axis_size("model") if esplit else 1
+    El = E // m
+    nb = _axes_size(mesh_sizes(mesh), baxes)
+    B, S, D = next(iter(hs.values())).shape
+    T = B * nb * S                                     # the global tokens
+    grouped = cfg.moe_dispatch == "grouped" and S > 1
+    gathered = (cfg.moe_dispatch == "gathered_decode"
+                and T <= max(E // K, 4))
+    C = _capacity(cfg, S if grouped else T)
+    rdt = REDUCE_DTYPE if esplit else adt   # the combine's partial sums
+    ps, probs, gates, tops = {}, {}, {}, {}
+    for pos in mesh.positions():
+        ps[pos] = _local(P, mesh, pos, esplit)
+        x = hs[pos] if grouped else hs[pos].reshape(B * S, D)
+        probs[pos], gates[pos], tops[pos] = _route(ps[pos], cfg, x)
+
+    keeps, slots = {}, {}
+    if gathered:
+        keeps = {p: torch.ones_like(t, dtype=torch.bool)
+                 for p, t in tops.items()}
+    elif grouped:
+        for pos in tops:
+            keeps[pos], slots[pos] = _slots(tops[pos], E, C)
+    else:
+        counts = {pos: torch.stack([F.one_hot(t[:, k], E).sum(dim=0)
+                                    for k in range(K)])
+                  for pos, t in tops.items()}           # (K, E)
+        counts = all_gather(counts, mesh, baxes, 0, stack=True)
+        for pos, c in counts.items():                  # (nb, K, E)
+            b = block_index(mesh, pos, baxes)
+            tot = c.sum(dim=0)
+            offset = (torch.cumsum(tot, dim=0) - tot) + c[:b].sum(dim=0)
+            keeps[pos], slots[pos] = _slots(tops[pos], E, C, offset)
+
+    ys = {}
+    if gathered:
+        for pos in mesh.positions():
+            e0 = mesh.index(pos, "model") * El if esplit else 0
+            top = tops[pos]
+            mine = (top >= e0) & (top < e0 + El)
+            idx = torch.clamp(top - e0, 0, El - 1)
+            p, xa = ps[pos], hs[pos].reshape(B * S, D).to(adt)
+            h = torch.einsum("td,tkdf->tkf", xa, p.w_in.to(adt)[idx])
+            if cfg.mlp_gated:
+                g = torch.einsum("td,tkdf->tkf", xa, p.w_gate.to(adt)[idx])
+                h = F.silu(g.to(torch.float32)).to(adt) * h
+            else:
+                h = F.gelu(h.to(torch.float32), approximate="tanh").to(adt)
+            y = torch.einsum("tkf,tkfd->tkd", h, p.w_out.to(adt)[idx])
+            w = (gates[pos] * mine.to(gates[pos].dtype)).to(adt)
+            ys[pos] = torch.einsum("tkd,tk->td", y.to(rdt), w.to(rdt)
+                                   ).reshape(B, S, D)
+    else:
+        rows, bufs = {}, {}
+        for pos in mesh.positions():
+            e0 = mesh.index(pos, "model") * El if esplit else 0
+            top, keep, slot = tops[pos], keeps[pos], slots[pos]
+            mine = (top >= e0) & (top < e0 + El)
+            row = torch.where(mine, slot - e0 * C, 0)
+            x = hs[pos].to(adt)
+            if grouped:              # (B, S, K): a row's own buffers
+                row = (row.reshape(B, S * K) + torch.arange(
+                    B, device=x.device)[:, None] * (El * C)).reshape(-1)
+                src = torch.repeat_interleave(x, K, dim=1).reshape(
+                    B * S * K, D)
+                nrows = B * El * C
+            else:
+                row = row.reshape(-1)
+                src = torch.repeat_interleave(x.reshape(B * S, D), K, dim=0)
+                nrows = El * C
+            src = src * (keep & mine).reshape(-1, 1).to(adt)
+            rows[pos] = row
+            bufs[pos] = torch.zeros((nrows, D), dtype=adt,
+                                    device=x.device).index_add(0, row, src)
+        if grouped:
+            y_bufs = {}
+            for pos, buf in bufs.items():
+                b3 = buf.reshape(B, El, C, D).transpose(0, 1).reshape(
+                    El, B * C, D)
+                y = _expert_ffn(ps[pos], cfg, b3, adt).reshape(El, B, C, D)
+                y_bufs[pos] = y.transpose(0, 1).reshape(B * El * C, D)
+        else:
+            bufs = {p: b.reshape(El, C, D) for p, b in bufs.items()}
+            cap = nb > 1 and C % nb == 0
+            bufs = (reduce_scatter(bufs, mesh, baxes, 1) if cap
+                    else all_reduce(bufs, mesh, baxes))
+            y_bufs = {p: _expert_ffn(ps[p], cfg, b, adt)
+                      for p, b in bufs.items()}
+            if cap:
+                y_bufs = all_gather(y_bufs, mesh, baxes, 1)
+            y_bufs = {p: y.reshape(El * C, D) for p, y in y_bufs.items()}
+        for pos in mesh.positions():
+            e0 = mesh.index(pos, "model") * El if esplit else 0
+            top = tops[pos]
+            mine = (top >= e0) & (top < e0 + El)
+            w = (gates[pos] * (keeps[pos] & mine).to(
+                gates[pos].dtype)).to(adt)
+            got = y_bufs[pos][rows[pos]].reshape(top.shape + (D,))
+            ys[pos] = torch.einsum("...kd,...k->...d", got.to(rdt),
+                                   w.to(rdt)).reshape(B, S, D)
+    if esplit:
+        ys = {p: y.to(adt) for p, y in all_reduce(ys, mesh, "model").items()}
+    return ys, _aux_sharded(mesh, baxes, probs, tops, keeps, E, T)

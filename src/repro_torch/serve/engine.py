@@ -178,7 +178,7 @@ class ServeEngine:
             raise ValueError(f"ngram_plane must be one of {_PLANES}, got "
                              f"{scfg.ngram_plane!r}")
         self.cfg, self.params, self.scfg = cfg, params, scfg
-        self.device = params.embed.table.device
+        self.device = lm.device_of(params)
         self.mesh = shard.resolve(mesh, data_shards, self.device)
         self.plane = ("fused" if scfg.ngram_plane == "auto"
                       else scfg.ngram_plane)

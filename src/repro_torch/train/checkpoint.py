@@ -266,7 +266,9 @@ def _placements(template, shardings, path: str = "") -> Dict[str, Any]:
             sub = None if shardings is None else shardings[i]
             out.update(_placements(v, sub, path + f"[{i}]"))
         return out
-    return {path: None if shardings is None else torch.device(shardings)}
+    if shardings is None or hasattr(shardings, "spec"):    # a Placement
+        return {path: shardings}
+    return {path: torch.device(shardings)}
 
 
 def restore(template, directory: str, step: Optional[int] = None,
@@ -280,7 +282,11 @@ def restore(template, directory: str, step: Optional[int] = None,
     ``torch.device``s (or None): a leaf with a device comes back as a
     tensor of the template's dtype on that device, whatever the template
     leaf is — the placement the JAX package's ``NamedSharding`` tree gives
-    with ``device_put``; a None leaves the leaf where ``device`` puts it."""
+    with ``device_put``; a None leaves the leaf where ``device`` puts it.
+    A leaf may also be a ``launch.shardings.Placement`` (a model mesh and
+    a spec): the leaf comes back as a ``nn.collectives.Sharded``, sliced
+    into its shards on their positions' devices, whatever mesh it was
+    saved from (a snapshot holds whole leaves)."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -302,7 +308,9 @@ def restore(template, directory: str, step: Optional[int] = None,
             dtype = np.asarray(tmpl).dtype
         # a copy that keeps a 0-d leaf 0-d (np.ascontiguousarray makes it 1-d)
         arr = np.array(arr, dtype=dtype, order="C")
-        if place[path] is not None:
+        if hasattr(place[path], "spec"):
+            out[path] = place[path].shard(torch.from_numpy(arr))
+        elif place[path] is not None:
             out[path] = torch.from_numpy(arr).to(place[path])
         elif isinstance(tmpl, torch.Tensor):
             out[path] = torch.from_numpy(arr).to(

@@ -4,11 +4,13 @@ package's ``train/compress.py``.
 ``quantize_int8`` scales a gradient to int8 by its largest magnitude and
 rounds stochastically (unbiased: E[q * scale] = g, error below one step),
 with the uniforms drawn from an explicit ``torch.Generator``;
-``dequantize_int8`` undoes the scale. The reference applies them over its
-``pod`` mesh axis before the pod-axis sum and degrades to the identity
-where no such axis is bound. The port has no ``pod`` axis until it has a
-model mesh (ROADMAP Queue 1 item 11c), so :func:`compress_pod_gradients`
-is the identity: the same result as the reference on one pod.
+``dequantize_int8`` undoes the scale. The reference applies them over a
+``pod`` axis bound by ``shard_map`` before the pod-axis sum and degrades
+to the identity where no such axis is bound; its train step calls it
+under ``jit`` with no ``shard_map``, so no axis is bound there, on any
+mesh. :func:`compress_pod_gradients` is therefore the identity, on one
+device and on a model mesh with a ``pod`` axis alike: the reference's
+result.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def compress_pod_gradients(grads: Dict[str, torch.Tensor]
                            ) -> Dict[str, torch.Tensor]:
-    """Quantize, sum over the ``pod`` axis and dequantize, leaf by leaf:
-    with no ``pod`` axis (the port has none yet, item 11c) the gradients
-    come back as they are, as the reference's do outside a pod mesh."""
+    """Quantize, sum over a bound ``pod`` axis and dequantize, leaf by
+    leaf: the train step binds none (as the reference's does not), so the
+    gradients come back as they are."""
     return grads

@@ -51,11 +51,14 @@ def train(cfg: ModelConfig, pipe_cfg: PipelineConfig, loop_cfg: LoopConfig,
           injector: Optional[FailureInjector] = None,
           log: Callable[[str], None] = print, *,
           state: Optional[Dict] = None,
-          data: Optional[DataPlane] = None) -> Dict:
+          data: Optional[DataPlane] = None, mesh=None) -> Dict:
     """Train ``loop_cfg.n_steps`` steps. The initial state is drawn from
-    ``loop_cfg.seed`` on ``pipe_cfg.device``, or copied from ``state``
-    (which is not changed); ``data`` is the data plane to draw batches
-    from (default: a new ``DataPlane(pipe_cfg)``). Returns
+    ``loop_cfg.seed`` on ``pipe_cfg.device`` (laid out over ``mesh``, a
+    ``launch.mesh.ModelMesh``, when one is given: the batch is then split
+    over its ``pod`` and ``data`` axes and the parameters by their
+    specs), or copied from ``state`` (which is not changed); ``data`` is
+    the data plane to draw batches from (default: a new
+    ``DataPlane(pipe_cfg)``, which keeps its own data mesh). Returns
     ``run_with_recovery``'s dict (``history``, ``restarts``,
     ``final_step``) with ``losses``, ``stragglers``, ``telemetry`` and the
     final ``state``."""
@@ -65,8 +68,9 @@ def train(cfg: ModelConfig, pipe_cfg: PipelineConfig, loop_cfg: LoopConfig,
     def initial() -> Dict:
         if state is not None:
             return copy.deepcopy(state)
-        gen = torch.Generator(device=device).manual_seed(loop_cfg.seed)
-        return init_state(gen, cfg, schedule, device)
+        home = mesh.home if mesh is not None else device
+        gen = torch.Generator(device=home).manual_seed(loop_cfg.seed)
+        return init_state(gen, cfg, schedule, device, mesh=mesh)
 
     step_fn = make_train_step(cfg, schedule,
                               num_microbatches=loop_cfg.num_microbatches)

@@ -45,11 +45,13 @@ RUN_NUMEL = 1 << 28
 
 def _runs(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
     """Indices of ``tensors`` in consecutive runs of at most
-    :data:`RUN_NUMEL` elements together (a larger tensor alone)."""
+    :data:`RUN_NUMEL` elements together (a larger tensor alone), each run
+    on one device (a model mesh's shards may lie on several)."""
     out: List[List[int]] = []
     total = RUN_NUMEL
     for i, t in enumerate(tensors):
-        if total + t.numel() > RUN_NUMEL:
+        if total + t.numel() > RUN_NUMEL or (
+                out and t.device != tensors[out[-1][0]].device):
             out.append([])
             total = 0
         out[-1].append(i)
@@ -64,7 +66,8 @@ def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     for run in _runs(grads):
         norms += torch._foreach_norm([grads[i].to(torch.float32)
                                       for i in run])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(
+        [n.to(norms[0].device) for n in norms]))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -106,6 +109,9 @@ def adamw(schedule: Schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     def init(params: Tensors) -> Dict[str, Tensors]:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device)
+        if _is_sharded(params):
+            return {k: {n: p.like(zeros) for n, p in params.items()}
+                    for k in ("mu", "nu")}
         return {"mu": {n: zeros(p) for n, p in params.items()},
                 "nu": {n: zeros(p) for n, p in params.items()}}
 
@@ -132,6 +138,10 @@ def adamw(schedule: Schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     @torch.no_grad()
     def update(grads: Tensors, state, params: Tensors, step) -> Dict:
+        if _is_sharded(params):      # elementwise: shard by shard
+            return update(_flat(grads), {k: _flat(state[k])
+                                         for k in ("mu", "nu")},
+                          _flat(params), step)
         names = list(params)
         gs = [grads[n] for n in names]
         gn = _global_norm(gs)
@@ -143,7 +153,8 @@ def adamw(schedule: Schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
         for run in _runs(gs):
             part = [names[i] for i in run]
             g = torch._foreach_mul([grads[n].to(torch.float32)
-                                    for n in part], scale)
+                                    for n in part],
+                                   scale.to(grads[part[0]].device))
             update_run(g, [state["mu"][n] for n in part],
                        [state["nu"][n] for n in part],
                        [params[n] for n in part], c1, c2, float(lr))
@@ -177,6 +188,8 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
 
     def init(params: Tensors) -> Dict[str, Tensors]:
         state = {}
+        if _is_sharded(params):
+            return _adafactor_init_sharded(params, _factored, _leaf_shape)
         for names in stack_groups(params).values():
             factored = _factored(_leaf_shape(params, names))
             for n in names:
@@ -190,12 +203,18 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
     @torch.no_grad()
     def update(grads: Tensors, state, params: Tensors, step) -> Dict:
         names = list(params)
-        gn = _global_norm([grads[n] for n in names])
+        sharded = _is_sharded(params)
+        gn = _global_norm(list(_flat(grads).values()) if sharded
+                          else [grads[n] for n in names])
         scale = _clip_scale(gn, max_grad_norm)
         lr = float(schedule(step))
         t = _f32(step) + 1.0
         beta2 = 1.0 - t ** (-decay_adamant)
         b2, ob2 = float(beta2), float(1.0 - beta2)
+        if sharded:
+            _adafactor_update_sharded(grads, state, params, scale, lr, b2,
+                                      ob2, eps, clip_threshold)
+            return {"grad_norm": gn, "lr": _f32(lr)}
 
         def precondition(g, s):
             """A clipped gradient (overwritten) -> its preconditioned
@@ -249,6 +268,112 @@ def adafactor(schedule: Schedule, eps=1e-30, clip_threshold=1.0,
         return {"grad_norm": gn, "lr": _f32(lr)}
 
     return Optimizer(init=init, update=update)
+
+
+# -- on a model mesh -----------------------------------------------------------
+# Parameters, gradients and state are Shardeds (nn.collectives) keyed by the
+# port's parameter names; the state follows its parameter's spec, Adafactor's
+# row and column statistics their own (the reference's axes, one dropped).
+# The global norm runs over every distinct shard in a fixed order. Adafactor
+# reads whole rows (columns) of the squared gradient for a statistic and the
+# whole row statistic for its mean, gathered from the shards that hold them,
+# so each statistic is the one-device value; the update's sum of squares is
+# summed over the shards of the reference leaf in order.
+
+def _is_sharded(tree) -> bool:
+    from repro_torch.nn.collectives import Sharded
+    return isinstance(next(iter(tree.values()), None), Sharded)
+
+
+def _flat(tree) -> Dict:
+    """{name: Sharded} -> {(name, coord): shard}."""
+    return {(n, c): t for n, leaf in tree.items()
+            for c, t in leaf.shards.items()}
+
+
+def _adafactor_init_sharded(params, factored, leaf_shape):
+    from repro_torch.nn.collectives import Sharded
+    from repro_torch.nn.sharding import (adafactor_axes, axes_of,
+                                         shard_shape, spec_for)
+    state = {}
+    shapes = {n: torch.empty(p.shape, device="meta")
+              for n, p in params.items()}
+    for names in stack_groups(params).values():
+        fac = factored(leaf_shape(shapes, names))
+        for n in names:
+            p = params[n]
+            s = p.shape
+            ax = adafactor_axes(axes_of(n), fac)
+            shp = {"vr": s[:-1], "vc": s[:-2] + s[-1:], "v": s}
+            out = {}
+            for key, axes in ax.items():
+                spec = spec_for(shp[key], axes, p.mesh)
+                local = shard_shape(shp[key], spec, p.mesh)
+                out[key] = Sharded.build(
+                    shp[key], spec, p.mesh, lambda c, box, pos, local=local:
+                    torch.zeros(local, dtype=torch.float32,
+                                device=p.mesh.device(pos)))
+            state[n] = out
+    return state
+
+
+def _adafactor_update_sharded(grads, state, params, scale, lr, b2, ob2, eps,
+                              clip_threshold) -> None:
+    for group in stack_groups(params).values():
+        count = sum(int(np.prod(params[n].shape)) for n in group)
+        pres = {}
+        sq = 0
+        for n in group:
+            p, st = params[n], state[n]
+            g2 = grads[n].like(
+                lambda t: t.to(torch.float32) * scale.to(t.device))
+            g2 = g2.like(lambda t: t.mul_(t).add_(eps))
+            if "vr" in st:
+                # a statistic's box of the squared gradient: its rows
+                # (columns) whole
+                for key, dim in (("vr", -1), ("vc", -2)):
+                    v = st[key]
+                    for c, t in v.shards.items():
+                        box = list(v.box(c))
+                        box = (box + [(0, p.shape[-1])] if key == "vr" else
+                               box[:-1] + [(0, p.shape[-2])] + box[-1:])
+                        got = g2.assemble(box, t.device, at=v.owner(c))
+                        t.mul_(b2).add_(ob2 * got.mean(dim=dim))
+            else:
+                for c, t in st["v"].shards.items():
+                    t.mul_(b2).add_(ob2 * g2.shards[c])
+            del g2
+            pres[n] = {}
+            for c, gt in grads[n].shards.items():
+                pos = p.owner(c)
+                box = list(p.box(c))
+                g = gt.to(torch.float32) * scale.to(gt.device)
+                if "vr" in st:
+                    vr, vc = st["vr"], st["vc"]
+                    rows = vr.assemble(box[:-1], g.device, at=pos)
+                    allr = vr.assemble(box[:-2] + [(0, p.shape[-2])],
+                                       g.device, at=pos)
+                    cols = vc.assemble(box[:-2] + box[-1:], g.device, at=pos)
+                    denom_r = rows / torch.clamp_min(
+                        allr.mean(dim=-1, keepdim=True), eps)
+                    den = (torch.sqrt(denom_r)[..., None]
+                           * torch.sqrt(cols)[..., None, :])
+                    pre = g.div_(den.add_(eps))
+                else:
+                    pre = g.div_(torch.sqrt(st["v"].shards[c]).add_(eps))
+                sq = sq + torch.sum(pre * pre).to(params[group[0]].mesh.home)
+                pres[n][c] = pre
+        rms = torch.sqrt(sq / count + eps)
+        shrink = torch.clamp_min(rms / clip_threshold, 1.0)
+        for n in group:
+            for c, t in params[n].shards.items():
+                pre = pres[n].pop(c)
+                pre.div_(shrink.to(pre.device)).mul_(lr)
+                pf = t.to(torch.float32)
+                if pf is t:
+                    t.sub_(pre)
+                else:
+                    t.copy_(pf.sub_(pre))
 
 
 def make_optimizer(name: str,

@@ -618,3 +618,57 @@ def test_analysis_imports_without_jax():
                                "PYTHONPATH": str(ROOT / "src")})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "analysis: OK — 0 total finding(s)" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# the model mesh's contracts
+# ---------------------------------------------------------------------------
+
+
+def _mesh_step_census(mesh, corrupt=False):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train import step as tstep
+    cfg = get_config("paper-tiny").smoke()
+    state = tstep.init_state(0, cfg, mesh=mesh)
+    fn = tstep.make_train_step(cfg)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (4, 16))
+
+    def run():
+        out = fn(state, {"tokens": toks})[1]["loss"]
+        if corrupt:        # a step that replaces a shard's state tensor
+            leaf = state["opt"]["mu"]["embed.table"]
+            c = next(iter(leaf.shards))
+            leaf.shards[c] = leaf.shards[c].clone()
+        return out
+
+    census = contracts.take_census(
+        run, inplace={"state": lambda: tstep.state_tensors(state)})
+    contract = contracts.contract_for(tstep.make_train_step, "mesh")
+    return contracts.check_census(contract, census, model_mesh=mesh), census
+
+
+def test_sharded_step_replacing_a_shard_is_flagged():
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    findings, _ = _mesh_step_census(mesh, corrupt=True)
+    assert any("embed.table" in f and "not updated in place" in f
+               for f in findings), findings
+    findings, census = _mesh_step_census(mesh)
+    assert findings == [] and set(census.collectives) == {
+        "all_gather", "all_reduce", "reduce_scatter"}
+
+
+def test_mesh_contract_counts_collectives():
+    """No collective on a (1, 1) mesh; a step on (2, 2) that issues none
+    (the one-device step) is flagged: FSDP must gather, the row-parallel
+    products must reduce."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    findings, census = _mesh_step_census(make_debug_mesh(1, 1, device="cpu"))
+    assert findings == [] and census.collectives == {}
+    from repro_torch.train import step as tstep
+    contract = contracts.contract_for(tstep.make_train_step, "mesh")
+    got = contracts.check_census(contract, census,
+                                 model_mesh=make_debug_mesh(2, 2,
+                                                            device="cpu"))
+    assert any("all_gather: counted none" in f for f in got), got
+    assert any("all_reduce: counted none" in f for f in got), got

@@ -13,7 +13,10 @@ more than one card); and the analyzer's contract census with the kernels
 dtypes and shared memory) with its negative control, and the deprecated
 single-sketch shims through the plan kernel; and the LM's train step on the
 card against the CPU (a dense, an MoE and a Mamba model), and a full-width
-loss and backward over a batch of the data plane.
+loss and backward over a batch of the data plane; and the model mesh's
+sharded step on four virtual shards against the CPU's (a further case
+holds the mesh on distinct cards and runs only where there is more than
+one card).
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -590,3 +593,91 @@ def test_moe_and_mamba_step_on_card_matches_cpu(cuda, arch):
     for n, (a, b, s) in params.items():
         assert float(torch.linalg.vector_norm(a - b)) <= 1e-3 * float(
             torch.linalg.vector_norm(b - s)), n
+
+
+def _mesh_step(mesh, cpu_state, cfg, sched, batch):
+    from repro_torch.train import step
+    sharded = step.shard_state(cpu_state, cfg, mesh, sched)
+    fn = step.make_train_step(cfg, sched)
+    sharded, m = fn(sharded, batch)
+    return m, {n: t.detach().cpu() for n, t in sharded["params"].full(
+        torch.device("cpu")).items()}
+
+
+def _mesh_state(arch="paper-tiny"):
+    """A CPU state after two steps at ``arch``'s ``.smoke()``, its config,
+    schedule and a third batch."""
+    from repro_torch.configs import registry
+    from repro_torch.train import optim, step
+    cfg = registry.get_config(arch).smoke()
+    sched = optim.Schedule(peak_lr=1e-2, warmup_steps=2, decay_steps=10)
+    fn = step.make_train_step(cfg, sched)
+    rng = np.random.default_rng(24)
+    batches = [{"tokens": rng.integers(0, cfg.vocab, size=(4, 64)).astype(
+        np.int32)} for _ in range(3)]
+    cpu = step.init_state(0, cfg, sched, device="cpu")
+    for b in batches[:2]:
+        cpu, _ = fn(cpu, b)
+    return cpu, cfg, sched, batches[2]
+
+
+def test_model_mesh_step_on_card_matches_cpu(cuda):
+    """The (2, 2) sharded step on four virtual shards of the card against
+    the same sharded step on the CPU from one carried state: loss and grad
+    norm within rtol 1e-4, every parameter within 2e-6 (TF32 off)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, cfg, sched, batch = _mesh_state()
+    mc, pc = _mesh_step(make_debug_mesh(2, 2, device=cuda), cpu, cfg, sched,
+                        batch)
+    mp, pp = _mesh_step(make_debug_mesh(2, 2, device="cpu"), cpu, cfg, sched,
+                        batch)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[k]), float(mp[k]), rtol=1e-4)
+    for n in pp:
+        np.testing.assert_allclose(pc[n].numpy(), pp[n].numpy(), atol=2e-6,
+                                   rtol=0, err_msg=n)
+
+
+def test_model_mesh_on_distinct_cards(cuda):
+    """The model mesh with one card a position ((2, 2) over four cards,
+    else (1, 2) over two): the sharded step equal to the one-device step
+    within the reference test's tolerances, and prefill and decode equal
+    to one device's within 1e-4."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs more than one CUDA card (the distinct-device "
+                    "model mesh; one card runs the virtual-shard case)")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn import lm
+    from repro_torch.train import step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (2, 2) if torch.cuda.device_count() >= 4 else (1, 2)
+    n = shape[0] * shape[1]
+    mesh = make_mesh([torch.device("cuda", i) for i in range(n)], *shape)
+    cpu, cfg, sched, batch = _mesh_state()
+    params = {k: v.detach().clone() for k, v in
+              cpu["params"].named_parameters()}
+    mc, pc = _mesh_step(mesh, cpu, cfg, sched, batch)
+    one, mo = step.make_train_step(cfg, sched)(cpu, batch)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[k]), float(mo[k]), rtol=1e-4)
+    for name, p in one["params"].named_parameters():
+        np.testing.assert_allclose(pc[name].numpy(), p.detach().numpy(),
+                                   rtol=2e-3, atol=2e-4, err_msg=name)
+    ref = lm.init(0, cfg, device=cuda)
+    ref.load_state_dict(params)
+    sp = lm.shard(ref, cfg, mesh)
+    toks = torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab, size=(4, 12))).to(cuda)
+    outs = []
+    for p in (ref, sp):
+        logits, caches = lm.prefill(p, cfg, toks, 16,
+                                    cache_dtype=torch.float32)
+        got = [logits]
+        for _ in range(4):
+            nxt = got[-1].argmax(-1)[:, None]
+            logits, caches = lm.decode_step(p, cfg, nxt, caches)
+            got.append(logits)
+        outs.append(got)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

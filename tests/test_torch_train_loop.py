@@ -214,9 +214,16 @@ def test_launcher_runs_on_cpu(tmp_path, capsys):
                        "3", "--seq", "64", "--batch", "2", "--ckpt-dir",
                        str(tmp_path), "--resume"])
     assert "resumed from step 2" in capsys.readouterr().out
-    for flag in ("--data-mesh", "--model-mesh", "--pod-mesh"):
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            launch_train.main(["--device", "cpu", flag, "2"])
+    # each mesh flag lays the state out over a model mesh and trains
+    for flag, sizes in (("--data-mesh", "{'data': 2, 'model': 1}"),
+                        ("--model-mesh", "{'data': 1, 'model': 2}"),
+                        ("--pod-mesh", "{'pod': 2, 'data': 1, 'model': 1}")):
+        launch_train.main(["--device", "cpu", flag, "2", "--steps", "1",
+                           "--seq", "16", "--batch", "4", "--ckpt-dir",
+                           str(tmp_path / flag)])
+        out = capsys.readouterr().out
+        assert f"mesh: ModelMesh({sizes}" in out, out
+        assert "done. data plane" in out and "warning" not in out
 
 
 def test_launcher_storage_check_fires_on_a_replaced_tensor(tmp_path,
