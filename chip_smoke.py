@@ -268,6 +268,26 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and no network. In order it
    on the mesh and on one device, tokens/s, idle shares, the collectives
    by kind (calls, bytes), the parameter bytes a position holds and peak
    memory.
+16. the dry run phase (after item 15): the op census of
+   ``launch.op_census`` (matrix-product FLOPs, the computed bytes of every
+   non-view op, the collectives' operand bytes, the peak of the storages a
+   step makes) that ``launch.dryrun`` runs on ``meta`` positions, held
+   against the same step on the card. Gates: (a) qwen1.5-0.5b recommended,
+   one device, a (8, 1024) train step: the census on ``meta`` equal to the
+   census on ``cuda:0`` (FLOPs, bytes by op, collectives, ops; the state
+   updated in place on both), its dot FLOPs within 1 % of
+   ``torch.profiler``'s ``with_flops`` count of the matrix products of a
+   step; the median of 3 warm steps printed beside the roofline bound
+   max(compute_s, memory_s) at ``configs.base.H100``'s data-sheet peaks,
+   the achieved fraction and the model-FLOP share of 989 TFLOP/s; (b) the
+   argument bytes from the specs against ``torch.cuda.memory_allocated()``
+   of the built state and batch, within the allocator's rounding; the
+   census's temporaries (an estimate) printed beside
+   ``max_memory_allocated()``; (c) ``H100``'s constants printed beside the
+   card's properties and ``nvidia-smi``'s name and power limit; (d) qwen
+   float32 at (8, 512) on (2, 2) virtual shards: the census on the card
+   equal to ``meta``'s, its collective operand bytes a device printed
+   beside phase 15's counter of the same step. ``dryrun[...]`` lines.
 
 Matmuls run in full float32 where they take float32 (TF32 off for cuBLAS
 and cuDNN). It prints one JSON line describing each kernel and, last, the
@@ -303,7 +323,10 @@ GRID_DIM = 65535            # blocks a grid's y or z dimension holds
 # in the white paper's SM diagram): 32 lanes a clock.
 LANES_PER_S = 132 * 64 * 1.98e9     # one pipe, one instruction a lane-clock
 LSU_LANES_PER_S = 132 * 32 * 1.98e9
-HBM_BYTES_PER_S = 3.35e12
+# the data sheet's HBM rate and dense bf16 peak: read from the port's
+# roofline model (configs.base.H100) in main, once src/ is on the path, so
+# the kernel bounds and the dry run's roofline cannot drift apart
+HBM_BYTES_PER_S = DENSE_BF16_FLOPS = None
 
 K, N, L, BANDS = 64, 8, 32, 16
 STREAM_ROWS = 1024          # rows per launch on the dedup and stats paths
@@ -2107,7 +2130,6 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 12, 8, 10
 TRAIN_SCHEDULE = dict(peak_lr=1e-3, warmup_steps=4, decay_steps=12)
 TRAIN_TIMED = 4                     # steps timed after the loop
 TRAIN_SERVE_NEW = 8                 # tokens the trained weights generate
-DENSE_BF16_FLOPS = 989e12           # H100 SXM, dense bf16 (data sheet)
 # the smoke-size step, card against CPU: a carried state (two CPU steps
 # first, so the compared update is lr * m / sqrt(v), not lr * sign(g))
 SMALL_ARCH, SMALL_B, SMALL_S = "paper-tiny", 4, 64
@@ -3239,6 +3261,196 @@ def mesh_phase(torch, card, reset_counts, read_counts):
     return time.perf_counter() - t_phase
 
 
+# -- phase 16: the dry run on the card ---------------------------------------------
+
+DRY_ARCH = "qwen1.5-0.5b"
+DRY_B, DRY_S = 8, 1024              # gate (a): phase 13's step, one device
+DRY_MESH_B, DRY_MESH_S = 8, 512     # gate (d): phase 15's (a) step, (2, 2)
+DRY_PROFILER_RTOL = 0.01
+DRY_TIMED = 3
+MATMUL_EVENTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def profiler_matmul_flops(torch, fn) -> tuple:
+    """torch.profiler's ``with_flops`` count of the matrix products in one
+    call of ``fn`` (2 M N K each, the census's convention; the profiler
+    also counts elementwise ops, which are left out): (the products that
+    ran, every event). Under a selective checkpoint (remat ``dots``) the
+    profiler records a product twice in the forward (the call that enters
+    the checkpoint's Python dispatch mode and the call that mode makes)
+    and once more for each product the recompute serves from its cache,
+    which launches nothing; the products that ran are the events with no
+    product nested in them whose call launched a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def nests_product(e) -> bool:
+        return any(c.name in MATMUL_EVENTS or nests_product(c)
+                   for c in e.cpu_children)
+
+    mm = [e for e in prof.events() if e.name in MATMUL_EVENTS and e.flops]
+    ran = [e for e in mm if e.device_time_total > 0 and not nests_product(e)]
+    return (float(sum(e.flops for e in ran)), float(sum(e.flops for e in mm)))
+
+
+def census_diff(a: dict, b: dict) -> str:
+    """The counts two census records disagree on, and the ops whose bytes
+    differ."""
+    keys = [k for k in ("dot_flops", "bytes", "collectives", "ops")
+            if a[k] != b[k]]
+    ops = {k: (a["bytes_by_op"].get(k), b["bytes_by_op"].get(k))
+           for k in set(a["bytes_by_op"]) | set(b["bytes_by_op"])
+           if a["bytes_by_op"].get(k) != b["bytes_by_op"].get(k)}
+    return f"{keys}; bytes by op {ops}"
+
+
+def dryrun_phase(torch, card):
+    """Phase 16: the dry run's census (``launch.dryrun``, ``launch.
+    op_census``) on the card against ``meta``, gates (a)-(d) of docstring
+    item 16."""
+    import statistics
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import H100, ShapeConfig
+    from repro_torch.launch import dryrun, op_census
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.nn import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    split, out = {}, {}
+    same = ("dot_flops", "bytes", "collectives", "ops", "bytes_by_op")
+    # (a) qwen recommended, one device, (8, 1024): meta against the card
+    t0 = time.perf_counter()
+    cfg = registry.get_recommended_config(DRY_ARCH)
+    shape = ShapeConfig(f"train_{DRY_B}x{DRY_S}", DRY_S, DRY_B, "train")
+    meta, meta_in_place = dryrun.census_cell(cfg, shape, None, "meta")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    cell = dryrun.build_cell(cfg, shape, None, "cuda")
+    torch.cuda.synchronize()
+    state_b = torch.cuda.memory_allocated() - m0
+    torch.cuda.reset_peak_memory_stats()
+    got, in_place = dryrun.run_census(cell, "train")
+    torch.cuda.synchronize()
+    temp_card = torch.cuda.max_memory_allocated() - m0 - state_b
+    if any(meta[k] != got[k] for k in same) or not (in_place and
+                                                    meta_in_place):
+        raise AssertionError(f"dryrun[a]: the census on the card differs "
+                             f"from meta's: {census_diff(meta, got)}; in "
+                             f"place {in_place} / {meta_in_place}")
+    prof, prof_all = profiler_matmul_flops(torch, cell.fn)
+    rel = abs(prof - got["dot_flops"]) / got["dot_flops"]
+    if rel > DRY_PROFILER_RTOL:
+        raise AssertionError(f"dryrun[a]: census dot FLOPs "
+                             f"{got['dot_flops']} vs the profiler's {prof:.0f}"
+                             f" ({rel:.3e} relative)")
+    times = []
+    for _ in range(DRY_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = cell.fn()
+        float(m["loss"])
+        times.append(time.perf_counter() - t1)
+    step_s = statistics.median(times)
+    terms = H100.roofline_seconds(got["dot_flops"], got["bytes"], 0.0, 1)
+    bound_s = max(terms["compute_s"], terms["memory_s"])
+    model_flops = 6.0 * cfg.param_count(active_only=True) * shape.tokens
+    print(f"dryrun[a: census]: {cfg.name} recommended, one device, "
+          f"({DRY_B}, {DRY_S}) train step: dot FLOPs {got['dot_flops']}, "
+          f"computed bytes {got['bytes']}, {got['ops']} ops, the same on "
+          f"meta and on the card (census {meta['census_s']:.1f} s on meta, "
+          f"{got['census_s']:.1f} s on the card); the profiler's matrix "
+          f"products that ran a kernel {prof:.0f} ({rel:.2e} from the "
+          f"census; {prof_all:.0f} in every event, the checkpoint's nested "
+          f"and cached calls too); in place "
+          f"{in_place} [{card}]")
+    print(f"dryrun[a: roofline]: median of {DRY_TIMED} warm steps "
+          f"{step_s * 1e3:.1f} ms ({', '.join(f'{t * 1e3:.1f}' for t in times)}"
+          f") vs the H100 data-sheet bound max(compute {terms['compute_s'] * 1e3:.2f}"
+          f" ms, memory {terms['memory_s'] * 1e3:.2f} ms) = "
+          f"{bound_s * 1e3:.2f} ms: achieved roofline fraction "
+          f"{bound_s / step_s:.4f}; model FLOPs (6 N tokens) "
+          f"{model_flops:.4e} = {model_flops / step_s / H100.peak_flops:.4f} "
+          f"of {H100.peak_flops / 1e12:.0f} TFLOP/s, dot FLOPs "
+          f"{got['dot_flops'] / step_s / H100.peak_flops:.4f} of it [{card}]")
+    out["a"] = {"dot_flops": got["dot_flops"], "bytes": got["bytes"],
+                "profiler_flops": prof, "step_ms": step_s * 1e3,
+                "bound_ms": bound_s * 1e3, "fraction": bound_s / step_s}
+    split["a"] = time.perf_counter() - t0
+    # (b) the state's bytes from the specs against the allocator
+    arg_b, _ = dryrun.spec_bytes(cfg, shape)
+    ts = [t for t in dryrun.tensors_of([cell.state, cell.inputs])
+          if t.is_cuda]
+    slack = sum(512 if t.nbytes < 1 << 20 else 1 << 20 for t in ts)
+    exact = sum(-(-t.nbytes // 512) * 512 for t in ts)
+    if not exact <= state_b <= exact + slack or abs(state_b - arg_b) > slack:
+        raise AssertionError(f"dryrun[b]: the built state holds {state_b} "
+                             f"bytes, the specs say {arg_b} (slack {slack})")
+    print(f"dryrun[b: memory]: argument bytes from the specs {arg_b} vs "
+          f"torch.cuda.memory_allocated() of the built state and batch "
+          f"{state_b} ({state_b - arg_b:+d}; {len(ts)} tensors on the card, "
+          f"{exact} rounded to the allocator's 512 bytes, at most {slack} "
+          f"more where a block of 1 MiB or more keeps an unsplit remainder "
+          f"of its segment); the census's temporaries "
+          f"(an estimate) {got['peak_bytes']} vs max_memory_allocated() above "
+          f"the state during the census step {temp_card} "
+          f"({got['peak_bytes'] / max(temp_card, 1):.3f} of it) [{card}]")
+    out["b"] = {"argument_bytes": arg_b, "allocated": state_b,
+                "temp_estimate": got["peak_bytes"], "temp_card": temp_card}
+    del cell
+    torch.cuda.empty_cache()
+    # (c) the constants against the card
+    props = torch.cuda.get_device_properties(0)
+    print(f"dryrun[c: constants]: configs.base.H100 peak {H100.peak_flops:.3e}"
+          f" FLOP/s (dense bf16), HBM {H100.hbm_bw:.3e} B/s, "
+          f"{H100.hbm_bytes:.3e} B, NVLink {H100.link_bw:.3e} B/s each way "
+          f"(the SXM data sheet at 700 W); the card: {props.name}, "
+          f"{props.multi_processor_count} SMs, {props.total_memory} bytes of "
+          f"memory; nvidia-smi: {card}")
+    # (d) a (2, 2) virtual-shard step of qwen float32 at (8, 512)
+    t0 = time.perf_counter()
+    c32 = dataclasses.replace(registry.get_config(DRY_ARCH),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    mshape = ShapeConfig(f"train_{DRY_MESH_B}x{DRY_MESH_S}", DRY_MESH_S,
+                         DRY_MESH_B, "train")
+    meta, _ = dryrun.census_cell(c32, mshape,
+                                 make_debug_mesh(2, 2, device="meta"), "meta")
+    got, in_place = dryrun.census_cell(c32, mshape,
+                                       make_debug_mesh(2, 2, device="cuda"),
+                                       "cuda")
+    recv = collectives.collective_count()
+    if any(meta[k] != got[k] for k in same) or not in_place:
+        raise AssertionError(f"dryrun[d]: the mesh census on the card "
+                             f"differs from meta's: {census_diff(meta, got)}"
+                             f"; in place {in_place}")
+    per_dev = op_census.collective_bytes(got)
+    calls = op_census.count_collectives(got)
+    print(f"dryrun[d: mesh]: {c32.name} float32 ({DRY_MESH_B}, {DRY_MESH_S})"
+          f" on (2, 2) virtual shards of the card: the census the same on "
+          f"meta; collective operand bytes a device "
+          f"{json.dumps({k: round(v) for k, v in per_dev.items() if v})}, "
+          f"calls a device {json.dumps({k: v for k, v in calls.items() if v})}"
+          f"; phase 15's counter of the same step (bytes each position "
+          f"receives, summed; calls a group) {mesh_coll_text(recv)}; dot "
+          f"FLOPs a device {op_census.dot_flops(got):.4e} [{card}]")
+    out["d"] = {"collective_bytes": per_dev, "received": recv}
+    torch.cuda.empty_cache()
+    split["d"] = time.perf_counter() - t0
+    print(f"dryrun summary: " + json.dumps(
+        {k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
+             for kk, vv in v.items()} for k, v in out.items()}) + f" [{card}]")
+    print(f"dryrun phase split, s: "
+          f"{json.dumps({k: round(v, 2) for k, v in split.items()})} [{card}]")
+    return time.perf_counter() - t_phase
+
+
 # -- the paper's byte-level path ------------------------------------------------
 
 BYTES_CHARS = 4_300_000     # bench_corpus: the King James Bible's size
@@ -3512,6 +3724,9 @@ def main() -> int:
               f"root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global HBM_BYTES_PER_S, DENSE_BF16_FLOPS
+    from repro_torch.configs.base import H100
+    HBM_BYTES_PER_S, DENSE_BF16_FLOPS = H100.hbm_bw, H100.peak_flops
     from repro_torch.core import gf2
     from repro_torch.data import corpus, decontam, dedup, pipeline, stats
     from repro_torch.kernels import (_build, api, bloom, cyclic, decode,
@@ -4145,6 +4360,9 @@ def main() -> int:
     # -- 15. the model mesh ---------------------------------------------------
     mesh_s = mesh_phase(torch, card, reset_counts, read_counts)
     print(f"mesh phase: {mesh_s:.1f} s [{card}]")
+    # -- 16. the dry run on the card -------------------------------------------
+    dry_s = dryrun_phase(torch, card)
+    print(f"dryrun phase: {dry_s:.1f} s [{card}]")
     # -- 8. the byte-level path, with its times -----------------------------
     t0 = time.perf_counter()
     byte_entries, bytes_cps = bytes_phase(torch, card, reset_counts,

@@ -4,9 +4,9 @@
 Every architecture is a :class:`ModelConfig` built from a repeating *block
 unit* (``unit`` layer specs x ``repeats``). The JAX package scans the unit
 over its stacked parameters; the port holds one module per repeat
-(:mod:`repro_torch.nn.lm`). The TPU hardware model of the reference
-(``HardwareConfig``, ``V5E``) is not carried over: its constants are not
-the card's.
+(:mod:`repro_torch.nn.lm`). The reference's hardware model for the
+roofline (``HardwareConfig``) keeps its fields and formula here, with the
+H100's data-sheet constants (:data:`H100`) in place of the TPU's.
 """
 from __future__ import annotations
 
@@ -224,3 +224,28 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+# The H100 SXM hardware model for the roofline (per card), from NVIDIA's
+# data sheet at the full 700 W power limit: dense bf16 on the tensor cores,
+# HBM3, and NVLink's 900 GB/s to the other cards of a host, 450 GB/s each
+# way. The production meshes (16 x 16 and 2 x 16 x 16 positions) span more
+# than one host of 8 cards; traffic between hosts is slower than NVLink and
+# is not modelled, so ``collective_s`` is a lower bound.
+@dataclasses.dataclass(frozen=True)
+class HardwareConfig:
+    peak_flops: float = 989e12       # bf16, dense
+    hbm_bw: float = 3.35e12          # bytes/s
+    link_bw: float = 450e9           # bytes/s, NVLink, each way
+    hbm_bytes: float = 80e9
+
+    def roofline_seconds(self, flops: float, bytes_hbm: float,
+                         bytes_collective: float, chips: int) -> dict:
+        return {
+            "compute_s": flops / (chips * self.peak_flops),
+            "memory_s": bytes_hbm / (chips * self.hbm_bw),
+            "collective_s": bytes_collective / (chips * self.link_bw),
+        }
+
+
+H100 = HardwareConfig()

@@ -6,8 +6,9 @@ The port is single-controller: one process holds every position of the
 mesh and runs each position's local program in a fixed order
 (:mod:`repro_torch.nn.collectives`). A device may repeat, giving virtual
 shards: the debug meshes here put every position on one device.
-:func:`make_production_mesh` is a shape with no devices: it resolves specs
-(``nn.sharding.spec_for``) and cannot run a step.
+:func:`make_production_mesh` is a shape with no devices, which resolves
+specs (``nn.sharding.spec_for``) and cannot run a step, or a mesh of
+``meta`` positions for the dry run.
 """
 from __future__ import annotations
 
@@ -110,12 +111,17 @@ def make_mesh(devices: Sequence, data: int, model: int,
     return ModelMesh(arr, names)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> ModelMesh:
-    """16 x 16 = 256 positions a pod, 2 pods for the multi-pod shape: a
-    shape with no devices, for resolving specs."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> ModelMesh:
+    """16 x 16 = 256 positions a pod, 2 pods for the multi-pod shape. With
+    no ``device`` a shape with no devices, for resolving specs; with
+    ``device="meta"`` every position a virtual shard of the meta device,
+    where the dry run's census runs a step without data."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return ModelMesh(np.full(shape, None, dtype=object), names)
+    if device is None:
+        return ModelMesh(np.full(shape, None, dtype=object), names)
+    return ModelMesh(_devices(shape, device), names)
 
 
 def data_mesh_of(mesh: ModelMesh, model: int = 0, pod: int = 0):

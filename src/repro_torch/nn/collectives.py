@@ -17,7 +17,10 @@ counter (:func:`collective_count`; not context-local, because autograd
 runs a card's backward, and the recompute of a checkpointed layer, on a
 thread of its own): for each receiving position, the bytes of the pieces
 that come from other positions; a backward transfer counts under the
-dual kind (an all-gather's under ``reduce_scatter``).
+dual kind (an all-gather's under ``reduce_scatter``). A second counter
+(:func:`collective_operands`) keeps an SPMD program's convention, which
+the dry run's census reads: for each position that takes part in a call,
+one call and the bytes of its operand at issue.
 
 Row-parallel partial products are reduced in float32 and rounded to the
 activation dtype once, after the sum (:data:`REDUCE_DTYPE`), as one
@@ -40,6 +43,7 @@ Pos = Tuple[int, ...]
 REDUCE_DTYPE = torch.float32
 
 _counts: Dict[str, List[int]] = {}           # {kind: [calls, bytes]}
+_operands: Dict[str, List[int]] = {}         # {kind: [calls, bytes]}
 _lock = threading.Lock()
 _DUAL = {"all_gather": "reduce_scatter", "all_reduce": "all_reduce",
          "reduce_scatter": "all_gather"}
@@ -51,9 +55,23 @@ def collective_count() -> Dict[str, Dict[str, int]]:
         return {k: {"calls": c, "bytes": b} for k, (c, b) in _counts.items()}
 
 
+def collective_operands() -> Dict[str, Dict[str, int]]:
+    """``{kind: {"calls", "bytes"}}`` since the last reset, summed over the
+    mesh's positions in the per-device convention of an SPMD program: each
+    position that takes part in a call counts one call and its operand's
+    bytes at issue (an all-gather's local piece, an all-reduce's whole
+    local tensor, a reduce-scatter's whole local input). A collective's
+    backward counts under the dual kind, its operand the gradient of the
+    forward's output at that position."""
+    with _lock:
+        return {k: {"calls": c, "bytes": b}
+                for k, (c, b) in _operands.items()}
+
+
 def reset_collectives() -> None:
     with _lock:
         _counts.clear()
+        _operands.clear()
 
 
 def _count(kind: str, nbytes: int, calls: int = 1) -> None:
@@ -61,6 +79,22 @@ def _count(kind: str, nbytes: int, calls: int = 1) -> None:
         entry = _counts.setdefault(kind, [0, 0])
         entry[0] += calls
         entry[1] += int(nbytes)
+
+
+def _operand(kind: str, nbytes: int, calls: int = 1) -> None:
+    with _lock:
+        entry = _operands.setdefault(kind, [0, 0])
+        entry[0] += calls
+        entry[1] += int(nbytes)
+
+
+def _operand_backward(out: torch.Tensor, kind: str, share: int = 1) -> None:
+    """Count the backward of a collective whose output ``out`` is read by
+    ``share`` positions: the dual kind, one call a position, the
+    gradient's bytes a position."""
+    if out.requires_grad:
+        dual = _DUAL[kind]
+        out.register_hook(lambda g: _operand(dual, _nbytes(g) * share, share))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -190,12 +224,15 @@ class Sharded:
                     blocks.append((b, slice(s - b * w, e - b * w)))
             per_dim.append(blocks)
         grid = np.empty(tuple(len(b) for b in per_dim), dtype=object)
+        crossed = False
         for idx in itertools.product(*(range(len(b)) for b in per_dim)):
             coord = tuple(per_dim[d][i][0] for d, i in enumerate(idx))
             sl = tuple(per_dim[d][i][1] for d, i in enumerate(idx))
             piece = self.shards[coord][sl]
             mine = coord == own and piece.device == torch.device(device)
+            crossed = crossed or not mine
             grid[idx] = _recv(piece, device, None if mine else "all_gather")
+        pieces = grid.size
         for d in reversed(range(grid.ndim)):
             if grid.shape[d] == 1:
                 grid = grid.take(0, axis=d)
@@ -206,7 +243,11 @@ class Sharded:
                          for j in range(grid.shape[d])]
                 out[idx] = torch.cat(parts, dim=d)
             grid = out
-        return grid.item() if isinstance(grid, np.ndarray) else grid
+        out = grid.item() if isinstance(grid, np.ndarray) else grid
+        if at is not None and crossed:  # a position's gather: its piece
+            _operand("all_gather", _nbytes(out) // pieces)
+            _operand_backward(out, "all_gather")
+        return out
 
     def local(self, pos: Pos, split: Optional[Dict[int, Sequence[str]]] = None
               ) -> torch.Tensor:
@@ -275,8 +316,10 @@ def _collect(vals: Dict[Pos, torch.Tensor], mesh, axes, kind: str,
     for group in groups(mesh, axes):
         _count(kind, 0)
         by_dev: Dict[torch.device, torch.Tensor] = {}
+        share: Dict[torch.device, int] = {}
         for pos in group:
             dev = mesh.device(pos)
+            _operand(kind, _nbytes(vals[pos]))
             if dev not in by_dev:
                 by_dev[dev] = combine([
                     _recv(vals[p], dev, None if p == pos else kind)
@@ -285,7 +328,10 @@ def _collect(vals: Dict[Pos, torch.Tensor], mesh, axes, kind: str,
                 for p in group:
                     if p != pos:
                         _count(kind, _nbytes(vals[p]), calls=0)
+            share[dev] = share.get(dev, 0) + 1
             out[pos] = by_dev[dev]
+        for dev, t in by_dev.items():
+            _operand_backward(t, kind, share[dev])
     return out
 
 
@@ -336,6 +382,7 @@ def reduce_scatter(vals: Dict[Pos, torch.Tensor], mesh, axes,
         for pos in group:
             i = block_index(mesh, pos, axes)
             dev = mesh.device(pos)
+            _operand("reduce_scatter", _nbytes(vals[pos]))
             parts = []
             for p in group:
                 t = vals[p]
@@ -344,6 +391,7 @@ def reduce_scatter(vals: Dict[Pos, torch.Tensor], mesh, axes,
                 parts.append(_recv(blk, dev,
                                    None if p == pos else "reduce_scatter"))
             out[pos] = _sum(parts)
+            _operand_backward(out[pos], "reduce_scatter")
     return out
 
 
@@ -357,6 +405,9 @@ def gather_home(mesh, vals: Dict[Pos, torch.Tensor], axes, dim: int = 0
     for pos in mesh.positions():
         seen.setdefault(block_index(mesh, pos, axes), vals[pos])
     parts = [seen[i] for i in sorted(seen)]
+    if len(parts) > 1:           # each block's holder sends its piece
+        for t in parts:
+            _operand("all_gather", _nbytes(t))
     home = mesh.home
     moved = [_recv(t, home, None if i == 0 else "all_gather")
              for i, t in enumerate(parts)]

@@ -75,9 +75,11 @@ class LM(nn.Module):
 
 def init(gen, cfg: ModelConfig, device="cuda") -> LM:
     """Random parameters from ``gen``: a ``torch.Generator`` on ``device``,
-    or an int seed for one. They take gradients."""
+    or an int seed for one (on the CPU for ``meta``, which draws nothing).
+    They take gradients."""
     if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=device).manual_seed(int(gen))
+        gdev = "cpu" if torch.device(device).type == "meta" else device
+        gen = torch.Generator(device=gdev).manual_seed(int(gen))
     with torch.no_grad():
         return LM(gen, cfg, device)
 

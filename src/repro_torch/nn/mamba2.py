@@ -299,9 +299,10 @@ def _local(P, cfg, mesh, pos, split: bool):
     di, N = cfg.d_inner, cfg.ssm_state
     inner = {1: "model"} if split else {}
     heads = {0: "model"} if split else {}
-    cols = torch.cat([torch.arange(lo, hi), torch.arange(di, di + 2 * N)])
     conv_w = P.local("conv_w", pos)
-    cols = cols.to(conv_w.device)
+    dev = conv_w.device
+    cols = torch.cat([torch.arange(lo, hi, device=dev),
+                      torch.arange(di, di + 2 * N, device=dev)])
     return SimpleNamespace(
         wz=P.linear("wz", pos, inner), wx=P.linear("wx", pos, inner),
         wB=P.linear("wB", pos), wC=P.linear("wC", pos),

@@ -75,6 +75,15 @@ def moe_init(gen: torch.Generator, cfg, device="cuda") -> MoE:
     return MoE(gen, cfg, device)
 
 
+def one_hot(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """``F.one_hot(idx, E)`` written out: the same int64 values by the same
+    ops on every device (``F.one_hot`` checks its input on the host on
+    the CPU and scatters on a card, so the dry run's census would read
+    other ops on each)."""
+    return (idx[..., None] == torch.arange(E, device=idx.device)).to(
+        torch.int64)
+
+
 def _capacity(cfg, T: int) -> int:
     """Slots an expert takes, from Python floats as the reference
     computes them (a float32 ceil may land one slot off): above 8,
@@ -119,7 +128,7 @@ def _slots(top_idx, E: int, C: int, offset=None):
     ranks = []
     for k in range(top_idx.shape[-1]):
         ek = top_idx[..., k]                                  # (..., T)
-        oh = F.one_hot(ek, E)                                 # (..., T, E)
+        oh = one_hot(ek, E)                                   # (..., T, E)
         within = torch.cumsum(oh, dim=-2) - oh                # exclusive
         rank_k = torch.gather(within, -1, ek[..., None])[..., 0]
         base = counts if offset is None else offset[k]
@@ -145,7 +154,7 @@ def _aux(probs, top_idx, keep, E: int):
     of the assignments (0-d float32)."""
     flat = probs.reshape(-1, E)
     me = flat.mean(dim=0)
-    ce = F.one_hot(top_idx[..., 0].reshape(-1), E).to(torch.float32).mean(
+    ce = one_hot(top_idx[..., 0].reshape(-1), E).to(torch.float32).mean(
         dim=0)
     return {"load_balance": E * torch.sum(me * ce),
             "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
@@ -254,7 +263,7 @@ def _aux_sharded(mesh, baxes, probs, top_idx, keep, E: int, T: int):
     K = next(iter(top_idx.values())).shape[-1]
     packed = {}
     for pos in probs:
-        ce = F.one_hot(top_idx[pos][..., 0].reshape(-1), E).to(
+        ce = one_hot(top_idx[pos][..., 0].reshape(-1), E).to(
             torch.float32).sum(dim=0)
         packed[pos] = torch.cat([
             probs[pos].reshape(-1, E).sum(dim=0), ce,
@@ -304,7 +313,7 @@ def moe_forward_sharded(P, cfg, mesh, baxes, hs):
         for pos in tops:
             keeps[pos], slots[pos] = _slots(tops[pos], E, C)
     else:
-        counts = {pos: torch.stack([F.one_hot(t[:, k], E).sum(dim=0)
+        counts = {pos: torch.stack([one_hot(t[:, k], E).sum(dim=0)
                                     for k in range(K)])
                   for pos, t in tops.items()}           # (K, E)
         counts = all_gather(counts, mesh, baxes, 0, stack=True)

@@ -16,7 +16,8 @@ card against the CPU (a dense, an MoE and a Mamba model), and a full-width
 loss and backward over a batch of the data plane; and the model mesh's
 sharded step on four virtual shards against the CPU's (a further case
 holds the mesh on distinct cards and runs only where there is more than
-one card).
+one card); and the dry run's census of a step on the card against the
+same step on ``meta``.
 
 Every test takes the ``cuda`` fixture and skips without a card. The file
 imports no JAX, so it runs on a machine with a card and no JAX:
@@ -681,3 +682,26 @@ def test_model_mesh_on_distinct_cards(cuda):
         outs.append(got)
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,kind,mesh", [
+    ("paper-tiny", "train", None), ("paper-tiny", "train", (2, 2)),
+    ("dbrx-132b", "decode", (2, 2)), ("mamba2-2.7b", "prefill", None)])
+def test_dryrun_census_on_card_equals_meta(cuda, arch, kind, mesh):
+    """The dry run's census of a step run on the card (real tensors, the
+    kernels' device) against the same step on ``meta``: every count equal
+    (FLOPs, bytes by op, collectives, ops, the temporaries' peak) and the
+    same in-place verdict."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = registry.get_config(arch).smoke()
+    shape = ShapeConfig("t", 64, 4, kind)
+    got = {}
+    for dev in ("meta", cuda):
+        m = make_debug_mesh(*mesh, device=dev) if mesh else None
+        rec, donated = dryrun.census_cell(cfg, shape, m, dev)
+        rec.pop("census_s")
+        got[str(dev)] = (rec, donated)
+    assert got["meta"] == got[str(cuda)]
