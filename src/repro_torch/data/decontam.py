@@ -9,7 +9,9 @@ independent CYCLIC draws feeding double hashing.
 The scan runs behind a one-Bloom :class:`SketchPlan` built once: on CUDA
 one launch of the plan kernel does both rolling hashes, the discard, the k
 probes against the filter and the per-row hit counts, so only a (B,)
-count vector leaves the kernel. The eval-set add is a plain torch
+count vector leaves the kernel. A profiler that records sees the spans
+``decontam.update`` (a stream's chunk or block) and ``decontam.finalize``
+(:mod:`repro_torch.trace`). The eval-set add is a plain torch
 OR-scatter (it runs once per eval set, not per batch).
 
 :meth:`Decontaminator.export_stream` / :meth:`~Decontaminator.import_stream`
@@ -31,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import BloomFilter, make_family
 from repro_torch.data.stats import device_tokens, lookup
 from repro_torch.kernels import api, shard, stream
@@ -113,19 +116,22 @@ class Decontaminator:
                 "seen": np.zeros((batch,), np.int64)}
 
     def _step(self, sstate, tokens, lengths, many: bool) -> dict:
-        ha, hb = self._lookups(tokens)
-        fn = stream.update_many if many else stream.update
-        st = fn(self.plan, sstate["stream"], ha, chunk_b=hb, lengths=lengths,
-                operands={"bloom": {"bits": self.bits}}, impl=self.cfg.impl)
-        shape = tuple(ha.shape)
-        if lengths is None:
-            got = np.full(shape[-2:-1], shape[-1] * (shape[0] if many else 1),
-                          np.int64)
-        else:
-            got = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor)
-                             else lengths, np.int64)
-            got = got.sum(axis=0) if many else got
-        return {"stream": st, "seen": sstate["seen"] + got}
+        with trace.span("decontam.update"):
+            ha, hb = self._lookups(tokens)
+            fn = stream.update_many if many else stream.update
+            st = fn(self.plan, sstate["stream"], ha, chunk_b=hb,
+                    lengths=lengths, operands={"bloom": {"bits": self.bits}},
+                    impl=self.cfg.impl)
+            shape = tuple(ha.shape)
+            if lengths is None:
+                got = np.full(shape[-2:-1],
+                              shape[-1] * (shape[0] if many else 1), np.int64)
+            else:
+                got = np.asarray(lengths.cpu()
+                                 if isinstance(lengths, torch.Tensor)
+                                 else lengths, np.int64)
+                got = got.sum(axis=0) if many else got
+            return {"stream": st, "seen": sstate["seen"] + got}
 
     def update_stream(self, sstate: dict, tokens, lengths=None) -> dict:
         """Fold one (B, C) token chunk into the stream scan."""
@@ -140,9 +146,10 @@ class Decontaminator:
     def finalize_stream(self, sstate: dict) -> np.ndarray:
         """-> (B,) fraction of each stream's windows present in the eval
         set (0.0 for streams shorter than one window)."""
-        counts = stream.finalize(self.plan, sstate["stream"],
-                                 batch=len(sstate["seen"]))["bloom"]
-        counts = counts.cpu().numpy().astype(np.int64)
+        with trace.span("decontam.finalize"):
+            counts = stream.finalize(self.plan, sstate["stream"],
+                                     batch=len(sstate["seen"]))["bloom"]
+            counts = counts.cpu().numpy().astype(np.int64)
         windows = np.maximum(sstate["seen"] - self.cfg.ngram_n + 1, 0)
         return np.where(windows > 0, counts / np.maximum(windows, 1), 0.0)
 

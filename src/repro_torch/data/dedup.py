@@ -18,6 +18,11 @@ The LSH index (:class:`BandShardedLSHIndex`) partitions the band->key map by
 band id; candidate pairs are Jaccard-verified sequentially in document
 order, so :meth:`MinHashDeduper.add_batch` reproduces the streaming
 per-document path (:meth:`MinHashDeduper.check_and_add`) exactly.
+:func:`candidate_count` counts the candidates the probes return; a
+profiler that records sees ``add_batch``'s spans ``dedup.sign`` (with
+``dedup.tile`` for each block's host tiling and ``dedup.drain`` for the
+signatures' read-back), ``dedup.probe`` and ``dedup.verify``
+(:mod:`repro_torch.trace`).
 
 The families outside the fused engine (THREEWISE, ID37) sign through the
 bucketed path (:meth:`MinHashDeduper._signature_many_bucketed`): documents
@@ -37,6 +42,7 @@ Signatures are per row, so they do not depend on the shard count.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -44,10 +50,24 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import Cyclic, General, MinHash, make_family, u32
 from repro_torch.kernels import api, shard, stream
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
+
+
+# LSH candidates returned by probe_batch: the sum over documents of both
+# candidate sets' sizes. Context-local and monotonic, as the streaming
+# executor's dispatch count
+_candidates = contextvars.ContextVar("repro_torch.data.dedup._candidates",
+                                     default=0)
+
+
+def candidate_count() -> int:
+    """LSH candidates (index and batch, a document each) that
+    :meth:`BandShardedLSHIndex.probe_batch` returned in this context."""
+    return _candidates.get()
 
 
 def _plan_for_family(fam, k: int) -> Optional[SketchPlan]:
@@ -226,6 +246,8 @@ class BandShardedLSHIndex:
                         index_cand[i].update(hit)
                     if pos:
                         batch_cand[i].update(members[:pos].tolist())
+        _candidates.set(_candidates.get() + sum(map(len, index_cand))
+                        + sum(map(len, batch_cand)))
         return index_cand, batch_cand
 
 
@@ -322,8 +344,14 @@ class MinHashDeduper:
         holds up to ``stream_rows`` x d documents (a power of two times
         ``stream_rows``, at most what the corpus fills).
         """
-        if self.plan is None:
-            return self._signature_many_bucketed(docs)
+        with trace.span("dedup.sign"):
+            if self.plan is None:
+                return self._signature_many_bucketed(docs)
+            return self._signature_many_streamed(docs)
+
+    def _signature_many_streamed(self, docs: Sequence[np.ndarray]
+                                 ) -> np.ndarray:
+        """:meth:`signature_many` through the streaming executor."""
         cfg = self.cfg
         D = len(docs)
         out = np.empty((D, cfg.n_signatures), np.uint32)
@@ -347,15 +375,16 @@ class MinHashDeduper:
                 while done < n_chunks:
                     rem = n_chunks - done
                     T = T0 if rem >= T0 else 1 << int(np.ceil(np.log2(rem)))
-                    toks = np.zeros((T, Bt, Cs), np.int32)
-                    lengths = np.zeros((T, Bt), np.int32)
-                    for t in range(T):
-                        lo = (done + t) * Cs
-                        for r, d in enumerate(group):
-                            v = int(np.clip(len(d) - lo, 0, Cs))
-                            if v:
-                                toks[t, r, :v] = d[lo : lo + v]
-                                lengths[t, r] = v
+                    with trace.span("dedup.tile"):
+                        toks = np.zeros((T, Bt, Cs), np.int32)
+                        lengths = np.zeros((T, Bt), np.int32)
+                        for t in range(T):
+                            lo = (done + t) * Cs
+                            for r, d in enumerate(group):
+                                v = int(np.clip(len(d) - lo, 0, Cs))
+                                if v:
+                                    toks[t, r, :v] = d[lo : lo + v]
+                                    lengths[t, r] = v
                     done += T
                     # the copy and the h1 lookup are queued asynchronously
                     # behind the kernels of the block before
@@ -366,8 +395,9 @@ class MinHashDeduper:
                                       mesh=self.mesh)
             state = stream.feed(self.plan, blocks(), state,
                                 operands=operands, impl=cfg.impl)
-            sigs = stream.finalize(self.plan, state,
-                                   batch=Bt)["sig"].cpu().numpy()
+            with trace.span("dedup.drain"):
+                sigs = stream.finalize(self.plan, state,
+                                       batch=Bt)["sig"].cpu().numpy()
             out[sel] = sigs[: len(group)]
         return out
 
@@ -479,19 +509,23 @@ class MinHashDeduper:
         flags = np.zeros(D, bool)
         if D == 0:
             return flags
-        sigs = self.signature_many(docs)
-        kb = self._band_keys(sigs)
-        index_cand, batch_cand = self._index.probe_batch(kb)
-        gid: List[Optional[int]] = [None] * D
-        for i in range(D):
-            cands = set(index_cand[i])
-            cands.update(gid[j] for j in batch_cand[i] if gid[j] is not None)
-            best_j, best_id = self._best_match(sigs[i], sorted(cands))
-            if best_id is not None and best_j >= self.cfg.threshold:
-                flags[i] = True
-            else:
-                gid[i] = self._insert(sigs[i],
-                                      [k.tobytes() for k in kb[i]])
+        with trace.span("dedup.add_batch"):
+            sigs = self.signature_many(docs)
+            with trace.span("dedup.probe"):
+                kb = self._band_keys(sigs)
+                index_cand, batch_cand = self._index.probe_batch(kb)
+            with trace.span("dedup.verify"):
+                gid: List[Optional[int]] = [None] * D
+                for i in range(D):
+                    cands = set(index_cand[i])
+                    cands.update(gid[j] for j in batch_cand[i]
+                                 if gid[j] is not None)
+                    best_j, best_id = self._best_match(sigs[i], sorted(cands))
+                    if best_id is not None and best_j >= self.cfg.threshold:
+                        flags[i] = True
+                    else:
+                        gid[i] = self._insert(sigs[i],
+                                              [k.tobytes() for k in kb[i]])
         return flags
 
     def check_and_add(self, tokens: np.ndarray) -> Tuple[bool, Optional[int], float]:

@@ -50,6 +50,10 @@ stream: the plan kernel's own tile loop is the chunk loop) or ``"scan"``
 (the graph replay). :func:`dispatch_count` counts the dispatches of all of
 them. :func:`feed` overlaps the next block's host->device copy (pinned
 memory, ``non_blocking``) with the current block's kernels.
+:func:`staged_bytes` counts the bytes of host arrays sent to a stream's
+device, :func:`graph_captures` the graphs captured; a profiler that
+records sees the spans ``stream.update_many`` and ``stream.stage``
+(:mod:`repro_torch.trace`).
 
 :func:`export_state` / :func:`import_state` move a carry to host numpy
 trees and back, in the JAX package's layout, so a stream checkpointed by
@@ -79,6 +83,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.kernels import api, shard
 from repro_torch.kernels import sketch_fused as _sf
@@ -101,6 +106,26 @@ def dispatch_count() -> int:
 
 def _dispatched(n: int = 1) -> None:
     _dispatches.set(_dispatches.get() + n)
+
+
+# bytes of host arrays sent to a device by _to_device, and captures of
+# _BlockGraph; context-local and monotonic, as the dispatch count
+_staged = contextvars.ContextVar("repro_torch.kernels.stream._staged",
+                                 default=0)
+_captures = contextvars.ContextVar("repro_torch.kernels.stream._captures",
+                                   default=0)
+
+
+def staged_bytes() -> int:
+    """Bytes of host arrays sent to a stream's device in this context (on
+    the CPU too, where nothing is copied)."""
+    return _staged.get()
+
+
+def graph_captures() -> int:
+    """CUDA graphs of a block shape captured in this context: in a warmed-up
+    run of fixed shapes it stays put."""
+    return _captures.get()
 
 
 def _resolve_mesh(mesh, data_shards, device):
@@ -423,33 +448,35 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
         read back once), never inside a capture.
       mesh / data_shards: as :func:`update`.
     """
-    _check_mesh(state, mesh, data_shards)
-    dev = _home(state)
-    chunks = api.as_u32(chunks, dev)
-    if chunks.dim() != 3:
-        raise ValueError(f"chunks must be (T, B, C), got shape "
-                         f"{tuple(chunks.shape)}")
-    chunk_b = _chunk_b(plan, chunk_b, chunks.shape, dev)
-    if lengths is not None:
-        if not isinstance(lengths, torch.Tensor):
-            lengths = np.asarray(lengths)
-        if tuple(lengths.shape) != tuple(chunks.shape[:2]):
-            raise ValueError(f"lengths shape {tuple(lengths.shape)} != chunk "
-                             f"stack {tuple(chunks.shape[:2])}")
-    lengths, operands, ref_path = _block(plan, state, chunks, lengths,
-                                         operands, impl, "update_many")
-    # the eager loop issues one update a chunk, the graph one replay
-    _dispatched(chunks.shape[0] if ref_path else 1)
-    if _sharded(state):
-        return _per_shard(
-            state, chunks, chunk_b, lengths, operands,
-            lambda i, st, c, cb, ln, ops: (
-                _eager_block(plan, st, c, cb, ln, ops, ref_path) if ref_path
-                else _graph_block(plan, st, c, cb, ln, ops, shard_index=i)))
-    if ref_path:
-        return _eager_block(plan, state, chunks, chunk_b, lengths, operands,
-                            ref_path)
-    return _graph_block(plan, state, chunks, chunk_b, lengths, operands)
+    with trace.span("stream.update_many"):
+        _check_mesh(state, mesh, data_shards)
+        dev = _home(state)
+        chunks = api.as_u32(chunks, dev)
+        if chunks.dim() != 3:
+            raise ValueError(f"chunks must be (T, B, C), got shape "
+                             f"{tuple(chunks.shape)}")
+        chunk_b = _chunk_b(plan, chunk_b, chunks.shape, dev)
+        if lengths is not None:
+            if not isinstance(lengths, torch.Tensor):
+                lengths = np.asarray(lengths)
+            if tuple(lengths.shape) != tuple(chunks.shape[:2]):
+                raise ValueError(f"lengths shape {tuple(lengths.shape)} != "
+                                 f"chunk stack {tuple(chunks.shape[:2])}")
+        lengths, operands, ref_path = _block(plan, state, chunks, lengths,
+                                             operands, impl, "update_many")
+        # the eager loop issues one update a chunk, the graph one replay
+        _dispatched(chunks.shape[0] if ref_path else 1)
+        if _sharded(state):
+            return _per_shard(
+                state, chunks, chunk_b, lengths, operands,
+                lambda i, st, c, cb, ln, ops: (
+                    _eager_block(plan, st, c, cb, ln, ops, ref_path)
+                    if ref_path else
+                    _graph_block(plan, st, c, cb, ln, ops, shard_index=i)))
+        if ref_path:
+            return _eager_block(plan, state, chunks, chunk_b, lengths,
+                                operands, ref_path)
+        return _graph_block(plan, state, chunks, chunk_b, lengths, operands)
 
 
 def _eager_block(plan, state, chunks, chunk_b, lengths, operands,
@@ -579,6 +606,7 @@ def _graph_block(plan, state, chunks, chunk_b, lengths, operands,
     graph = _graphs.get(key)
     if graph is None:
         graph = _BlockGraph(plan, state, chunks, chunk_b, lengths, operands)
+        _captures.set(_captures.get() + 1)
         _graphs[key] = graph
         while len(_graphs) > _GRAPHS_KEPT:
             _graphs.popitem(last=False)
@@ -592,10 +620,12 @@ def _to_device(a, dev: torch.device):
     dev = torch.device(dev)
     if isinstance(a, torch.Tensor) and a.device.type != "cpu":
         return a.to(dev)
-    t = torch.as_tensor(a)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
+    with trace.span("stream.stage"):
+        t = torch.as_tensor(a)
+        _staged.set(_staged.get() + t.nbytes)
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
 
 
 def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
@@ -615,13 +645,18 @@ def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
     _check_mesh(state, mesh, data_shards)
     dev = _home(state)
 
+    def _on(a):
+        # a block already on the stream's device (the CPU's too) is not
+        # staged again
+        return (a if isinstance(a, torch.Tensor) and a.device == dev
+                else _to_device(a, dev))
+
     def _put(blk):
         if blk is None:
             return None
         blk = tuple(blk) if isinstance(blk, (tuple, list)) else (blk,)
         chunks, lens, chunk_b = blk + (None,) * (3 - len(blk))
-        return (_to_device(chunks, dev), lens,
-                None if chunk_b is None else _to_device(chunk_b, dev))
+        return _on(chunks), lens, None if chunk_b is None else _on(chunk_b)
 
     it = iter(blocks)
     cur = _put(next(it, None))
