@@ -8,11 +8,14 @@ hashes is what makes the MinHash collision estimator unbiased.
 Signing is streamed and fused: a one-MinHash :class:`SketchPlan` is built
 once, and documents advance ``stream_rows`` at a time through fixed
 ``(stream_block_chunks, stream_rows, stream_chunk_s)`` chunk blocks
-(:mod:`repro_torch.kernels.stream`). On CUDA every chunk is one launch of
-the plan kernel, which hashes, discards, remixes and takes the minima in
-one pass; the next block's copy to the card overlaps the current block's
-kernels. Masked windows are excluded from the min outright, so signatures
-do not depend on chunking.
+(:mod:`repro_torch.kernels.stream`). The host tiles a block
+(:func:`_tile_blocks`) in a few NumPy copies, not row by row: one clip gives
+every block's lengths for the group, and each row that still has tokens
+copies its whole chunks as one reshape and its tail in one more. On CUDA
+every chunk is one launch of the plan kernel, which hashes, discards,
+remixes and takes the minima in one pass; the next block's copy to the card
+overlaps the current block's kernels. Masked windows are excluded from the
+min outright, so signatures do not depend on chunking.
 
 The LSH index (:class:`BandShardedLSHIndex`) partitions the band->key map by
 band id; candidate pairs are Jaccard-verified sequentially in document
@@ -106,6 +109,38 @@ class DedupConfig:
 
 
 _SENTINEL = 0xFFFFFFFF
+
+
+def _tile_blocks(group: Sequence[np.ndarray], Bt: int, Cs: int, T0: int):
+    """One signing group's token blocks: yields ``(toks, lengths)``, a
+    ``(T, Bt, Cs)`` int32 block and its ``(T, Bt)`` int32 real-symbol
+    counts, over full ``T0``-chunk blocks and then one pow2-sized tail
+    block. Row r of chunk c holds tokens ``[c * Cs, (c + 1) * Cs)`` of
+    ``group[r]``, zero-padded; rows past the group and chunks past a
+    document are 0-length. Each block is filled under the span
+    ``dedup.tile``, a live row's segment in at most two copies (its whole
+    chunks, then its tail), and only one block is held at a time."""
+    lens = np.fromiter(map(len, group), np.int64, len(group))
+    n_chunks = max(1, -(-int(lens.max(initial=0)) // Cs))
+    sizes = [T0] * (n_chunks // T0)
+    if n_chunks % T0:
+        sizes.append(1 << int(np.ceil(np.log2(n_chunks % T0))))
+    lo = np.arange(sum(sizes), dtype=np.int64) * Cs
+    lengths = np.zeros((len(lo), Bt), np.int32)
+    lengths[:, : len(group)] = np.clip(lens[None, :] - lo[:, None], 0, Cs)
+    done = 0
+    for T in sizes:
+        with trace.span("dedup.tile"):
+            start = done * Cs
+            toks = np.zeros((T, Bt, Cs), np.int32)
+            for r in np.flatnonzero(lens > start):
+                seg = group[r][start : start + T * Cs]
+                k, rest = divmod(len(seg), Cs)
+                toks[:k, r] = seg[: k * Cs].reshape(k, Cs)
+                if rest:
+                    toks[k, r, :rest] = seg[k * Cs :]
+        yield toks, lengths[done : done + T]
+        done += T
 
 
 def _bucket(n: int) -> int:
@@ -366,26 +401,9 @@ class MinHashDeduper:
         for g in range(0, D, Bt):
             sel = order[g : g + Bt]
             group = [np.asarray(docs[i]) for i in sel]
-            max_len = max((len(d) for d in group), default=0)
-            n_chunks = max(1, -(-max_len // Cs))
 
             def blocks():
-                # full T0-chunk blocks, then one pow2-sized tail block
-                done = 0
-                while done < n_chunks:
-                    rem = n_chunks - done
-                    T = T0 if rem >= T0 else 1 << int(np.ceil(np.log2(rem)))
-                    with trace.span("dedup.tile"):
-                        toks = np.zeros((T, Bt, Cs), np.int32)
-                        lengths = np.zeros((T, Bt), np.int32)
-                        for t in range(T):
-                            lo = (done + t) * Cs
-                            for r, d in enumerate(group):
-                                v = int(np.clip(len(d) - lo, 0, Cs))
-                                if v:
-                                    toks[t, r, :v] = d[lo : lo + v]
-                                    lengths[t, r] = v
-                    done += T
+                for toks, lengths in _tile_blocks(group, Bt, Cs, T0):
                     # the copy and the h1 lookup are queued asynchronously
                     # behind the kernels of the block before
                     dev_toks = stream._to_device(toks, self.device)

@@ -131,6 +131,79 @@ def test_signature_batch_fused_matches(family):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _tile_loop(group, Bt, Cs, T0):
+    """The signing path's tiling as a loop over chunks and rows, one
+    row-chunk copy at a time: the oracle of ``dedup._tile_blocks``."""
+    max_len = max((len(d) for d in group), default=0)
+    n_chunks = max(1, -(-max_len // Cs))
+    done = 0
+    while done < n_chunks:
+        rem = n_chunks - done
+        T = T0 if rem >= T0 else 1 << int(np.ceil(np.log2(rem)))
+        toks = np.zeros((T, Bt, Cs), np.int32)
+        lengths = np.zeros((T, Bt), np.int32)
+        for t in range(T):
+            lo = (done + t) * Cs
+            for r, d in enumerate(group):
+                v = int(np.clip(len(d) - lo, 0, Cs))
+                if v:
+                    toks[t, r, :v] = d[lo : lo + v]
+                    lengths[t, r] = v
+        done += T
+        yield toks, lengths
+
+
+# chunks of 16 symbols; n = 5 below, so 4 is one short of a window
+_CS = 16
+_EDGES = [0, 1, 4, _CS - 1, _CS, _CS + 1, 3 * _CS, 8 * _CS + 1]
+_TILE_GROUPS = {
+    "edges_descending": sorted(_EDGES, reverse=True),
+    "edges_unsorted": [_CS + 1, 0, 8 * _CS + 1, 4, _CS, 1, 3 * _CS, _CS - 1],
+    "fewer_rows": [40, 7, 0],
+    "all_empty": [0, 0],
+    # two full 8-chunk blocks and a tail chunk with 5 symbols
+    "past_full_blocks": [19 * _CS + 5, 2 * _CS],
+    "random_full": "random",
+}
+
+
+@pytest.mark.parametrize("Bt", [8, 64])
+@pytest.mark.parametrize("T0", [1, 8])
+@pytest.mark.parametrize("case", sorted(_TILE_GROUPS))
+def test_tile_blocks_match_row_loop(case, T0, Bt):
+    rng = np.random.default_rng(len(case) * 100 + T0 + Bt)
+    lengths = _TILE_GROUPS[case]
+    if lengths == "random":
+        lengths = rng.integers(0, 12 * _CS, size=Bt).tolist()
+    group = [rng.integers(1, 1 << 17, size=n).astype(np.int32)
+             for n in lengths]
+    got = list(dedup._tile_blocks(group, Bt, _CS, T0))
+    want = list(_tile_loop(group, Bt, _CS, T0))
+    assert len(got) == len(want)
+    for (gt, gl), (wt, wl) in zip(got, want):
+        assert gt.dtype == wt.dtype and gl.dtype == wl.dtype
+        assert gt.shape == wt.shape and gl.shape == wl.shape
+        assert gt.tobytes() == wt.tobytes()
+        assert gl.tobytes() == wl.tobytes()
+
+
+@pytest.mark.parametrize("longest", [11 * _CS - 3, 13 * _CS])
+def test_signatures_with_padded_tail_block(longest):
+    # 11 and 13 chunks: one full 8-chunk block, then a tail of 3 or 5
+    # chunks padded to 4 or 8, whose last chunks are 0-length in every row
+    rng = np.random.default_rng(longest)
+    lengths = [40, longest, 4, 0, 7 * _CS + 9, _CS]
+    docs = [rng.integers(0, 8192, size=n).astype(np.int32) for n in lengths]
+    ref, port = _pair("cyclic", ngram_n=5, n_signatures=16, lsh_bands=4,
+                      stream_rows=8, stream_chunk_s=_CS,
+                      stream_block_chunks=8)
+    with ref, port:
+        sigs = port.signature_many(docs)
+        np.testing.assert_array_equal(sigs, ref.signature_many(docs))
+        for d, sig in zip(docs, sigs):
+            np.testing.assert_array_equal(sig, port.signature_unfused(d))
+
+
 def test_band_packing_round_trip_matches_reference():
     shard = {b"k1": [0, 5], b"zz": [3], b"": [7, 8, 9]}
     packed = dedup.pack_band(shard)
