@@ -9,10 +9,13 @@ independent CYCLIC draws feeding double hashing.
 The scan runs behind a one-Bloom :class:`SketchPlan` built once: on CUDA
 one launch of the plan kernel does both rolling hashes, the discard, the k
 probes against the filter and the per-row hit counts, so only a (B,)
-count vector leaves the kernel. A profiler that records sees the spans
-``decontam.update`` (a stream's chunk or block) and ``decontam.finalize``
-(:mod:`repro_torch.trace`). The eval-set add is a plain torch
-OR-scatter (it runs once per eval set, not per batch).
+count vector leaves the kernel. Before it, a token block is staged on the
+device once and both draws gather their h1 values from that one copy;
+``impl="ref"`` keeps the plain version, one staging and one gather a draw.
+A profiler that records sees the spans ``decontam.update`` (a stream's
+chunk or block), ``decontam.lookup`` (the staging and the lookups) and
+``decontam.finalize`` (:mod:`repro_torch.trace`). The eval-set add is a
+plain torch OR-scatter (it runs once per eval set, not per batch).
 
 :meth:`Decontaminator.export_stream` / :meth:`~Decontaminator.import_stream`
 snapshot an open stream scan with both family draws and the filter, in
@@ -35,7 +38,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.core import BloomFilter, make_family
-from repro_torch.data.stats import device_tokens, lookup
+from repro_torch.data import stats
 from repro_torch.kernels import api, shard, stream
 from repro_torch.kernels.plan import BloomSpec, HashSpec, SketchPlan
 
@@ -78,12 +81,21 @@ class Decontaminator:
             self.plan.hash.out_bits, self.fam_a.out_bits)
 
     def _lookups(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-        return (lookup(self.fam_a, self.pa, tokens, self.device),
-                lookup(self.fam_b, self.pb, tokens, self.device))
+        """Both draws' h1 values of a token block. With ``impl="ref"`` the
+        plain version: each draw stages its own copy of the block and
+        gathers (:func:`repro_torch.data.stats.lookup`). Otherwise the block
+        is staged on the device once and each draw gathers from that copy."""
+        with trace.span("decontam.lookup"):
+            if self.cfg.impl == "ref":
+                return (stats.lookup(self.fam_a, self.pa, tokens, self.device),
+                        stats.lookup(self.fam_b, self.pb, tokens, self.device))
+            t = stats.device_tokens(tokens, self.device)
+            return (self.fam_a._lookup(self.pa, t),
+                    self.fam_b._lookup(self.pb, t))
 
     def add_eval_set(self, tokens) -> None:
         """tokens: (B, S) eval sequences to protect."""
-        t = device_tokens(tokens, self.device)
+        t = stats.device_tokens(tokens, self.device)
         ha = self.fam_a.pairwise_bits(self.fam_a.hash_windows_batched(
             self.pa, t))
         hb = self.fam_b.pairwise_bits(self.fam_b.hash_windows_batched(

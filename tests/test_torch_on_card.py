@@ -430,6 +430,58 @@ def test_sharded_plans_and_blocks_on_distinct_cards(cuda):
         _sharded_checks(plan, mesh, gen, cuda)
 
 
+# the ids at a table's edges and past them, for a table of 1,000
+SCAN_EDGES = (-(1 << 31), -7, -1, 0, 1, 998, 999, 1000, 1001, (1 << 31) - 1)
+
+
+def _scan_tokens(gen, shape, vocab, dtype):
+    """Ids over [-vocab / 64, vocab * 17 / 16) with the edge ids planted."""
+    n = int(np.prod(shape))
+    t = torch.randint(-(vocab // 64), vocab + vocab // 16, (n,),
+                      generator=gen, dtype=torch.int64)
+    t[:len(SCAN_EDGES)] = torch.tensor(SCAN_EDGES)
+    t = t[torch.randperm(n, generator=gen)]
+    return t.reshape(shape).to(dtype).numpy()
+
+
+def test_decontam_stream_on_card_equals_cpu(cuda):
+    """The scan on the card (the block staged once, both draws gathered
+    from that copy) against the plain scan on the CPU (a staging a draw):
+    the same hit counts and fractions, block by block, and the batch
+    scan's hit counts, with ids below 0 and past the table planted."""
+    from repro_torch.data.decontam import DecontamConfig, Decontaminator
+    vocab = 1000
+    cfg = dict(ngram_n=8, log2_m=16, vocab=vocab, seed=5)
+    card = Decontaminator(DecontamConfig(**cfg, device="cuda"))
+    host = Decontaminator(DecontamConfig(**cfg, impl="ref", device="cpu"))
+    rng = np.random.default_rng(5)
+    evals = rng.integers(0, vocab, (3, 200)).astype(np.int32)
+    card.add_eval_set(evals)
+    host.add_eval_set(evals)
+    assert torch.equal(card.bits.cpu(), host.bits)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    T, B, C = 4, 32, 128
+    sc, sh = card.init_stream(B), host.init_stream(B)
+    for i in range(3):
+        blk = _scan_tokens(gen, (T, B, C), vocab, torch.int32)
+        blk[:, 3, :] = np.resize(evals[i], (T, C))
+        sc = card.update_stream_many(sc, blk)
+        sh = host.update_stream_many(sh, blk)
+    fc, fh = card.finalize_stream(sc), host.finalize_stream(sh)
+    assert np.array_equal(fc, fh)
+    assert fc[3] > 0
+    batch = _scan_tokens(gen, (B, 300), vocab, torch.int64)
+    batch[5, :200] = evals[0]
+    got, want = card.contamination(batch), host.contamination(batch)
+    # the hit counts, bit for bit: the card divides a count by the windows
+    # as a product with the reciprocal, so a fraction may sit one float32
+    # step from the CPU's
+    W = 300 - 8 + 1
+    assert np.array_equal(np.rint(got.astype(np.float64) * W),
+                          np.rint(want.astype(np.float64) * W))
+    assert got[5] > 0
+
+
 def test_contract_census_on_card(cuda):
     """The analyzer's contract matrix with the kernels: every entry point's
     launches, dispatches, merges, in-place carries, output dtypes and

@@ -2,8 +2,10 @@
 of the profiler while none records; under one, ``add_batch`` and a decontam
 block give the span tree of their layers, parents found by containment;
 ``stream.staged_bytes`` equals a hand count of a dedup group's and of a
-scan block's host arrays; ``dedup.candidate_count`` equals a hand count on
-an index with known band collisions; and on the card a second block of one
+scan block's host arrays (a scan block goes over once for both lookups,
+under the span ``decontam.lookup``);
+``dedup.candidate_count`` equals a hand count on an index with known band
+collisions; and on the card a second block of one
 shape captures no graph (``stream.graph_captures``).
 
 The file imports no JAX, so it runs on a machine with a card and no JAX.
@@ -124,8 +126,14 @@ def test_add_batch_span_tree():
     assert not any(s[3].is_user_annotation() for s in spans)
 
 
-def test_decontam_block_span_tree():
-    dc = _decontam()
+# the staging of a scan block: one a draw in the plain version, one for
+# both draws otherwise
+STAGINGS = {"ref": 2, "auto": 1}
+
+
+@pytest.mark.parametrize("impl", sorted(STAGINGS))
+def test_decontam_block_span_tree(impl):
+    dc = _decontam(impl=impl)
     T, B, C = 2, 3, 8
     block = _docs([T * B * C])[0].reshape(T, B, C)
     st = dc.init_stream(B)
@@ -135,12 +143,12 @@ def test_decontam_block_span_tree():
     spans = _spans(prof)
     assert _parents(spans) == {
         "decontam.update": {None},
-        "stream.stage": {"decontam.update"},
+        "decontam.lookup": {"decontam.update"},
+        "stream.stage": {"decontam.lookup"},
         "stream.update_many": {"decontam.update"},
         "decontam.finalize": {None},
     }
-    # the block goes over once for each of the two lookups
-    assert sum(s[0] == "stream.stage" for s in spans) == 2
+    assert sum(s[0] == "stream.stage" for s in spans) == STAGINGS[impl]
 
 
 def _chunks_of(lengths):
@@ -163,25 +171,48 @@ def test_staged_bytes_of_a_dedup_group():
     assert stream.staged_bytes() - before == want
 
 
-def test_staged_bytes_of_a_scan_block():
-    dc = _decontam()
+@pytest.mark.parametrize("impl", sorted(STAGINGS))
+def test_staged_bytes_of_a_scan_block(impl):
+    dc = _decontam(impl=impl)
     T, B, C = 3, 5, 16
     st = dc.init_stream(B)
     before = stream.staged_bytes()
     dc.update_stream_many(st, _docs([T * B * C])[0].reshape(T, B, C))
-    # int32 tokens once for each lookup, and no lengths
-    assert stream.staged_bytes() - before == 2 * 4 * T * B * C
+    # int32 tokens for each staging, and no lengths
+    assert stream.staged_bytes() - before == STAGINGS[impl] * 4 * T * B * C
 
 
-def test_counters_are_context_local():
-    dc = _decontam()
+@pytest.mark.parametrize("impl", sorted(STAGINGS))
+def test_counters_are_context_local(impl):
+    dc = _decontam(impl=impl)
     st = dc.init_stream(2)
     block = _docs([16])[0].reshape(1, 2, 8)
     before = stream.staged_bytes()
     inner = contextvars.copy_context().run(
         lambda: (dc.update_stream_many(st, block), stream.staged_bytes())[1])
-    assert inner == before + 2 * 4 * 16
+    assert inner == before + STAGINGS[impl] * 4 * 16
     assert stream.staged_bytes() == before
+
+
+@pytest.mark.parametrize("many", [True, False])
+def test_decontam_lookup_span_nests_in_update(many):
+    """The two gathers run on the one staged block inside the span
+    ``decontam.lookup``, which sits inside ``decontam.update``, once a
+    call, with the staging inside it."""
+    dc = _decontam(impl="auto")
+    T, B, C = 2, 3, 8
+    block = _docs([T * B * C])[0].reshape(T, B, C)
+    st = dc.init_stream(B)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        if many:
+            dc.update_stream_many(st, block)
+        else:
+            dc.update_stream(st, block[0])
+    spans = _spans(prof)
+    assert _parents(spans)["stream.stage"] == {"decontam.lookup"}
+    assert sum(s[0] == "stream.stage" for s in spans) == 1
+    assert _parents(spans)["decontam.lookup"] == {"decontam.update"}
+    assert sum(s[0] == "decontam.lookup" for s in spans) == 1
 
 
 def _keys(rows):
