@@ -1442,7 +1442,7 @@ def stats_rates(torch, stream, ngc, rows, card):
     share over two blocks."""
     replay = stream._graph_block
 
-    def eager(plan, state, chunks, chunk_b, lengths, ops):
+    def eager(plan, state, chunks, chunk_b, lengths, ops, shard_index=None):
         return stream._eager_block(plan, state, chunks, chunk_b, lengths,
                                    ops, False)
 

@@ -38,7 +38,6 @@ import torch
 
 from repro_torch import trace
 from repro_torch.core import BloomFilter, make_family
-from repro_torch.data import stats
 from repro_torch.kernels import api, shard, stream
 from repro_torch.kernels.plan import BloomSpec, HashSpec, SketchPlan
 
@@ -82,20 +81,22 @@ class Decontaminator:
 
     def _lookups(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both draws' h1 values of a token block. With ``impl="ref"`` the
-        plain version: each draw stages its own copy of the block and
-        gathers (:func:`repro_torch.data.stats.lookup`). Otherwise the block
-        is staged on the device once and each draw gathers from that copy."""
+        plain version: each draw stages its own copy of the block
+        (:func:`repro_torch.kernels.stream.stage`) and gathers. Otherwise
+        the block is staged on the device once and each draw gathers from
+        that copy."""
         with trace.span("decontam.lookup"):
             if self.cfg.impl == "ref":
-                return (stats.lookup(self.fam_a, self.pa, tokens, self.device),
-                        stats.lookup(self.fam_b, self.pb, tokens, self.device))
-            t = stats.device_tokens(tokens, self.device)
+                return tuple(fam._lookup(p, stream.stage(tokens, self.device))
+                             for fam, p in ((self.fam_a, self.pa),
+                                            (self.fam_b, self.pb)))
+            t = stream.stage(tokens, self.device)
             return (self.fam_a._lookup(self.pa, t),
                     self.fam_b._lookup(self.pb, t))
 
     def add_eval_set(self, tokens) -> None:
         """tokens: (B, S) eval sequences to protect."""
-        t = stats.device_tokens(tokens, self.device)
+        t = stream.stage(tokens, self.device)
         ha = self.fam_a.pairwise_bits(self.fam_a.hash_windows_batched(
             self.pa, t))
         hb = self.fam_b.pairwise_bits(self.fam_b.hash_windows_batched(

@@ -45,7 +45,6 @@ Signatures are per row, so they do not depend on the shard count.
 """
 from __future__ import annotations
 
-import contextvars
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -63,8 +62,7 @@ from repro_torch.kernels.plan import HashSpec, MinHashSpec, SketchPlan
 # LSH candidates returned by probe_batch: the sum over documents of both
 # candidate sets' sizes. Context-local and monotonic, as the streaming
 # executor's dispatch count
-_candidates = contextvars.ContextVar("repro_torch.data.dedup._candidates",
-                                     default=0)
+_candidates = trace.Counter("repro_torch.data.dedup._candidates")
 
 
 def candidate_count() -> int:
@@ -106,9 +104,6 @@ class DedupConfig:
     stream_chunk_s: int = 512
     stream_block_chunks: int = 8
     device: str = "cuda"
-
-
-_SENTINEL = 0xFFFFFFFF
 
 
 def _tile_blocks(group: Sequence[np.ndarray], Bt: int, Cs: int, T0: int):
@@ -181,6 +176,21 @@ def unpack_band(tree) -> Dict[bytes, List[int]]:
             for i in range(len(ko) - 1)}
 
 
+def _fold_candidates(per_band, D: int) -> Tuple[List[set], List[set]]:
+    """Every band's group-by (:meth:`BandShardedLSHIndex._probe_shard`) ->
+    per-doc candidate sets ``(index_cand, batch_cand)``."""
+    index_cand: List[set] = [set() for _ in range(D)]
+    batch_cand: List[set] = [set() for _ in range(D)]
+    for groups in per_band:
+        for members, hit in groups:
+            for pos, i in enumerate(members):
+                if hit:
+                    index_cand[i].update(hit)
+                if pos:
+                    batch_cand[i].update(members[:pos].tolist())
+    return index_cand, batch_cand
+
+
 class BandShardedLSHIndex:
     """The LSH band->key map, partitioned by band id.
 
@@ -245,7 +255,8 @@ class BandShardedLSHIndex:
     def _probe_shard(self, b: int, col: np.ndarray):
         """One band shard's group-by: (D,) void keys -> [(members, hits)]:
         batch positions sharing a band key (ascending) and the index doc ids
-        already stored under that key."""
+        already stored under that key. The service's workers probe their
+        bands with it too."""
         shard_b = self.shards[b]
         uniq, inv = np.unique(col, return_inverse=True)
         hits = [shard_b.get(u.tobytes()) for u in uniq]
@@ -272,16 +283,8 @@ class BandShardedLSHIndex:
         else:
             per_band = [self._probe_shard(b, col)
                         for b, col in enumerate(cols)]
-        index_cand: List[set] = [set() for _ in range(D)]
-        batch_cand: List[set] = [set() for _ in range(D)]
-        for groups in per_band:
-            for members, hit in groups:
-                for pos, i in enumerate(members):
-                    if hit:
-                        index_cand[i].update(hit)
-                    if pos:
-                        batch_cand[i].update(members[:pos].tolist())
-        _candidates.set(_candidates.get() + sum(map(len, index_cand))
+        index_cand, batch_cand = _fold_candidates(per_band, D)
+        _candidates.add(sum(map(len, index_cand))
                         + sum(map(len, batch_cand)))
         return index_cand, batch_cand
 
@@ -406,7 +409,7 @@ class MinHashDeduper:
                 for toks, lengths in _tile_blocks(group, Bt, Cs, T0):
                     # the copy and the h1 lookup are queued asynchronously
                     # behind the kernels of the block before
-                    dev_toks = stream._to_device(toks, self.device)
+                    dev_toks = stream.stage(toks, self.device)
                     yield self.fam._lookup(self.fam_params, dev_toks), lengths
 
             state = stream.init_state(self.plan, Bt, device=self.device,
@@ -473,20 +476,13 @@ class MinHashDeduper:
         :meth:`signature`."""
         n = len(tokens)
         # the unfused hash needs at least one physical window to roll over
-        padded = np.zeros(max(_bucket(n), self.cfg.ngram_n), np.int32)
-        padded[:n] = tokens
-        n_windows = max(0, n - self.cfg.ngram_n + 1)
-        h = self.fam.hash_windows(self.fam_params,
-                                  torch.from_numpy(padded).to(self.device))
-        if hasattr(self.fam, "pairwise_bits"):
-            h = self.fam.pairwise_bits(h)
-        h = u32.lanes(h)
-        a = u32.lanes(self.mh_params["a"])[:, None]
-        b = u32.lanes(self.mh_params["b"])[:, None]
-        mixed = (u32.mulmod32(a, h[None, :]) + b) & u32.MASK32
-        idx = torch.arange(h.shape[-1], device=h.device)
-        mixed = torch.where(idx[None, :] < n_windows, mixed, _SENTINEL)
-        return mixed.min(dim=-1).values.to(torch.uint32).cpu().numpy()
+        padded = np.zeros((1, max(_bucket(n), self.cfg.ngram_n)), np.int32)
+        padded[0, :n] = tokens
+        n_windows = torch.tensor([max(0, n - self.cfg.ngram_n + 1)],
+                                 device=self.device)
+        return self._signature_batch(
+            torch.from_numpy(padded).to(self.device),
+            n_windows)[0].cpu().numpy()
 
     # -- LSH band index -----------------------------------------------------
 
@@ -550,8 +546,7 @@ class MinHashDeduper:
         """Streaming API: returns (is_duplicate, matched_doc_id,
         best_jaccard); adds the doc to the index if it is not a duplicate."""
         sig = self.signature(tokens)
-        keys = [sig[b * self.rows : (b + 1) * self.rows].tobytes()
-                for b in range(self.cfg.lsh_bands)]
+        keys = [k.tobytes() for k in self._band_keys(sig[None])[0]]
         candidates = self._index.probe(keys)
         best_j, best_id = self._best_match(sig, sorted(candidates))
         if best_id is not None and best_j >= self.cfg.threshold:

@@ -92,8 +92,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.data import durable
-from repro_torch.data.dedup import (DedupConfig, MinHashDeduper, pack_band,
-                                    unpack_band)
+from repro_torch.data.dedup import (BandShardedLSHIndex, DedupConfig,
+                                    MinHashDeduper, _fold_candidates,
+                                    pack_band, unpack_band)
 from repro_torch.train import fault as _fault
 from repro_torch.train.fault import (DataCorruption, FailureInjector,
                                      ProbeTimeout, Watchdog, WorkerCrash)
@@ -169,19 +170,9 @@ class ShardWorker:
             return self._merge(band, *args)
         raise ValueError(f"unknown op {op!r}")
 
-    def _probe(self, band: int, col: np.ndarray):
-        """One band's vectorized group-by (the in-process index's probe
-        unit): (D,) void keys -> [(members, hits)] with members ascending."""
-        shard_b = self.shards[band]
-        uniq, inv = np.unique(col, return_inverse=True)
-        hits = [shard_b.get(u.tobytes()) for u in uniq]
-        order = np.argsort(inv, kind="stable")
-        sorted_inv = inv[order]
-        starts = np.flatnonzero(
-            np.r_[True, sorted_inv[1:] != sorted_inv[:-1]])
-        ends = np.r_[starts[1:], len(order)]
-        return [(order[s:e], hits[sorted_inv[s]])
-                for s, e in zip(starts, ends)]
+    # one band's vectorized group-by, the in-process index's probe unit:
+    # (D,) void keys -> [(members, hits)] with members ascending
+    _probe = BandShardedLSHIndex._probe_shard
 
     def _insert(self, band: int, keys: Sequence[bytes],
                 doc_ids: Sequence[int]) -> int:
@@ -668,16 +659,7 @@ class DedupService:
                 per_band = list(pool.map(one, live))
         else:
             per_band = [one(b) for b in live]
-        index_cand = [set() for _ in range(D)]
-        batch_cand = [set() for _ in range(D)]
-        for groups in per_band:
-            for members, hit in groups:
-                for pos, i in enumerate(members):
-                    if hit:
-                        index_cand[i].update(hit)
-                    if pos:
-                        batch_cand[i].update(members[:pos].tolist())
-        return index_cand, batch_cand
+        return _fold_candidates(per_band, D)
 
     def _insert_bands(self, inserts: Dict[int, List]) -> None:
         """Flush one batch's inserts, fanned out to every replica of each
@@ -733,13 +715,8 @@ class DedupService:
         self._insert_bands(inserts)
         return flags
 
-    def _best_match(self, sig, candidates):
-        if not candidates:
-            return 0.0, None
-        cand_sigs = np.stack([self._sigs[c] for c in candidates])
-        jac = (cand_sigs == sig[None, :]).mean(axis=1)
-        best = int(np.argmax(jac))
-        return float(jac[best]), candidates[best]
+    # the in-process deduper's verify, over this service's kept signatures
+    _best_match = MinHashDeduper._best_match
 
     def __len__(self):
         return len(self._sigs)

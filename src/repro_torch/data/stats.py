@@ -73,23 +73,6 @@ def _hash_spec(family: str, n: int, L: int) -> Optional[HashSpec]:
     return None
 
 
-def device_tokens(tokens, device) -> torch.Tensor:
-    """Token ids (tensor or array, any integer type below 2^31) -> an
-    integer tensor on ``device``; a host array goes over as int32 through
-    pinned memory."""
-    if isinstance(tokens, torch.Tensor):
-        t = tokens.view(torch.int32) if tokens.dtype == torch.uint32 else tokens
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(tokens).astype(np.int32, copy=False)))
-    return stream._to_device(t, device)
-
-
-def lookup(fam, params, tokens, device) -> torch.Tensor:
-    """Token ids -> h1 values (uint32, masked to L bits) on ``device``."""
-    return fam._lookup(params, device_tokens(tokens, device))
-
-
 def _add_tokens(tokens_state: np.ndarray, added: int) -> np.ndarray:
     """(lo, hi) uint32 pair + a batch's token count, with carry."""
     total = NgramStats.token_count({"tokens": tokens_state}) + int(added)
@@ -125,7 +108,9 @@ class NgramStats:
                 self.plan.hash.out_bits, self.hll.hash_bits)
 
     def _lookup(self, tokens) -> torch.Tensor:
-        return lookup(self.fam, self.fp, tokens, self.device)
+        """Token ids -> h1 values (uint32, masked to L bits) on the
+        device."""
+        return self.fam._lookup(self.fp, stream.stage(tokens, self.device))
 
     def _cms_ops(self) -> Dict:
         return {"a": self._cms_params["a"], "b": self._cms_params["b"]}
@@ -144,7 +129,7 @@ class NgramStats:
     def _unfused_hashes(self, tokens) -> torch.Tensor:
         """The unfused families' masked window hashes — the one definition
         the update and the query share, so the two cannot drift."""
-        t = device_tokens(tokens, self.device)
+        t = stream.stage(tokens, self.device)
         h = self.fam.hash_windows_batched(self.fp, t)
         if hasattr(self.fam, "pairwise_bits"):
             h = self.fam.pairwise_bits(h)
@@ -197,27 +182,24 @@ class NgramStats:
                     lengths.cpu() if isinstance(lengths, torch.Tensor)
                     else lengths, np.int64))))
 
-    def update_stream(self, sstate: Dict, tokens, lengths=None) -> Dict:
-        """Fold one (B, C) token chunk into the stream (rows advance
-        independently; ``lengths`` marks the real symbols per row)."""
-        st = stream.update(self.plan, sstate["stream"], self._lookup(tokens),
-                           lengths=lengths, operands={"cms": self._cms_ops()},
-                           impl=self.cfg.impl)
+    def _step(self, sstate: Dict, tokens, lengths, fn) -> Dict:
+        st = fn(self.plan, sstate["stream"], self._lookup(tokens),
+                lengths=lengths, operands={"cms": self._cms_ops()},
+                impl=self.cfg.impl)
         return {**sstate, "stream": st,
                 "tokens": _add_tokens(sstate["tokens"],
                                       self._added(tokens, lengths))}
+
+    def update_stream(self, sstate: Dict, tokens, lengths=None) -> Dict:
+        """Fold one (B, C) token chunk into the stream (rows advance
+        independently; ``lengths`` marks the real symbols per row)."""
+        return self._step(sstate, tokens, lengths, stream.update)
 
     def update_stream_many(self, sstate: Dict, tokens, lengths=None) -> Dict:
         """Fold a (T, B, C) block of T chunks into the stream: on CUDA one
         graph replay of T plan launches (``stream.update_many``),
         bit-identical to T :meth:`update_stream` calls."""
-        st = stream.update_many(self.plan, sstate["stream"],
-                                self._lookup(tokens), lengths=lengths,
-                                operands={"cms": self._cms_ops()},
-                                impl=self.cfg.impl)
-        return {**sstate, "stream": st,
-                "tokens": _add_tokens(sstate["tokens"],
-                                      self._added(tokens, lengths))}
+        return self._step(sstate, tokens, lengths, stream.update_many)
 
     def finalize_stream(self, sstate: Dict) -> Dict:
         """Close the stream into an ordinary stats state (the carried

@@ -236,30 +236,28 @@ def _check_operands(plan: SketchPlan, operands, batch: Optional[int],
     return operands
 
 
-def needs_second_stream(plan: SketchPlan, given, name: str) -> bool:
-    """Whether the plan takes a second hash stream (it holds a Bloom
-    sketch); raises when the caller's ``given`` argument ``name`` is
-    missing although needed, or present although not."""
+def second_stream(plan: SketchPlan, given, name: str, shape, device,
+                  flat: bool = True):
+    """The caller's ``given`` second hash stream (argument ``name``) as a
+    contiguous uint32 tensor on ``device`` in the first stream's ``shape``
+    when the plan holds a Bloom sketch, else None; raises when it is
+    missing although needed, present although not, or of another shape.
+    ``flat``: its leading dims flattened to rows, as the first stream's."""
     if plan.needs_second_stream and given is None:
         raise ValueError(f"plan contains a BloomSpec: the double-hashing "
                          f"probe stride needs a second stream {name}")
-    if not plan.needs_second_stream and given is not None:
-        raise ValueError(f"{name} given but no sketch in the plan consumes "
-                         f"a second hash stream")
-    return plan.needs_second_stream
-
-
-def second_stream(plan: SketchPlan, h1v_b, shape, device):
-    """``h1v_b`` as (B, S) uint32 on ``device`` when the plan holds a Bloom
-    sketch, else None. ``shape`` is the (B, S0) of the flattened first
-    stream."""
-    if not needs_second_stream(plan, h1v_b, "h1v_b"):
+    if not plan.needs_second_stream:
+        if given is not None:
+            raise ValueError(f"{name} given but no sketch in the plan "
+                             f"consumes a second hash stream")
         return None
-    xb, _ = flatten(as_u32(h1v_b, device))
-    if tuple(xb.shape) != tuple(shape):
-        raise ValueError(f"h1v_b shape {tuple(xb.shape)} != h1v shape "
-                         f"{tuple(shape)}")
-    return xb.contiguous()
+    got = as_u32(given, device)
+    if flat:
+        got, _ = flatten(got)
+    if tuple(got.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(got.shape)} != "
+                         f"{name.removesuffix('_b')} shape {tuple(shape)}")
+    return got.contiguous()
 
 
 def validate(plan: SketchPlan, h1v, h1v_b, n_windows, operands, impl: str,
@@ -284,7 +282,7 @@ def validate(plan: SketchPlan, h1v, h1v_b, n_windows, operands, impl: str,
                                 device=dev)
     B, S = x.shape
     operands = _check_operands(plan, operands, B, dev)
-    xb = second_stream(plan, h1v_b, (B, S0), dev)
+    xb = second_stream(plan, h1v_b, "h1v_b", (B, S0), dev)
     if xb is not None and S0 < S:
         xb = _pad_cols(xb, S)
     W = max(0, S0 - n + 1)          # windows of the *caller's* rows

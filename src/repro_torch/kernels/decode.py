@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.plan import DecodeSpec
+from repro_torch.kernels.sketch_fused import _check
 
 # kernel launches made by this wrapper (one per call on CUDA tensors); the
 # smoke run resets it and reads it to show the serve path went through the
@@ -44,17 +45,6 @@ def _bind(lib: ctypes.CDLL):
 # any other type becomes int32 first
 _READY_BYTES = {torch.bool: 1, torch.int8: 1, torch.uint8: 1, torch.int16: 2,
                 torch.int32: 4, torch.int64: 8}
-
-
-def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} dtype {t.dtype} != {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
 
 
 def decode_masks_fused(logits: torch.Tensor, prefix: torch.Tensor,

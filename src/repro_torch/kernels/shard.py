@@ -39,13 +39,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import contextvars
 import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.kernels import api
 from repro_torch.kernels.plan import CountMinSpec, HLLSpec, SketchPlan
@@ -61,19 +61,12 @@ _GLOBAL_MERGE = {HLLSpec: torch.maximum, CountMinSpec: torch.add}
 # operator name ("maximum", "add"): d - 1 a sketch each time d shards'
 # outputs are merged (the reference's one pmax or psum). Context-local, as
 # the stream's dispatch counter
-_merges = contextvars.ContextVar("repro_torch.kernels.shard._merges",
-                                 default=())
+_merges = trace.Counter("repro_torch.kernels.shard._merges")
 
 
 def merge_count() -> Dict[str, int]:
     """Cross-shard merges issued in this context, by operator name."""
-    return dict(_merges.get())
-
-
-def _merged(op: str) -> None:
-    counts = merge_count()
-    counts[op] = counts.get(op, 0) + 1
-    _merges.set(tuple(counts.items()))
+    return _merges.by_key()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,7 +227,7 @@ def merge_outputs(plan: SketchPlan, parts, dev: torch.device,
         acc = to_device(parts[0][name], dev)
         for p in parts[1:]:
             acc = merge(acc, to_device(p[name], dev))
-            _merged(merge.__name__)
+            _merges.add(key=merge.__name__)
         if carry and name in carry:
             acc = merge(acc, to_device(carry[name], dev))
         out[name] = acc

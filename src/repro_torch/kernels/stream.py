@@ -50,10 +50,12 @@ stream: the plan kernel's own tile loop is the chunk loop) or ``"scan"``
 (the graph replay). :func:`dispatch_count` counts the dispatches of all of
 them. :func:`feed` overlaps the next block's host->device copy (pinned
 memory, ``non_blocking``) with the current block's kernels.
-:func:`staged_bytes` counts the bytes of host arrays sent to a stream's
-device, :func:`graph_captures` the graphs captured; a profiler that
-records sees the spans ``stream.update_many`` and ``stream.stage``
-(:mod:`repro_torch.trace`).
+:func:`stage` is the one way a host array of tokens or lengths reaches a
+stream's device, and :func:`staged_bytes` counts its bytes;
+:func:`graph_captures` counts the graphs captured. A profiler that records
+sees the spans ``stream.update_many`` and ``stream.stage``
+(:mod:`repro_torch.trace`). :func:`update` and :func:`update_many` check a
+block in one place and run one chunk loop, which the graph captures.
 
 :func:`export_state` / :func:`import_state` move a carry to host numpy
 trees and back, in the JAX package's layout, so a stream checkpointed by
@@ -77,7 +79,6 @@ counts a sharded call as the same call without a mesh.
 from __future__ import annotations
 
 import collections
-import contextvars
 from typing import Dict, Optional
 
 import numpy as np
@@ -92,28 +93,16 @@ from repro_torch.kernels.plan import SketchPlan
 _EXECUTORS = ("scan", "grid", "host")
 
 # dispatches issued by this module's executors: one per update (one plan
-# launch), one per graph replay (a whole block) and one per "grid" stream.
-# Context-local, as the JAX package's counter: concurrent streams each see
-# only their own
-_dispatches = contextvars.ContextVar("repro_torch.kernels.stream._dispatches",
-                                     default=0)
+# launch), one per graph replay (a whole block) and one per "grid" stream;
+# bytes of host arrays sent to a device by stage; captures of _BlockGraph
+_dispatches = trace.Counter("repro_torch.kernels.stream._dispatches")
+_staged = trace.Counter("repro_torch.kernels.stream._staged")
+_captures = trace.Counter("repro_torch.kernels.stream._captures")
 
 
 def dispatch_count() -> int:
     """Chunk-executor dispatches issued in this context."""
     return _dispatches.get()
-
-
-def _dispatched(n: int = 1) -> None:
-    _dispatches.set(_dispatches.get() + n)
-
-
-# bytes of host arrays sent to a device by _to_device, and captures of
-# _BlockGraph; context-local and monotonic, as the dispatch count
-_staged = contextvars.ContextVar("repro_torch.kernels.stream._staged",
-                                 default=0)
-_captures = contextvars.ContextVar("repro_torch.kernels.stream._captures",
-                                   default=0)
 
 
 def staged_bytes() -> int:
@@ -298,24 +287,51 @@ def _update_body(plan, ref_path, state, chunk, chunk_b, lengths, operands,
     return new
 
 
-def _chunk_b(plan, chunk_b, shape, device):
-    """The second stream's chunk(s), required iff the plan has a Bloom
-    sketch, in the first stream's shape."""
-    if not api.needs_second_stream(plan, chunk_b, "chunk_b"):
-        return None
-    chunk_b = api.as_u32(chunk_b, device).contiguous()
-    if tuple(chunk_b.shape) != tuple(shape):
-        raise ValueError(f"chunk_b shape {tuple(chunk_b.shape)} != chunk "
-                         f"shape {tuple(shape)}")
-    return chunk_b
+def _no_init(operands, where: str) -> None:
+    for name in (operands or {}):
+        if "init" in (operands[name] or {}):
+            raise ValueError(
+                f"sketch {name!r}: do not pass 'init' to {where} — the "
+                f"stream carry supplies every sketch's state")
 
 
-def _block(plan, state, chunks, lengths, operands, impl, fn):
-    """Validate a (T, B, C) chunk block against the carry; returns the
-    lengths as (T, B) int32 on the state's (first) device, the checked
-    operands and the dispatch flag. A row-sharded carry takes B up to its
-    padded rows (the rest idle); another carry exactly its rows."""
+def _check_block(plan, state, chunks, chunk_b, lengths, operands, impl,
+                 fn, mesh, data_shards):
+    """Every check of a block against the carry, once a call: ``chunks``
+    is one (B, C) chunk for ``fn == "update"``, else a (T, B, C) stack;
+    ``chunk_b`` and ``lengths`` share its leading shape. Returns the chunks
+    and the second stream (or None) as (T, B, C) uint32, the lengths as
+    (T, B) int32 on the carry's (first) device, the checked operands and
+    the dispatch flag. A row-sharded carry takes B up to its padded rows
+    (the rest idle); another carry exactly its rows."""
+    _check_mesh(state, mesh, data_shards)
     dev = _home(state)
+    one = fn == "update"
+    chunks = api.as_u32(chunks, dev)
+    if chunks.dim() != 3 - one:
+        raise ValueError(f"chunk must be (B, C), got shape "
+                         f"{tuple(chunks.shape)}" if one else
+                         f"chunks must be (T, B, C), got shape "
+                         f"{tuple(chunks.shape)}")
+    chunk_b = api.second_stream(plan, chunk_b, "chunk_b", chunks.shape, dev,
+                                flat=False)
+    if lengths is not None:
+        if not isinstance(lengths, torch.Tensor):
+            lengths = np.asarray(lengths)
+        if one:
+            lengths = lengths.reshape(-1)
+        if tuple(lengths.shape) != tuple(chunks.shape[:-1]):
+            raise ValueError(f"lengths shape {tuple(lengths.shape)} != " + (
+                f"batch ({chunks.shape[0]},)" if one else
+                f"chunk stack {tuple(chunks.shape[:2])}"))
+        # out-of-range lengths silently corrupt the carry: a negative one
+        # drives `seen` backwards and re-gathers the tail at wrong columns;
+        # checked in the caller's shape, so an error names its row
+        api.check_row_counts(lengths, "lengths", upper=chunks.shape[-1])
+    if one:
+        chunks = chunks[None]
+        chunk_b = None if chunk_b is None else chunk_b[None]
+        lengths = None if lengths is None else lengths[None]
     ref_path = api.use_ref(impl, dev)
     T, B, C = chunks.shape
     if T < 1:
@@ -325,24 +341,17 @@ def _block(plan, state, chunks, lengths, operands, impl, fn):
         raise ValueError(f"chunk rows {B} > stream state rows {Bp}")
     if not _sharded(state) and B != Bp:
         raise ValueError(f"chunk rows {B} != stream state rows {Bp}")
-    for name in (operands or {}):
-        if "init" in (operands[name] or {}):
-            raise ValueError(
-                f"sketch {name!r}: do not pass 'init' to stream.{fn} — the "
-                f"stream carry supplies every sketch's state")
+    _no_init(operands, f"stream.{fn}")
     operands = api._check_operands(plan, operands, None, dev)
     if lengths is None:
-        return (torch.full((T, B), C, dtype=torch.int32, device=dev),
-                operands, ref_path)
-    # out-of-range lengths silently corrupt the carry: a negative one drives
-    # `seen` backwards and re-gathers the tail at wrong columns
-    api.check_row_counts(lengths, "lengths", upper=C)
-    if isinstance(lengths, torch.Tensor):
-        return lengths.to(dev).to(torch.int32), operands, ref_path
-    # host counts go over through pinned memory, without waiting for the
-    # kernels already queued
-    return (_to_device(np.ascontiguousarray(lengths, np.int32), dev),
-            operands, ref_path)
+        lengths = torch.full((T, B), C, dtype=torch.int32, device=dev)
+    elif isinstance(lengths, torch.Tensor):
+        lengths = lengths.to(dev).to(torch.int32)
+    else:
+        # host counts go over through pinned memory, without waiting for
+        # the kernels already queued
+        lengths = stage(lengths, dev)
+    return chunks, chunk_b, lengths, operands, ref_path
 
 
 def _per_shard(state: Dict, chunks, chunk_b, lengths, operands, fn) -> Dict:
@@ -373,6 +382,21 @@ def _per_shard(state: Dict, chunks, chunk_b, lengths, operands, fn) -> Dict:
     return {"mesh": mesh, "shards": out}
 
 
+def _run_block(plan, state, chunks, chunk_b, lengths, operands, ref_path,
+               graph: bool, shard_index: Optional[int] = None) -> Dict:
+    """A checked block through the eager loop, or with ``graph`` through
+    its CUDA-graph replay: on each shard's rows for a row-sharded carry."""
+    if _sharded(state):
+        return _per_shard(state, chunks, chunk_b, lengths, operands,
+                          lambda i, *block: _run_block(plan, *block, ref_path,
+                                                       graph, i))
+    if graph:
+        return _graph_block(plan, state, chunks, chunk_b, lengths, operands,
+                            shard_index=shard_index)
+    return _eager_block(plan, state, chunks, chunk_b, lengths, operands,
+                        ref_path)
+
+
 def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
            lengths=None, operands=None, impl: str = "auto", mesh=None,
            data_shards: Optional[int] = None) -> Dict:
@@ -393,34 +417,10 @@ def update(plan: SketchPlan, state: Dict, chunk, *, chunk_b=None,
       mesh / data_shards: optional; the mesh the carry was laid out on
         (a row-sharded carry updates on its own mesh either way).
     """
-    _check_mesh(state, mesh, data_shards)
-    dev = _home(state)
-    chunk = api.as_u32(chunk, dev).contiguous()
-    if chunk.dim() != 2:
-        raise ValueError(f"chunk must be (B, C), got shape "
-                         f"{tuple(chunk.shape)}")
-    chunk_b = _chunk_b(plan, chunk_b, chunk.shape, dev)
-    if lengths is not None:
-        lengths = (lengths if isinstance(lengths, torch.Tensor)
-                   else np.asarray(lengths)).reshape(-1)
-        if tuple(lengths.shape) != (chunk.shape[0],):
-            raise ValueError(f"lengths shape {tuple(lengths.shape)} != "
-                             f"batch ({chunk.shape[0]},)")
-        # checked here too, so an error names the row as (B,) counts do
-        api.check_row_counts(lengths, "lengths", upper=chunk.shape[1])
-        lengths = lengths[None]
-    lengths, operands, ref_path = _block(plan, state, chunk[None], lengths,
-                                         operands, impl, "update")
-    _dispatched()
-    if _sharded(state):
-        return _per_shard(
-            state, chunk[None], None if chunk_b is None else chunk_b[None],
-            lengths, operands,
-            lambda i, st, c, cb, ln, ops: _update_body(
-                plan, ref_path, st, c[0].contiguous(),
-                None if cb is None else cb[0].contiguous(), ln[0], ops))
-    return _update_body(plan, ref_path, state, chunk, chunk_b, lengths[0],
-                        operands)
+    block = _check_block(plan, state, chunk, chunk_b, lengths, operands,
+                         impl, "update", mesh, data_shards)
+    _dispatches.add()
+    return _run_block(plan, state, *block, graph=False)
 
 
 def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
@@ -449,41 +449,21 @@ def update_many(plan: SketchPlan, state: Dict, chunks, *, chunk_b=None,
       mesh / data_shards: as :func:`update`.
     """
     with trace.span("stream.update_many"):
-        _check_mesh(state, mesh, data_shards)
-        dev = _home(state)
-        chunks = api.as_u32(chunks, dev)
-        if chunks.dim() != 3:
-            raise ValueError(f"chunks must be (T, B, C), got shape "
-                             f"{tuple(chunks.shape)}")
-        chunk_b = _chunk_b(plan, chunk_b, chunks.shape, dev)
-        if lengths is not None:
-            if not isinstance(lengths, torch.Tensor):
-                lengths = np.asarray(lengths)
-            if tuple(lengths.shape) != tuple(chunks.shape[:2]):
-                raise ValueError(f"lengths shape {tuple(lengths.shape)} != "
-                                 f"chunk stack {tuple(chunks.shape[:2])}")
-        lengths, operands, ref_path = _block(plan, state, chunks, lengths,
-                                             operands, impl, "update_many")
+        chunks, chunk_b, lengths, operands, ref_path = _check_block(
+            plan, state, chunks, chunk_b, lengths, operands, impl,
+            "update_many", mesh, data_shards)
         # the eager loop issues one update a chunk, the graph one replay
-        _dispatched(chunks.shape[0] if ref_path else 1)
-        if _sharded(state):
-            return _per_shard(
-                state, chunks, chunk_b, lengths, operands,
-                lambda i, st, c, cb, ln, ops: (
-                    _eager_block(plan, st, c, cb, ln, ops, ref_path)
-                    if ref_path else
-                    _graph_block(plan, st, c, cb, ln, ops, shard_index=i)))
-        if ref_path:
-            return _eager_block(plan, state, chunks, chunk_b, lengths,
-                                operands, ref_path)
-        return _graph_block(plan, state, chunks, chunk_b, lengths, operands)
+        _dispatches.add(chunks.shape[0] if ref_path else 1)
+        return _run_block(plan, state, chunks, chunk_b, lengths, operands,
+                          ref_path, graph=not ref_path)
 
 
 def _eager_block(plan, state, chunks, chunk_b, lengths, operands,
                  ref_path: bool) -> Dict:
     """The block as a Python loop: one :func:`update` body (one plan launch
     on the kernel path) per chunk, the loop's own carry donated from the
-    second chunk on. Inputs already validated."""
+    second chunk on. Inputs already validated. :class:`_BlockGraph`
+    captures this loop."""
     for t in range(chunks.shape[0]):
         state = _update_body(plan, ref_path, state, chunks[t].contiguous(),
                              None if chunk_b is None
@@ -561,13 +541,9 @@ class _BlockGraph:
         _sf.add_launch_counts(self.counts, -1)
 
     def _body(self) -> Dict:
-        state = _unflat(self.like, self.state_in)
-        for t in range(self.chunks.shape[0]):
-            state = _update_body(
-                self.plan, False, state, self.chunks[t],
-                None if self.chunk_b is None else self.chunk_b[t],
-                self.lengths[t], self.operands, donate=t > 0)
-        return state
+        return _eager_block(self.plan, _unflat(self.like, self.state_in),
+                            self.chunks, self.chunk_b, self.lengths,
+                            self.operands, False)
 
     def replay(self, state, chunks, chunk_b, lengths) -> Dict:
         for dst, src in zip(self.state_in, _flat(state)):
@@ -606,7 +582,7 @@ def _graph_block(plan, state, chunks, chunk_b, lengths, operands,
     graph = _graphs.get(key)
     if graph is None:
         graph = _BlockGraph(plan, state, chunks, chunk_b, lengths, operands)
-        _captures.set(_captures.get() + 1)
+        _captures.add()
         _graphs[key] = graph
         while len(_graphs) > _GRAPHS_KEPT:
             _graphs.popitem(last=False)
@@ -614,18 +590,29 @@ def _graph_block(plan, state, chunks, chunk_b, lengths, operands,
     return graph.replay(state, chunks, chunk_b, lengths)
 
 
-def _to_device(a, dev: torch.device):
-    """Host block -> ``dev``. On CUDA the copy is staged in pinned memory and
-    issued ``non_blocking``, so it overlaps the kernels already queued."""
-    dev = torch.device(dev)
-    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
-        return a.to(dev)
+def stage(a, device) -> torch.Tensor:
+    """Token ids or counts (a tensor, or an array of any integer type below
+    2^31) -> an integer tensor on a stream's ``device``; the one way a host
+    array reaches it. A host array goes over as int32 and a uint32 tensor
+    as its int32 view. A tensor already on ``device``, or on another
+    accelerator, is not staged: it is returned or moved as it is. Anything
+    else is counted in :func:`staged_bytes` under the span ``stream.stage``
+    and, on CUDA, copied through pinned memory ``non_blocking``, so the
+    copy overlaps the kernels already queued."""
+    dev = torch.device(device)
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.uint32:
+            a = a.view(torch.int32)
+        if a.device == dev or a.device.type != "cpu":
+            return a.to(dev)
+    else:
+        a = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a).astype(np.int32, copy=False)))
     with trace.span("stream.stage"):
-        t = torch.as_tensor(a)
-        _staged.set(_staged.get() + t.nbytes)
+        _staged.add(a.nbytes)
         if dev.type == "cuda":
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t.to(dev)
+            return a.pin_memory().to(dev, non_blocking=True)
+        return a.to(dev)
 
 
 def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
@@ -645,18 +632,13 @@ def feed(plan: SketchPlan, blocks, state: Dict, *, operands=None,
     _check_mesh(state, mesh, data_shards)
     dev = _home(state)
 
-    def _on(a):
-        # a block already on the stream's device (the CPU's too) is not
-        # staged again
-        return (a if isinstance(a, torch.Tensor) and a.device == dev
-                else _to_device(a, dev))
-
     def _put(blk):
         if blk is None:
             return None
         blk = tuple(blk) if isinstance(blk, (tuple, list)) else (blk,)
         chunks, lens, chunk_b = blk + (None,) * (3 - len(blk))
-        return _on(chunks), lens, None if chunk_b is None else _on(chunk_b)
+        return (stage(chunks, dev), lens,
+                None if chunk_b is None else stage(chunk_b, dev))
 
     it = iter(blocks)
     cur = _put(next(it, None))
@@ -703,10 +685,8 @@ def export_state(plan: SketchPlan, state: Dict,
         batch = state_batch(plan, state)
     out = {k: _host(state[k][:batch]).copy()
            for k in ("tail", "tail_b", "seen") if k in state}
-    out["sketch"] = {
-        name: _host(state["sketch"][name][:batch] if spec.state_kind == "row"
-                    else state["sketch"][name]).copy()
-        for name, spec in plan.sketches}
+    out["sketch"] = {name: _host(v).copy()
+                     for name, v in finalize(plan, state, batch).items()}
     return out
 
 
@@ -756,22 +736,6 @@ def import_state(plan: SketchPlan, tree: Dict, *, device="cuda", mesh=None,
     return state if mesh is None else _split_state(plan, state, mesh)
 
 
-def _symbol_budget(n_windows, B: int, S: int, n: int) -> np.ndarray:
-    """``api.run``'s n_windows (valid windows a row) -> (B,) int64 symbols
-    a row consumes on the host: nw valid windows take nw + n - 1 leading
-    symbols."""
-    W = max(0, S - n + 1)
-    if n_windows is None:
-        nw = np.full((B,), W, np.int64)
-    else:
-        api.check_row_counts(n_windows, "n_windows")
-        nw = _host(n_windows).astype(np.int64).reshape(-1)
-        if nw.shape != (B,):
-            raise ValueError(f"n_windows shape {nw.shape} != batch ({B},)")
-        nw = np.minimum(nw, W)
-    return np.where(nw > 0, nw + n - 1, 0)
-
-
 @kernel_contract(variant="scan", kernel="plan", launches=1,
                  dispatches="block", merges="global-sketch-merge",
                  donated=("state",))
@@ -815,11 +779,7 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
         raise ValueError(f"chunk_s must be >= 1, got {chunk_s}")
     if not isinstance(plan, SketchPlan):
         raise TypeError(f"plan must be a SketchPlan, got {type(plan)}")
-    for name in (operands or {}):
-        if "init" in (operands[name] or {}):
-            raise ValueError(
-                f"sketch {name!r}: do not pass 'init' to run_stream — the "
-                f"stream carry supplies every sketch's state")
+    _no_init(operands, "run_stream")
     n = plan.hash.n
     dev = api.resolve_device(h1v, device)
     mesh = _resolve_mesh(mesh, data_shards, dev)
@@ -828,13 +788,10 @@ def run_stream(plan: SketchPlan, h1v, *, chunk_s: int, h1v_b=None,
     api.use_ref(impl, dev)                    # validates impl up front
     x, lead = api.flatten(api.as_u32(h1v, dev))
     B, S = x.shape
-    xb = None
-    if api.needs_second_stream(plan, h1v_b, "h1v_b"):
-        xb, _ = api.flatten(api.as_u32(h1v_b, dev))
-        if tuple(xb.shape) != (B, S):
-            raise ValueError(f"h1v_b shape {tuple(xb.shape)} != h1v shape "
-                             f"{(B, S)}")
-    sym = _symbol_budget(n_windows, B, S, n)
+    xb = api.second_stream(plan, h1v_b, "h1v_b", (B, S), dev)
+    # nw valid windows of a row take its nw + n - 1 leading symbols
+    nw = api.norm_windows(n_windows, B, max(0, S - n + 1), "cpu").numpy()
+    sym = np.where(nw > 0, nw.astype(np.int64) + n - 1, 0)
     nc = max(1, -(-S // chunk_s))
     if n_chunks is not None:
         if n_chunks < nc:

@@ -39,12 +39,12 @@ shard count.
 """
 from __future__ import annotations
 
-import contextvars
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.analysis.contracts import kernel_contract
 from repro_torch.core import u32
 from repro_torch.kernels import api, shard
@@ -55,8 +55,7 @@ from repro_torch.kernels.plan import DecodeSpec
 # churn ops each count one, as the reference counts its jitted dispatches),
 # so telemetry reports the same counts as the reference's. Context-local:
 # pools served from different asyncio tasks or threads each see their own
-_dispatches = contextvars.ContextVar("repro_torch.serve.sessions._dispatches",
-                                     default=0)
+_dispatches = trace.Counter("repro_torch.serve.sessions._dispatches")
 
 # leaf -> dtype; every leaf is (C, ...) row state
 _LEAVES = {"prefix": torch.uint32, "ring": torch.uint32, "pos": torch.int32,
@@ -69,10 +68,6 @@ _LEAVES = {"prefix": torch.uint32, "ring": torch.uint32, "pos": torch.int32,
 def dispatch_count() -> int:
     """Session-pool operations issued in this context."""
     return _dispatches.get()
-
-
-def _dispatched(n: int = 1) -> None:
-    _dispatches.set(_dispatches.get() + n)
 
 
 def _write_back(state: Dict[str, torch.Tensor],
@@ -350,7 +345,7 @@ class SessionPool:
                              f"slot(s) of {self.capacity}")
         slots = np.array([self._free.pop() for _ in range(count)],
                          dtype=np.int64)
-        _dispatched()
+        _dispatches.add()
         _churn("reset", self.state, self._mask(slots))
         return slots
 
@@ -358,7 +353,7 @@ class SessionPool:
         """Deactivate sessions and return their slots to the free list.
         State (telemetry included) survives until the slot is re-admitted."""
         slots = np.atleast_1d(np.asarray(slots, dtype=np.int64))
-        _dispatched()
+        _dispatches.add()
         _churn("evict", self.state, self._mask(slots))
         self._free.extend(int(s) for s in slots)
 
@@ -366,7 +361,7 @@ class SessionPool:
         """Zero the state of live sessions in place (fresh conversation,
         same slot)."""
         slots = np.atleast_1d(np.asarray(slots, dtype=np.int64))
-        _dispatched()
+        _dispatches.add()
         _churn("reset", self.state, self._mask(slots))
 
     # -- the decode plane -------------------------------------------------
@@ -388,7 +383,7 @@ class SessionPool:
             if tuple(lengths.shape) != (self.capacity,):
                 raise ValueError(f"lengths shape {tuple(lengths.shape)} != "
                                  f"({self.capacity},)")
-        _dispatched()
+        _dispatches.add()
         core = lambda st, tok, ln, h1: _prime_core(self.spec, st, tok, ln, h1)
         if self.mesh is not None:
             core = shard.rowwise(core, self.mesh, n_row=3)
@@ -420,7 +415,7 @@ class SessionPool:
             noise = draw_noise(logits.shape, temperature,
                                generator if generator is not None
                                else self._gen, self.device)
-        _dispatched()
+        _dispatches.add()
         core = lambda st, lg, nz, h1, cb: _step_core(
             self.spec, self._ref_path, temperature, int(top_k), st, lg, nz,
             h1, cb)

@@ -112,6 +112,24 @@ def test_state_round_trip_continues_identically():
     assert len(a) == len(b)
 
 
+@pytest.mark.parametrize("lsh_bands", [16, 4])
+def test_check_and_add_agrees_with_add_batch(lsh_bands):
+    """The per-document path and the batched one key the LSH bands the same
+    way: the same verdicts, the same matches and the same packed index."""
+    docs, dup_of = _docs()
+    docs = docs[:120]
+    cfg = dedup.DedupConfig(vocab=8192, threshold=0.5, device="cpu",
+                            lsh_bands=lsh_bands, stream_rows=32)
+    one, batch = dedup.MinHashDeduper(cfg), dedup.MinHashDeduper(cfg)
+    verdicts = [one.check_and_add(d) for d in docs]
+    flags = batch.add_batch(docs)
+    np.testing.assert_array_equal([v[0] for v in verdicts], flags)
+    assert flags.any() and (dup_of[:120] >= 0).any()
+    got, want = one.export_state(), batch.export_state()
+    np.testing.assert_array_equal(got["sigs"], want["sigs"])
+    _assert_index_equal(got["index"], want["index"])
+
+
 @pytest.mark.parametrize("family", ["cyclic", "general"])
 def test_signature_batch_fused_matches(family):
     rng = np.random.default_rng(2)

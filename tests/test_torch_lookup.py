@@ -1,7 +1,7 @@
 """The decontamination scan's lookups on the CPU: ``Decontaminator`` stages
 a token block once and gathers both draws' h1 values from that copy. Its
-lookups, stream scan and batch scan equal the same fed by the two
-``stats.lookup`` calls that each staged the block on its own: ids of every
+lookups, stream scan and batch scan equal the same fed by two lookups that
+each staged the block on its own (``stream.stage``): ids of every
 integer type, ids below 0 and past the table's end, L = 32 and below.
 
 The file imports no JAX, so it runs on a machine with a card and no JAX;
@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.data import stats
 from repro_torch.data.decontam import DecontamConfig, Decontaminator
 from repro_torch.kernels import shard, stream
 
@@ -45,10 +44,10 @@ def _scanner(seed=11, L=32):
 
 def _two_stagings(dc, tokens):
     """The lookups as they were: each draw staged its own copy of the
-    block through ``stats.lookup``."""
+    block and gathered from it."""
     cpu = torch.device("cpu")
-    return (stats.lookup(dc.fam_a, dc.pa, tokens, cpu),
-            stats.lookup(dc.fam_b, dc.pb, tokens, cpu))
+    return (dc.fam_a._lookup(dc.pa, stream.stage(tokens, cpu)),
+            dc.fam_b._lookup(dc.pb, stream.stage(tokens, cpu)))
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.int16,

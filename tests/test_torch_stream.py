@@ -282,3 +282,110 @@ def test_update_validation():
     with pytest.raises(ValueError, match="needs a second stream chunk_b"):
         stream.update(bloom, bstate, _x((2, 16)),
                       operands={"bl": {"bits": np.zeros(8, np.uint32)}})
+
+
+# one malformed (T, B, C) block a case, and the error each call raises on
+# it: update takes its first chunk, update_many the block, run_stream the
+# block's chunks side by side as one (B, T*C) stream (its window counts in
+# place of the lengths), where the case applies to run_stream at all
+BT, BB, BC = 3, 2, 16
+BAD_BLOCKS = {
+    "rank": {"update": "chunk must be (B, C), got shape (1, 2, 16)",
+             "update_many": "chunks must be (T, B, C), got shape (2, 16)"},
+    "rows": {"update": "chunk rows 4 != stream state rows 2",
+             "update_many": "chunk rows 4 != stream state rows 2"},
+    "no_second_stream": {
+        "update": "plan contains a BloomSpec: the double-hashing probe "
+                  "stride needs a second stream chunk_b",
+        "update_many": "plan contains a BloomSpec: the double-hashing "
+                       "probe stride needs a second stream chunk_b",
+        "run_stream": "plan contains a BloomSpec: the double-hashing "
+                      "probe stride needs a second stream h1v_b"},
+    "extra_second_stream": {
+        "update": "chunk_b given but no sketch in the plan",
+        "update_many": "chunk_b given but no sketch in the plan",
+        "run_stream": "h1v_b given but no sketch in the plan"},
+    "second_stream_shape": {
+        "update": "chunk_b shape (2, 8) != chunk shape (2, 16)",
+        "update_many": "chunk_b shape (3, 2, 8) != chunk shape (3, 2, 16)",
+        "run_stream": "h1v_b shape (2, 24) != h1v shape (2, 48)"},
+    "negative_lengths": {
+        "update": "lengths must be non-negative; row 1 has -5",
+        "update_many": "lengths must be non-negative; row "
+                       "(np.int64(0), np.int64(1)) has -5",
+        "run_stream": "n_windows must be non-negative; row 1 has -5"},
+    "long_lengths": {
+        "update": "lengths must be <= 16; row 0 has 50",
+        "update_many": "lengths must be <= 16; row "
+                       "(np.int64(0), np.int64(0)) has 50"},
+    "lengths_shape": {
+        "update": "lengths shape (3,) != batch (2,)",
+        "update_many": "lengths shape (3, 3) != chunk stack (3, 2)",
+        "run_stream": "n_windows shape (3,) != batch (2,)"},
+    "init": {"update": "sketch 'sig': do not pass 'init' to stream.update "
+                       "— the stream carry supplies every sketch's state",
+             "update_many": "sketch 'sig': do not pass 'init' to "
+                            "stream.update_many — the stream carry supplies "
+                            "every sketch's state",
+             "run_stream": "sketch 'sig': do not pass 'init' to run_stream "
+                           "— the stream carry supplies every sketch's "
+                           "state"},
+    "foreign_mesh": {
+        "update": "the stream state is laid out on None, not on DataMesh",
+        "update_many": "the stream state is laid out on None, not on "
+                       "DataMesh"},
+}
+
+
+def _bad_call(case, call):
+    """``call`` on the malformed block of ``case``, as a thunk."""
+    _, plan = _plans("cyclic", 8)
+    ops = {"sig": _ops()}
+    chunk, chunk_b, lengths, kw = _x((BB, BC)), None, None, {}
+    if case in ("no_second_stream", "second_stream_shape"):
+        plan = tplan.SketchPlan(tplan.HashSpec(family="cyclic", n=8),
+                                (("bl", tplan.BloomSpec(k=2, log2_m=8)),))
+        ops = {"bl": {"bits": np.zeros(8, np.uint32)}}
+        if case == "second_stream_shape":
+            chunk_b = _x((BB, BC // 2), seed=1)
+    elif case == "extra_second_stream":
+        chunk_b = _x((BB, BC), seed=1)
+    elif case == "rank":
+        chunk = _x((1, BB, BC))
+    elif case == "rows":
+        chunk = _x((4, BC))
+    elif case == "negative_lengths":
+        lengths = np.array([3, -5])
+    elif case == "long_lengths":
+        lengths = np.array([50, 3])
+    elif case == "lengths_shape":
+        lengths = np.array([3, 3, 3])
+    elif case == "init":
+        ops = {"sig": {**ops["sig"], "init": np.zeros((BB, K), np.uint32)}}
+    elif case == "foreign_mesh":
+        kw = {"data_shards": 2}
+    state = stream.init_state(plan, BB, device="cpu")
+    if call == "update":
+        return lambda: stream.update(plan, state, chunk, chunk_b=chunk_b,
+                                     lengths=lengths, operands=ops, **kw)
+    if call == "update_many":
+        stack = lambda a: None if a is None else np.stack([a] * BT)
+        chunks = chunk[0] if case == "rank" else stack(chunk)
+        return lambda: stream.update_many(
+            plan, state, chunks, chunk_b=stack(chunk_b),
+            lengths=stack(lengths), operands=ops, **kw)
+    side = lambda a: None if a is None else np.concatenate([a] * BT, axis=1)
+    return lambda: stream.run_stream(
+        plan, side(chunk), h1v_b=side(chunk_b), n_windows=lengths,
+        operands=ops, chunk_s=BC, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case,call", [(case, call)
+                                       for case in sorted(BAD_BLOCKS)
+                                       for call in sorted(BAD_BLOCKS[case])])
+def test_malformed_block_raises_the_same_error(case, call):
+    """Each call checks a block in one place and names the fault as it
+    always has: the row by its index in the counts the caller passed."""
+    with pytest.raises(ValueError) as err:
+        _bad_call(case, call)()
+    assert str(err.value).startswith(BAD_BLOCKS[case][call]), str(err.value)

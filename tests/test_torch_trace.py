@@ -5,7 +5,8 @@ block give the span tree of their layers, parents found by containment;
 scan block's host arrays (a scan block goes over once for both lookups,
 under the span ``decontam.lookup``);
 ``dedup.candidate_count`` equals a hand count on an index with known band
-collisions; and on the card a second block of one
+collisions; the six counters move only in their own context; and on the
+card a second block of one
 shape captures no graph (``stream.graph_captures``).
 
 The file imports no JAX, so it runs on a machine with a card and no JAX.
@@ -21,7 +22,8 @@ from repro_torch import trace
 from repro_torch.data import dedup
 from repro_torch.data.decontam import DecontamConfig, Decontaminator
 from repro_torch.kernels import plan as tplan
-from repro_torch.kernels import stream
+from repro_torch.kernels import shard, stream
+from repro_torch.serve import sessions
 
 # the suite runs test files side by side in worker processes: keep torch's
 # CPU work to one thread so it does not crowd the others
@@ -182,16 +184,58 @@ def test_staged_bytes_of_a_scan_block(impl):
     assert stream.staged_bytes() - before == STAGINGS[impl] * 4 * T * B * C
 
 
+# the port's six context-local counters, by their public getters
+COUNTERS = {"stream.dispatch_count": stream.dispatch_count,
+            "stream.staged_bytes": stream.staged_bytes,
+            "stream.graph_captures": stream.graph_captures,
+            "dedup.candidate_count": dedup.candidate_count,
+            "sessions.dispatch_count": sessions.dispatch_count,
+            "shard.merge_count": shard.merge_count}
+
+
 @pytest.mark.parametrize("impl", sorted(STAGINGS))
 def test_counters_are_context_local(impl):
+    """Work run in a copied context moves every counter there, and none
+    outside it."""
     dc = _decontam(impl=impl)
     st = dc.init_stream(2)
     block = _docs([16])[0].reshape(1, 2, 8)
-    before = stream.staged_bytes()
-    inner = contextvars.copy_context().run(
-        lambda: (dc.update_stream_many(st, block), stream.staged_bytes())[1])
-    assert inner == before + STAGINGS[impl] * 4 * 16
-    assert stream.staged_bytes() == before
+    hll = tplan.SketchPlan(tplan.HashSpec(family="cyclic", n=5),
+                           (("hll", tplan.HLLSpec(b=4)),))
+    index = dedup.BandShardedLSHIndex(n_bands=2)
+    index.insert(0, [k.tobytes() for k in _keys([[1, 2]])[0]])
+    pool = sessions.SessionPool(tplan.DecodeSpec(n=2, log2_m=6), 2,
+                                np.arange(16, dtype=np.uint32),
+                                device="cpu")
+
+    def work():
+        dc.update_stream_many(st, block)
+        shard.run_sharded(hll, _docs([2 * 16], 1)[0].reshape(2, 16),
+                          mesh=shard.data_mesh(2, "cpu"))
+        index.probe_batch(_keys([[1, 5], [1, 9]]))
+        pool.admit()
+        # a capture needs a card: on the CPU, the counter's own bump
+        stream._captures.add()
+        return {name: get() for name, get in COUNTERS.items()}
+
+    before = {name: get() for name, get in COUNTERS.items()}
+    inner = contextvars.copy_context().run(work)
+    assert inner["stream.staged_bytes"] == (before["stream.staged_bytes"]
+                                            + STAGINGS[impl] * 4 * 16)
+    # one update_many of one chunk on the plain path
+    assert inner["stream.dispatch_count"] == (
+        before["stream.dispatch_count"] + 1)
+    assert inner["stream.graph_captures"] == (
+        before["stream.graph_captures"] + 1)
+    # two from the index, one from the batch's earlier row
+    assert inner["dedup.candidate_count"] == (
+        before["dedup.candidate_count"] + 3)
+    assert inner["sessions.dispatch_count"] == (
+        before["sessions.dispatch_count"] + 1)
+    merges = before["shard.merge_count"]
+    assert inner["shard.merge_count"] == {
+        **merges, "maximum": merges.get("maximum", 0) + 1}
+    assert {name: get() for name, get in COUNTERS.items()} == before
 
 
 @pytest.mark.parametrize("many", [True, False])
