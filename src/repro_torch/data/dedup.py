@@ -6,26 +6,37 @@ Theorem-1 discard, feed a MinHash signature; Jaccard over signatures >=
 hashes is what makes the MinHash collision estimator unbiased.
 
 Signing is streamed and fused: a one-MinHash :class:`SketchPlan` is built
-once, and documents advance ``stream_rows`` at a time through fixed
+once, and rows advance ``stream_rows`` at a time through fixed
 ``(stream_block_chunks, stream_rows, stream_chunk_s)`` chunk blocks
-(:mod:`repro_torch.kernels.stream`). The host tiles a block
-(:func:`_tile_blocks`) in a few NumPy copies, not row by row: one clip gives
-every block's lengths for the group, and each row that still has tokens
-copies its whole chunks as one reshape and its tail in one more. On CUDA
-every chunk is one launch of the plan kernel, which hashes, discards,
-remixes and takes the minima in one pass; the next block's copy to the card
-overlaps the current block's kernels. Masked windows are excluded from the
-min outright, so signatures do not depend on chunking.
+(:mod:`repro_torch.kernels.stream`). A row is a document, or a segment of
+one: a window hash depends only on its n symbols and a MinHash lane is a
+minimum over windows, so a document longer than one block
+(``stream_block_chunks x stream_chunk_s`` symbols) may be cut into
+segments of at most one block, each after the first opening with the n-1
+symbols before it as history (a fresh row's first n-1 symbols make no
+window), and its signature is the lane-wise minimum of its segments'
+signatures (:func:`_segment_docs`). A call takes that layout only when it
+issues fewer chunk launches than one row a document (:func:`_chunk_launches`
+counts both from the lengths), so a group no longer advances until its
+longest document ends. The host tiles a block (:func:`_tile_blocks`) in a
+few NumPy copies, not row by row: one clip gives every block's lengths for
+the group, and each row that still has tokens copies its whole chunks as
+one reshape and its tail in one more. On CUDA every chunk is one launch of
+the plan kernel, which hashes, discards, remixes and takes the minima in
+one pass; the next block's copy to the card overlaps the current block's
+kernels, and the signatures of every group come back in one read at the
+end of the call. Masked windows are excluded from the min outright, so
+signatures do not depend on chunking or on the layout.
 
 The LSH index (:class:`BandShardedLSHIndex`) partitions the band->key map by
 band id; candidate pairs are Jaccard-verified sequentially in document
 order, so :meth:`MinHashDeduper.add_batch` reproduces the streaming
 per-document path (:meth:`MinHashDeduper.check_and_add`) exactly.
-:func:`candidate_count` counts the candidates the probes return; a
-profiler that records sees ``add_batch``'s spans ``dedup.sign`` (with
-``dedup.tile`` for each block's host tiling and ``dedup.drain`` for the
-signatures' read-back), ``dedup.probe`` and ``dedup.verify``
-(:mod:`repro_torch.trace`).
+:func:`candidate_count` counts the candidates the probes return and
+:func:`segment_count` the rows signing signs; a profiler that records sees
+``add_batch``'s spans ``dedup.sign`` (with ``dedup.tile`` for each block's
+host tiling and ``dedup.drain`` for the signatures' one read-back),
+``dedup.probe`` and ``dedup.verify`` (:mod:`repro_torch.trace`).
 
 The families outside the fused engine (THREEWISE, ID37) sign through the
 bucketed path (:meth:`MinHashDeduper._signature_many_bucketed`): documents
@@ -40,7 +51,7 @@ Multi-device signing: with ``mesh`` (a
 :class:`~repro_torch.kernels.shard.DataMesh`) or ``DedupConfig.data_shards``
 each group's stream carry is row-sharded over the mesh
 (:mod:`repro_torch.kernels.stream`); ``stream_rows`` is then a per-shard
-tile budget, so a group holds up to ``stream_rows`` x d documents.
+tile budget, so a group holds up to ``stream_rows`` x d rows.
 Signatures are per row, so they do not depend on the shard count.
 """
 from __future__ import annotations
@@ -69,6 +80,18 @@ def candidate_count() -> int:
     """LSH candidates (index and batch, a document each) that
     :meth:`BandShardedLSHIndex.probe_batch` returned in this context."""
     return _candidates.get()
+
+
+# rows the streamed signing path signed: one a document, or its segments
+_segments = trace.Counter("repro_torch.data.dedup._segments")
+
+
+def segment_count() -> int:
+    """Rows :meth:`MinHashDeduper.signature_many` signed through the
+    streaming executor in this context: one a document of at most one
+    block, or a longer document's segments where the segmented layout was
+    taken."""
+    return _segments.get()
 
 
 def _plan_for_family(fam, k: int) -> Optional[SketchPlan]:
@@ -106,6 +129,17 @@ class DedupConfig:
     device: str = "cuda"
 
 
+def _block_sizes(n_symbols: int, Cs: int, T0: int) -> List[int]:
+    """Chunks of each block a group whose longest row holds ``n_symbols``
+    runs: full ``T0``-chunk blocks, then one pow2-sized tail block (at least
+    one chunk, so an empty group still runs one block)."""
+    n_chunks = max(1, -(-n_symbols // Cs))
+    sizes = [T0] * (n_chunks // T0)
+    if n_chunks % T0:
+        sizes.append(1 << int(np.ceil(np.log2(n_chunks % T0))))
+    return sizes
+
+
 def _tile_blocks(group: Sequence[np.ndarray], Bt: int, Cs: int, T0: int):
     """One signing group's token blocks: yields ``(toks, lengths)``, a
     ``(T, Bt, Cs)`` int32 block and its ``(T, Bt)`` int32 real-symbol
@@ -116,10 +150,7 @@ def _tile_blocks(group: Sequence[np.ndarray], Bt: int, Cs: int, T0: int):
     ``dedup.tile``, a live row's segment in at most two copies (its whole
     chunks, then its tail), and only one block is held at a time."""
     lens = np.fromiter(map(len, group), np.int64, len(group))
-    n_chunks = max(1, -(-int(lens.max(initial=0)) // Cs))
-    sizes = [T0] * (n_chunks // T0)
-    if n_chunks % T0:
-        sizes.append(1 << int(np.ceil(np.log2(n_chunks % T0))))
+    sizes = _block_sizes(int(lens.max(initial=0)), Cs, T0)
     lo = np.arange(sum(sizes), dtype=np.int64) * Cs
     lengths = np.zeros((len(lo), Bt), np.int32)
     lengths[:, : len(group)] = np.clip(lens[None, :] - lo[:, None], 0, Cs)
@@ -136,6 +167,40 @@ def _tile_blocks(group: Sequence[np.ndarray], Bt: int, Cs: int, T0: int):
                     toks[k, r, :rest] = seg[k * Cs :]
         yield toks, lengths[done : done + T]
         done += T
+
+
+def _chunk_launches(lens: np.ndarray, Bt: int, Cs: int, T0: int) -> int:
+    """Chunk launches of signing rows of ``lens`` symbols (in descending
+    order) ``Bt`` at a time: the blocks :func:`_block_sizes` gives each
+    group's longest row, as :func:`_tile_blocks` lays them out."""
+    return sum(sum(_block_sizes(int(x), Cs, T0)) for x in lens[::Bt])
+
+
+def _segment_docs(docs: Sequence[np.ndarray], lens: np.ndarray, span: int,
+                  h: int):
+    """Documents of ``lens`` symbols -> ``(rows, row_lens, starts)``: each
+    document's segments in document order, their lengths, and the index of
+    each document's first. A document of at most ``span`` symbols is one
+    segment; a longer one's j-th is the view
+    ``doc[j * (span - h) : j * (span - h) + span]``, cut at its end, for as
+    long as it holds a symbol past its first ``h``. With ``h = n - 1`` the
+    windows ending in a later segment's first ``h`` symbols are its
+    history, which the stream masks, so every window of a document falls
+    in exactly one of its segments."""
+    step = span - h
+    counts = np.maximum(1, -(-(lens - h) // step))
+    rows: List[np.ndarray] = []
+    row_lens: List[int] = []
+    for doc, N, k in zip(docs, lens.tolist(), counts.tolist()):
+        if k == 1:
+            rows.append(doc)
+            row_lens.append(N)
+        else:
+            rows.extend(doc[j * step : j * step + span] for j in range(k))
+            row_lens.extend([span] * (k - 1) + [N - (k - 1) * step])
+    starts = np.zeros(len(docs), np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    return rows, np.asarray(row_lens, np.int64), starts
 
 
 def _bucket(n: int) -> int:
@@ -369,7 +434,12 @@ class MinHashDeduper:
         """Sign a whole document list: (D, k) uint32 through the streaming
         executor.
 
-        Documents are grouped ``stream_rows`` at a time by descending length
+        Rows are documents or segments of them (the module docstring): a
+        document longer than one block (``stream_block_chunks`` x
+        ``stream_chunk_s`` symbols) signs as segments of at most one block,
+        min-merged into its signature, when that issues fewer chunk
+        launches than one row a document, counted from the lengths alone.
+        Rows are grouped ``stream_rows`` at a time by descending length
         (signatures are per row, so packing similar lengths together only
         cuts masked work); each group advances through ``(T, stream_rows,
         stream_chunk_s)`` token blocks — full ``stream_block_chunks``-chunk
@@ -377,33 +447,55 @@ class MinHashDeduper:
         card through pinned memory and are mapped through h1 there; a row
         that runs out of symbols submits 0-length chunks, and a document
         shorter than the n-gram window signs to the sentinel signature.
-        A family without a fused plan signs through
+        Every group's signatures stay on the card until one read-back at
+        the end of the call. A family without a fused plan signs through
         :meth:`_signature_many_bucketed`. Under a mesh of d shards a group
-        holds up to ``stream_rows`` x d documents (a power of two times
-        ``stream_rows``, at most what the corpus fills).
+        holds up to ``stream_rows`` x d rows (a power of two times
+        ``stream_rows``, at most what the rows fill).
         """
         with trace.span("dedup.sign"):
             if self.plan is None:
                 return self._signature_many_bucketed(docs)
             return self._signature_many_streamed(docs)
 
+    def _group_rows(self, R: int) -> int:
+        """Rows a signing group of ``R`` rows to sign holds: ``stream_rows``,
+        times a power of two up to the mesh's shards where the rows fill
+        them."""
+        Bt = self.cfg.stream_rows
+        d = self.mesh.size if self.mesh is not None else 1
+        if d > 1 and R >= 2 * Bt:
+            Bt *= 1 << int(np.log2(min(d, R // Bt)))
+        return Bt
+
     def _signature_many_streamed(self, docs: Sequence[np.ndarray]
                                  ) -> np.ndarray:
         """:meth:`signature_many` through the streaming executor."""
         cfg = self.cfg
-        D = len(docs)
-        out = np.empty((D, cfg.n_signatures), np.uint32)
-        Bt, Cs = cfg.stream_rows, cfg.stream_chunk_s
-        d = self.mesh.size if self.mesh is not None else 1
-        if d > 1 and D >= 2 * Bt:
-            Bt *= 1 << int(np.log2(min(d, D // Bt)))
-        T0 = max(1, cfg.stream_block_chunks)
+        if not len(docs):
+            return np.empty((0, cfg.n_signatures), np.uint32)
+        docs = [np.asarray(d) for d in docs]
+        Cs, T0 = cfg.stream_chunk_s, max(1, cfg.stream_block_chunks)
+        span, h = T0 * Cs, self.plan.hash.n - 1
+        rows, starts = docs, None
+        lens = np.fromiter(map(len, docs), np.int64, len(docs))
+        order = np.argsort(-lens, kind="stable")
+        Bt = self._group_rows(len(rows))
+        if span > h and lens.max(initial=0) > span:
+            seg_rows, seg_lens, seg_starts = _segment_docs(docs, lens, span,
+                                                           h)
+            seg_order = np.argsort(-seg_lens, kind="stable")
+            seg_Bt = self._group_rows(len(seg_rows))
+            if (_chunk_launches(seg_lens[seg_order], seg_Bt, Cs, T0)
+                    < _chunk_launches(lens[order], Bt, Cs, T0)):
+                rows, starts, order, Bt = (seg_rows, seg_starts, seg_order,
+                                           seg_Bt)
+        _segments.add(len(rows))
         operands = {"sig": {"a": self.mh_params["a"],
                             "b": self.mh_params["b"]}}
-        order = np.argsort([-len(d) for d in docs], kind="stable")
-        for g in range(0, D, Bt):
-            sel = order[g : g + Bt]
-            group = [np.asarray(docs[i]) for i in sel]
+        sigs = []
+        for g in range(0, len(rows), Bt):
+            group = [rows[i] for i in order[g : g + Bt]]
 
             def blocks():
                 for toks, lengths in _tile_blocks(group, Bt, Cs, T0):
@@ -416,11 +508,17 @@ class MinHashDeduper:
                                       mesh=self.mesh)
             state = stream.feed(self.plan, blocks(), state,
                                 operands=operands, impl=cfg.impl)
-            with trace.span("dedup.drain"):
-                sigs = stream.finalize(self.plan, state,
-                                       batch=Bt)["sig"].cpu().numpy()
-            out[sel] = sigs[: len(group)]
-        return out
+            # kept on the card: the next group's host work overlaps this
+            # one's kernels until the one read-back below
+            sigs.append(stream.finalize(self.plan, state,
+                                        batch=len(group))["sig"])
+        with trace.span("dedup.drain"):
+            got = torch.cat([s.view(torch.int32) for s in sigs]).cpu()
+        out = np.empty((len(rows), cfg.n_signatures), np.uint32)
+        out[order] = got.numpy().view(np.uint32)
+        if starts is None:
+            return out
+        return np.minimum.reduceat(out, starts, axis=0)
 
     def _signature_batch(self, tokens: torch.Tensor,
                          n_windows: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from repro.data import dedup as jdedup
 from repro_torch import convert
 from repro_torch.core import MinHash, make_family
 from repro_torch.data import corpus, dedup
+from repro_torch.kernels import stream
 
 # the suite runs test files side by side in worker processes: keep torch's
 # CPU work to one thread so it does not crowd the others
@@ -205,21 +206,168 @@ def test_tile_blocks_match_row_loop(case, T0, Bt):
         assert gl.tobytes() == wl.tobytes()
 
 
+_TAIL_BATCHES = {
+    # mixed lengths: the two longest cut into two segments each, seven rows
+    # in one group of one full 8-chunk block, fewer launches than the
+    # document layout's full block and padded tail
+    "mixed": lambda longest: [40, longest, 4, 0, 7 * _CS + 9, _CS],
+    # eight of the longest: the segments take as many launches (8 + 4 or
+    # 8 + 8) as one row a document, so the document layout is kept
+    "tied": lambda longest: [longest] * 8,
+}
+
+
+@pytest.mark.parametrize("batch", sorted(_TAIL_BATCHES))
 @pytest.mark.parametrize("longest", [11 * _CS - 3, 13 * _CS])
-def test_signatures_with_padded_tail_block(longest):
-    # 11 and 13 chunks: one full 8-chunk block, then a tail of 3 or 5
-    # chunks padded to 4 or 8, whose last chunks are 0-length in every row
+def test_signatures_with_padded_tail_block(longest, batch):
+    """Against the JAX package, in both layouts: in the document layout
+    ("tied") the 11 or 13 chunks run as one full 8-chunk block and then a
+    tail of 3 or 5 chunks padded to 4 or 8, whose last chunks are 0-length
+    in every row; in the segmented layout ("mixed") every row fits one
+    block. The rows signed show which layout ran."""
     rng = np.random.default_rng(longest)
-    lengths = [40, longest, 4, 0, 7 * _CS + 9, _CS]
+    lengths = _TAIL_BATCHES[batch](longest)
     docs = [rng.integers(0, 8192, size=n).astype(np.int32) for n in lengths]
     ref, port = _pair("cyclic", ngram_n=5, n_signatures=16, lsh_bands=4,
                       stream_rows=8, stream_chunk_s=_CS,
                       stream_block_chunks=8)
+    rows = {"mixed": 7, "tied": len(docs)}[batch]
     with ref, port:
+        before = dedup.segment_count()
         sigs = port.signature_many(docs)
+        assert dedup.segment_count() - before == rows
         np.testing.assert_array_equal(sigs, ref.signature_many(docs))
         for d, sig in zip(docs, sigs):
             np.testing.assert_array_equal(sig, port.signature_unfused(d))
+
+
+# signing blocks of 4 chunks of 16 symbols: a segment holds at most 64
+_SPAN = 4 * _CS
+_SEG = dict(n_signatures=16, lsh_bands=4, stream_rows=4, stream_chunk_s=_CS,
+            stream_block_chunks=4)
+
+
+def _edge_lengths(n):
+    """Lengths at the cuts of a document into segments, for n-grams: with
+    h = n - 1 a segment after the first opens with h symbols of history,
+    so the cuts step by span - h."""
+    h = n - 1
+    step = _SPAN - h
+    return [0, 1, n - 1, n, step - 1, step, step + 1, _SPAN, _SPAN + 1,
+            2 * step + h - 1, 2 * step + h, 2 * step + h + 1,
+            3 * step + h + 1, 5 * _SPAN + 3]
+
+
+def _seg_lengths(N, n):
+    """A document's segment lengths, counted by hand: full segments of
+    _SPAN, then what is left after the last one's cut, history included."""
+    h, step = n - 1, _SPAN - n + 1
+    k = max(1, -(-(N - h) // step))
+    return [N] if k == 1 else [_SPAN] * (k - 1) + [N - (k - 1) * step]
+
+
+def _launches(lengths, Bt):
+    """Chunk launches of rows of these lengths, grouped Bt at a time by
+    descending length: the chunks the row-loop tiling oracle gives."""
+    ls = sorted(lengths, reverse=True)
+    return sum(toks.shape[0] for g in range(0, len(ls), Bt)
+               for toks, _ in _tile_loop([np.zeros(x, np.int32)
+                                          for x in ls[g : g + Bt]],
+                                         Bt, _CS, 4))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 8])
+def test_segments_hold_each_window_once(n):
+    """Every window of a document ends in exactly one of its segments, past
+    that segment's history; each segment is a view of at most one block."""
+    h = n - 1
+    for N in range(0, 4 * _SPAN):
+        doc = np.arange(N, dtype=np.int32)
+        rows, row_lens, starts = dedup._segment_docs(
+            [doc], np.array([N], np.int64), _SPAN, h)
+        assert starts.tolist() == [0]
+        assert [len(r) for r in rows] == _seg_lengths(N, n)
+        assert row_lens.tolist() == _seg_lengths(N, n)
+        ends = []
+        for j, r in enumerate(rows):
+            assert len(r) <= _SPAN and (N == 0 or np.shares_memory(r, doc))
+            # windows end at row symbols h.. (a row's first h symbols are
+            # history, the first row's are the document's own)
+            ends.extend(r[h:].tolist())
+        assert ends == list(range(h, N)), N
+
+
+@pytest.mark.parametrize("n", [2, 5, 8])
+@pytest.mark.parametrize("family", ["cyclic", "general"])
+def test_segmented_signatures_match_reference(family, n):
+    """Documents cut at every edge of the segment layout sign to the JAX
+    package's signatures and to the unfused ones, bit for bit, in groups
+    whose last holds fewer rows than stream_rows; shorter than n and empty
+    documents sign to the sentinel."""
+    rng = np.random.default_rng(n)
+    lengths = _edge_lengths(n)
+    docs = [rng.integers(0, 8192, size=x).astype(np.int32) for x in lengths]
+    ref, port = _pair(family, ngram_n=n, **_SEG)
+    rows = sum(len(_seg_lengths(x, n)) for x in lengths)
+    assert rows > len(docs) and rows % _SEG["stream_rows"]
+    with ref, port:
+        before = dedup.segment_count()
+        sigs = port.signature_many(docs)
+        assert dedup.segment_count() - before == rows
+        np.testing.assert_array_equal(sigs, ref.signature_many(docs))
+        for d, sig in zip(docs, sigs):
+            np.testing.assert_array_equal(sig, port.signature_unfused(d))
+        assert (sigs[lengths.index(n - 1)] == 0xFFFFFFFF).all()
+        assert (sigs[lengths.index(0)] == 0xFFFFFFFF).all()
+
+
+def test_segmented_signing_on_a_2_shard_mesh():
+    """Segments past twice a group's rows double the group over two
+    shards: the same signatures as one device and as the unfused path."""
+    rng = np.random.default_rng(3)
+    lengths = [5 * _SPAN, 3 * _SPAN + 7, 2 * _SPAN, 70, 9, 0]
+    docs = [rng.integers(0, 8192, size=x).astype(np.int32) for x in lengths]
+    kw = dict(vocab=8192, device="cpu", **_SEG)
+    one = dedup.MinHashDeduper(dedup.DedupConfig(**kw))
+    two = dedup.MinHashDeduper(dedup.DedupConfig(data_shards=2, **kw))
+    assert two._group_rows(sum(len(_seg_lengths(x, 8)) for x in lengths)) \
+        == 2 * _SEG["stream_rows"]
+    sigs = two.signature_many(docs)
+    np.testing.assert_array_equal(sigs, one.signature_many(docs))
+    for d, sig in zip(docs, sigs):
+        np.testing.assert_array_equal(sig, one.signature_unfused(d))
+
+
+_LAYOUTS = {
+    # book-like: every document several blocks long
+    "long": ([9 * _SPAN + 5, 4 * _SPAN, 3 * _SPAN - 2, 2 * _SPAN + 1,
+              7 * _SPAN, 2 * _SPAN, 5 * _SPAN + 40], True),
+    # no document past one block: nothing to cut
+    "one_block": ([_SPAN, 40, _SPAN - 1, 3], False),
+    # a cut that issues as many launches as the document layout
+    "no_fewer_launches": ([_SPAN + 1, _SPAN, _SPAN, _SPAN], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LAYOUTS))
+def test_signing_layout_by_launch_count(case):
+    """A call signs segments only where they issue fewer chunk launches
+    than one row a document, and then exactly the segments' launches (on
+    the plain path one dispatch a chunk) and rows."""
+    lengths, segmented = _LAYOUTS[case]
+    n, Bt = 8, _SEG["stream_rows"]
+    seg = [x for N in lengths for x in _seg_lengths(N, n)]
+    assert (_launches(seg, Bt) < _launches(lengths, Bt)) == segmented
+    rows = seg if segmented else lengths
+    dd = dedup.MinHashDeduper(dedup.DedupConfig(vocab=8192, device="cpu",
+                                                ngram_n=n, **_SEG))
+    docs = [np.arange(x, dtype=np.int32) % 8192 for x in lengths]
+    before = (stream.dispatch_count(), dedup.segment_count())
+    sigs = dd.signature_many(docs)
+    assert stream.dispatch_count() - before[0] == _launches(rows, Bt)
+    assert dedup.segment_count() - before[1] == len(rows)
+    for d, sig in zip(docs, sigs):
+        np.testing.assert_array_equal(sig, dd.signature_unfused(d))
 
 
 def test_band_packing_round_trip_matches_reference():

@@ -5,6 +5,8 @@ and ``hll_update`` in shared and in global registers, each against its plain
 version on the same card; and the streaming executor's CUDA-graph replay
 against its eager loop and the plain versions: one dispatch a block, the
 caller's state unchanged, a restore after a capture bit-identical; and the
+deduper's signing of book-length documents as one-block segments, launch
+for launch, against the plain path; and the
 multi-device layer (``kernels/shard.py``) on four virtual shards of the
 one card, each shard's graph replayed, equal to the one-device calls (a
 further case holds the distinct-device path and runs only where there is
@@ -480,6 +482,43 @@ def test_decontam_stream_on_card_equals_cpu(cuda):
     assert np.array_equal(np.rint(got.astype(np.float64) * W),
                           np.rint(want.astype(np.float64) * W))
     assert got[5] > 0
+
+
+def test_segmented_signing_on_card(cuda):
+    """Book-length documents at the deduper's defaults sign as segments of
+    at most one block through the plan kernel: exactly the segments' chunk
+    launches, fewer than one row a document would take, the signatures
+    equal to the plain path's on the card and to the unfused ones."""
+    from repro_torch.data import dedup
+    rng = np.random.default_rng(34)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(16384), 0.7, 24)), 2000,
+                      70000).astype(np.int64)
+    docs = [rng.integers(0, 1 << 17, int(n)).astype(np.int32)
+            for n in lengths]
+    kern = dedup.MinHashDeduper(dedup.DedupConfig(impl="kernel"))
+    plain = dedup.MinHashDeduper(dedup.DedupConfig(impl="ref"))
+    cfg = kern.cfg
+    span = cfg.stream_block_chunks * cfg.stream_chunk_s
+    rows, seg, _ = dedup._segment_docs(docs, lengths, span, cfg.ngram_n - 1)
+    seg = np.sort(seg)[::-1]
+    want = dedup._chunk_launches(seg, cfg.stream_rows, cfg.stream_chunk_s,
+                                 cfg.stream_block_chunks)
+    assert want < dedup._chunk_launches(np.sort(lengths)[::-1],
+                                        cfg.stream_rows, cfg.stream_chunk_s,
+                                        cfg.stream_block_chunks)
+    # the first call captures each block shape's graph, whose warm-up
+    # launches count too; the second replays them
+    kern.signature_many(docs)
+    before = (sketch_fused.launch_counts()["plan"], dedup.segment_count(),
+              stream.graph_captures())
+    sigs = kern.signature_many(docs)
+    assert sketch_fused.launch_counts()["plan"] - before[0] == want
+    assert dedup.segment_count() - before[1] == len(rows)
+    assert stream.graph_captures() == before[2]
+    np.testing.assert_array_equal(sigs, plain.signature_many(docs))
+    for i in (0, int(np.argmax(lengths))):
+        np.testing.assert_array_equal(sigs[i],
+                                      plain.signature_unfused(docs[i]))
 
 
 def test_contract_census_on_card(cuda):

@@ -5,7 +5,7 @@ block give the span tree of their layers, parents found by containment;
 scan block's host arrays (a scan block goes over once for both lookups,
 under the span ``decontam.lookup``);
 ``dedup.candidate_count`` equals a hand count on an index with known band
-collisions; the six counters move only in their own context; and on the
+collisions; the seven counters move only in their own context; and on the
 card a second block of one
 shape captures no graph (``stream.graph_captures``).
 
@@ -102,7 +102,8 @@ def test_span_off_is_the_shared_null_context(monkeypatch):
 
 def test_add_batch_span_tree():
     dd = _deduper()
-    # one group of four rows, two blocks (a full one and its tail)
+    # the 100-symbol document signs as two segments of at most one block:
+    # five rows in two groups of one block each, one read-back for both
     docs = _docs([100, 60, 33, 4])
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         dd.add_batch(docs)
@@ -123,6 +124,7 @@ def test_add_batch_span_tree():
     count = lambda name: sum(s[0] == name for s in spans)
     assert count("dedup.add_batch") == count("dedup.sign") == 1
     assert count("dedup.tile") == count("stream.update_many") == 2
+    assert count("dedup.drain") == 1
     # a span is an operator event: the profiler repeats no annotation of it
     # on a device's timeline
     assert not any(s[3].is_user_annotation() for s in spans)
@@ -163,11 +165,17 @@ def _chunks_of(lengths):
 
 def test_staged_bytes_of_a_dedup_group():
     dd = _deduper()
-    # two groups of ROWS: the longest six documents, then the last two
+    # the four longest documents pass one block (64 symbols) and sign as
+    # two segments each, the second after 60 symbols (4 of history): three
+    # groups of ROWS segments, in 9 chunks where one row a document (the
+    # longest four, then the last two) would take 8 + 2
     lengths = [100, 90, 80, 70, 20, 3]
+    rows = [64] * 4 + [40, 30, 20, 10, 20, 3]
     per_chunk = 4 * ROWS * CHUNK + 4 * ROWS    # int32 tokens and lengths
-    want = per_chunk * (_chunks_of(lengths[:4]) + _chunks_of(lengths[4:]))
-    assert want == per_chunk * (8 + 2)
+    assert _chunks_of(lengths[:4]) + _chunks_of(lengths[4:]) == 8 + 2
+    want = per_chunk * (_chunks_of(rows[:4]) + _chunks_of([40, 30, 20, 20])
+                        + _chunks_of([10, 3]))
+    assert want == per_chunk * (4 + 4 + 1)
     before = stream.staged_bytes()
     dd.signature_many(_docs(lengths))
     assert stream.staged_bytes() - before == want
@@ -184,11 +192,12 @@ def test_staged_bytes_of_a_scan_block(impl):
     assert stream.staged_bytes() - before == STAGINGS[impl] * 4 * T * B * C
 
 
-# the port's six context-local counters, by their public getters
+# the port's seven context-local counters, by their public getters
 COUNTERS = {"stream.dispatch_count": stream.dispatch_count,
             "stream.staged_bytes": stream.staged_bytes,
             "stream.graph_captures": stream.graph_captures,
             "dedup.candidate_count": dedup.candidate_count,
+            "dedup.segment_count": dedup.segment_count,
             "sessions.dispatch_count": sessions.dispatch_count,
             "shard.merge_count": shard.merge_count}
 
@@ -207,9 +216,12 @@ def test_counters_are_context_local(impl):
     pool = sessions.SessionPool(tplan.DecodeSpec(n=2, log2_m=6), 2,
                                 np.arange(16, dtype=np.uint32),
                                 device="cpu")
+    dd = _deduper()
 
     def work():
         dc.update_stream_many(st, block)
+        # one row of one chunk
+        dd.signature_many(_docs([9]))
         shard.run_sharded(hll, _docs([2 * 16], 1)[0].reshape(2, 16),
                           mesh=shard.data_mesh(2, "cpu"))
         index.probe_batch(_keys([[1, 5], [1, 9]]))
@@ -220,11 +232,15 @@ def test_counters_are_context_local(impl):
 
     before = {name: get() for name, get in COUNTERS.items()}
     inner = contextvars.copy_context().run(work)
-    assert inner["stream.staged_bytes"] == (before["stream.staged_bytes"]
-                                            + STAGINGS[impl] * 4 * 16)
-    # one update_many of one chunk on the plain path
+    # the signing's tokens and lengths: (1, ROWS, CHUNK) and (1, ROWS)
+    assert inner["stream.staged_bytes"] == (
+        before["stream.staged_bytes"] + STAGINGS[impl] * 4 * 16
+        + 4 * ROWS * CHUNK + 4 * ROWS)
+    # two update_many of one chunk on the plain path
     assert inner["stream.dispatch_count"] == (
-        before["stream.dispatch_count"] + 1)
+        before["stream.dispatch_count"] + 2)
+    assert inner["dedup.segment_count"] == (
+        before["dedup.segment_count"] + 1)
     assert inner["stream.graph_captures"] == (
         before["stream.graph_captures"] + 1)
     # two from the index, one from the batch's earlier row
